@@ -11,10 +11,12 @@ Phases (any failure exits non-zero):
    card at the main path's shapes, plus one odd shape, and time kernel,
    plain version and one PyTorch call computing the same function.
 3. Hold K5 (fused BN-normalise + 1x1 conv + stats, forward) and K6 (its
-   backward) against their plain versions at every distinct 1x1 geometry
-   of the fused ResNet-101 trunk at batch 128 (bf16), plus ragged fp32
-   shapes; time the conv3 geometry of each stage against the plain
-   version, cuBLAS on the product alone, and the bound.
+   backward) against their plain versions at a ragged-M bf16 shape, at
+   every distinct 1x1 geometry of the fused ResNet-101 trunk at batch 128
+   (bf16: K6 on its wgmma route), plus ragged fp32 shapes (K6 on its tiled
+   route); time the conv3 geometry of each stage against the plain
+   version, cuBLAS on the product alone, and the bound, K6 on both routes
+   in the same run, and K6's total per train step on each route.
 4. The image-client half of a CreamFL round at the paper's width: three
    ResNet-18 clients (100 classes, feature_dim 256) take task and contrast
    steps, run a local test and extract features over the full 50 000-row
@@ -23,7 +25,8 @@ Phases (any failure exits non-zero):
 5. The server at the paper's width (ResNet-101 + BERT-base, embed 256,
    bf16, batch 128 at 224², max_len 32): train steps, an extraction step at
    batch 256, a distill step against 50 000 x 256 targets and an eval step,
-   on the fused trunk (70 K5 and 70 K6 launches per train step), then the
+   on the fused trunk (70 K5 and 70 K6 launches per train step, every K6
+   launch on the wgmma route), then the
    same on the standard trunk from the same weights, compared at step 0.
 
 Each path runs with the launch counts zeroed just before it and read just
@@ -120,6 +123,31 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, reps: int = 3):
+    """Device milliseconds per call of each kernel that ``fn()`` launches,
+    by short kernel name (torch.profiler over ``reps`` calls after one
+    warm-up): the device's share of a call whose CUDA-event time may
+    include the host's."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            name = name.split("::")[-1]
+            out[name] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return dict(out)
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -376,9 +404,14 @@ def check_fused(tag, x, w, inv, beta, relu, dy, dssum, dssq):
 
 
 def fused_kernel_phase(seed: int):
-    """K5/K6 vs plain at each distinct 1x1 geometry of the R101 trunk at
-    batch SERVER_BS (bf16), plus a ragged fp32 shape; time the conv3
-    geometry of each stage. Returns the JSON records of K5 and K6."""
+    """K5/K6 vs plain at a ragged-M bf16 shape first (a hang of the K6 wgmma
+    route shows at once), then at each distinct 1x1 geometry of the R101
+    trunk at batch SERVER_BS (bf16, K6 on the wgmma route), then ragged
+    fp32 shapes (K6 on the tiled route); time the conv3 geometry of each
+    stage on both K6 routes, and K6 per train step on each route. Returns
+    the JSON records of K5 and K6."""
+    from collections import Counter
+
     from creamfl_tpu_torch.models.resnet import RESNET_CONFIGS
     from creamfl_tpu_torch.ops import fused_bn_mm as P
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
@@ -393,7 +426,9 @@ def fused_kernel_phase(seed: int):
         f"distinct geometries")
     errs = {"mm_bn_stats_fwd": 0.0, "mm_bn_stats_bwd": 0.0}
     stage_errs = {}  # (kernel, stage) -> worst error over its geometries
-    cases = [(c, torch.bfloat16) for c in distinct]
+    # Ragged M (1000 = 7 x 128 + 104) in bf16: the wgmma route's tile edge.
+    cases = [((0, "ragged", 1000, 64, 128, True, True), torch.bfloat16)]
+    cases += [(c, torch.bfloat16) for c in distinct]
     # Ragged fp32 shapes: M a multiple of no tile; K 48 and N 80 take the
     # 16-byte loads with partial tiles, K 45 and N 77 the element-wise
     # fallback at every row end.
@@ -407,7 +442,14 @@ def fused_kernel_phase(seed: int):
                f"{str(dtype)[6:]}")
         x, w, inv, beta, dy, dssum, dssq = _fused_inputs(
             m, k, n, affine, dtype, gen, dev)
+        before = dict(FK.mm_bn_stats_bwd.launches_by_route)
         e5, e6 = check_fused(tag, x, w, inv, beta, relu, dy, dssum, dssq)
+        want = "wgmma" if dtype == torch.bfloat16 else "tiled"
+        took = {r: c - before[r]
+                for r, c in FK.mm_bn_stats_bwd.launches_by_route.items()}
+        if took != {r: int(r == want) for r in FK.ROUTES}:
+            raise AssertionError(f"{tag}: K6 took routes {took}, not "
+                                 f"{want}")
         for name, e in (("mm_bn_stats_fwd", e5), ("mm_bn_stats_bwd", e6)):
             errs[name] = max(errs[name], e)
             stage_errs[name, stage] = max(stage_errs.get((name, stage), 0.0),
@@ -433,9 +475,17 @@ def fused_kernel_phase(seed: int):
         fwd["bound_ms"], fwd["bound_by"] = bound_ms(
             2.0 * m * k * n, 2.0 * (m * k + k * n + m * n) + 4.0 * 2 * (k + n),
             PEAK_BF16_FLOPS)
+
+        def bwd_on(route):
+            return lambda: FK.mm_bn_stats_bwd(x, w, inv, beta, y, dy, dssum,
+                                              dssq, relu, route=route)
+
+        # Both K6 routes in turns on the same inputs: wgmma, tiled, wgmma.
+        ms_w = cuda_time_ms(bwd_on("wgmma"))
+        ms_t = cuda_time_ms(bwd_on("tiled"))
         bwd = dict(
-            ms=cuda_time_ms(lambda: FK.mm_bn_stats_bwd(
-                x, w, inv, beta, y, dy, dssum, dssq, relu)),
+            ms=min(ms_w, cuda_time_ms(bwd_on("wgmma"))),
+            tiled_ms=ms_t,
             plain_ms=cuda_time_ms(lambda: P.mm_bn_stats_backward_reference(
                 x, w, inv, beta, y, dy, dssum, dssq, relu)),
             library_ms=cuda_time_ms(lambda: (torch.matmul(dyt, w.t()),
@@ -444,18 +494,50 @@ def fused_kernel_phase(seed: int):
             4.0 * m * k * n,
             2.0 * (2 * m * k + 2 * k * n + 2 * m * n) + 4.0 * (4 * k + 2 * n),
             PEAK_BF16_FLOPS)
+        parts = device_ms_by_kernel(bwd_on("wgmma"))
+        bwd["device_ms"] = sum(parts.values())
+        bwd["tiled_device_ms"] = sum(
+            device_ms_by_kernel(bwd_on("tiled")).values())
+        log(f"  K6 s{stage} conv3 device time per call: wgmma route "
+            f"{bwd['device_ms']:.3f} ms "
+            + json.dumps({kern: round(v, 4) for kern, v in parts.items()})
+            + f", tiled route {bwd['tiled_device_ms']:.3f} ms")
         for name, r in (("mm_bn_stats_fwd", fwd), ("mm_bn_stats_bwd", bwd)):
+            extra = (f" (tiled route {r['tiled_ms']:.3f} ms)"
+                     if "tiled_ms" in r else "")
             log(f"  time {name} s{stage} conv3 M={m} K={k} N={n}: kernel "
-                f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
-                f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-                f"({r['bound_by']})")
+                f"{r['ms']:.3f} ms{extra}, plain {r['plain_ms']:.3f} ms, "
+                f"library {r['library_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
             rows.append(dict(name=name, stage=stage, m=m, k=k, n=n, **r,
                              stage_max_abs_err=stage_errs[name, stage]))
         if stage == JSON_STAGE:
-            rec = {"mm_bn_stats_fwd": fwd, "mm_bn_stats_bwd": bwd}
+            rec = {"mm_bn_stats_fwd": fwd,
+                   "mm_bn_stats_bwd": {key: v for key, v in bwd.items()
+                                       if key not in ("tiled_ms", "device_ms",
+                                                      "tiled_device_ms")}}
         del x, w, inv, beta, dy, a, y, dyt
         torch.cuda.empty_cache()
     log(f"[fused] per-stage times {json.dumps(rows)}")
+
+    # K6 per train step on each route: each distinct geometry timed once
+    # per route, times its launches per step (the counts sum to 70).
+    per_call = Counter(calls)
+    step_ms = dict.fromkeys(FK.ROUTES, 0.0)
+    for geom in distinct:
+        _, _, m, k, n, affine, relu = geom
+        x, w, inv, beta, dy, dssum, dssq = _fused_inputs(
+            m, k, n, affine, torch.bfloat16, gen, dev)
+        y = FK.mm_bn_stats_fwd(x, w, inv, beta, relu)[0]
+        for route in FK.ROUTES:
+            step_ms[route] += per_call[geom] * cuda_time_ms(
+                lambda: FK.mm_bn_stats_bwd(x, w, inv, beta, y, dy, dssum,
+                                           dssq, relu, route=route), reps=5)
+        del x, w, inv, beta, dy, y
+        torch.cuda.empty_cache()
+    log(f"[fused] K6 per train step ({sum(per_call.values())} launches over "
+        f"{len(distinct)} geometries): wgmma route {step_ms['wgmma']:.3f} ms, "
+        f"tiled route {step_ms['tiled']:.3f} ms")
     for name in rec:
         rec[name]["max_abs_err"] = errs[name]
     return rec
@@ -620,7 +702,9 @@ def profile_step(engine, state, inputs, tag: str, top: int = 12) -> None:
     total = sum(by_name.values())
     fused = sum(v for k, v in by_name.items() if any(
         n in k for n in ("fwd_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
-                         "sum_rows_kernel", "sum_splits_kernel")))
+                         "bwd_prologue_kernel", "bwd_dx_wgmma_kernel",
+                         "bwd_dw_wgmma_kernel", "sum_rows_kernel",
+                         "sum_splits_kernel")))
     log(f"[profile] {tag} train step: wall {wall / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms (idle share {1 - busy / wall:.3f}), "
         f"kernel time {total / 1e3:.3f} ms, of it fused_bn_mm "
@@ -635,7 +719,8 @@ def run_server(engine, state, seed: int, dev, timer, tag: str,
     batch 0 (the step-0 features), SERVER_STEPS train steps, an extraction
     step at EXTRACT_BS, a distill step and an eval step. Each phase is
     seeded so that two engines draw the same dropout. ``count`` returns the
-    kernel launch counts (K5, K6), checked per train step. Returns
+    kernel launch counts (K5, K6, K6 on the wgmma route), checked per train
+    step: every K6 launch of the bf16 trunk takes the wgmma route. Returns
     (step-0 trunk grid, step-0 features, losses, fp32 step-0 grid of a copy
     of the trunk or None)."""
     vocab = engine.model.bert_config.vocab_size
@@ -676,10 +761,12 @@ def run_server(engine, state, seed: int, dev, timer, tag: str,
             state, ldict = engine.train_step(state, *inputs)
         losses.append(float(ldict["loss"]))
         if count:
-            fwd, bwd = (a - b for a, b in zip(count(), before))
-            if (fwd, bwd) != (70, 70):
-                raise AssertionError(f"train step {step}: K5 launched {fwd} "
-                                     f"and K6 {bwd} times, not 70 and 70")
+            fwd, bwd, bwd_wgmma = (a - b for a, b in zip(count(), before))
+            if (fwd, bwd, bwd_wgmma) != (70, 70, 70):
+                raise AssertionError(
+                    f"train step {step}: K5 launched {fwd} and K6 {bwd} "
+                    f"times ({bwd_wgmma} on the wgmma route), not 70, 70 "
+                    f"and 70")
     crit = scalars()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{tag}: non-finite losses {losses}")
@@ -763,7 +850,8 @@ def server_phase(seed: int, dev=torch.device("cuda")):
 
         def count():
             c = FK.launch_counts()
-            return c["mm_bn_stats_fwd"], c["mm_bn_stats_bwd"]
+            return (c["mm_bn_stats_fwd"], c["mm_bn_stats_bwd"],
+                    FK.mm_bn_stats_bwd.launches_by_route["wgmma"])
 
         results[tag] = run_server(
             engine, state, seed, dev, timer, tag, targets,

@@ -6,11 +6,16 @@
 //   * fwd_kernel + sum_rows_kernel          <- _fwd_pallas / _fwd_kernel (K5)
 //       y = relu?(x * inv + beta) @ W, plus the fp32 column sum and sum of
 //       squares of the STORED y (rounded to the compute dtype);
-//   * bwd_dx_kernel + bwd_dw_kernel + sum_splits_kernel + sum_rows_kernel
-//                                           <- _bwd_pallas / _bwd_kernel (K6)
+//   * K6, _bwd_pallas / _bwd_kernel (creamfl_tpu/ops/fused_bn_mm.py:212):
 //       dyt = dy + dssum + 2 y dssq (rounded to the compute dtype),
 //       dx = (dyt W^T masked by the relu) * inv, dW = a^T dyt,
-//       dinv = sum_m da * x, dbeta = sum_m da.
+//       dinv = sum_m da * x, dbeta = sum_m da; on two routes:
+//       - wgmma (bf16; K, N multiples of 8; 16-byte aligned bases):
+//         bwd_prologue_kernel + bwd_dx_wgmma_kernel + bwd_dw_wgmma_kernel
+//         (on the TMA + wgmma core of wgmma_core.cuh) + sum_splits_kernel
+//         + sum_rows_kernel;
+//       - tiled (fp32, or shapes TMA cannot describe): bwd_dx_kernel +
+//         bwd_dw_kernel + the same merges.
 // The identity variant (inv = 1, beta = 0 statically) skips the fp32
 // affine and computes neither dinv nor dbeta.
 //
@@ -21,9 +26,29 @@
 // byte, so the bytes bound it; from stage 2 on (K, N >= 128 and up to
 // 2048) the bf16 tensor cores bound it (989 TFLOP/s dense).
 //
-// What the design does about it:
-//   * One tiled GEMM core (128 x 64 block tile, depth step 32, 256 threads)
-//     serves all three products. The operands are staged through shared
+// K6's wgmma route, and what it does about that:
+//   * The prologue is one elementwise pass (16-byte loads and stores) that
+//     writes dyt [M, N] and a = relu?(x * inv + beta) [M, K] in bf16, with
+//     the same rounded fp32 steps as the tiled route's fetches (bit for bit
+//     the plain version). Both products then read plain bf16 operands that
+//     TMA can copy into swizzled shared memory: dx with both operands
+//     K-major (dyt rows, and W held as [K, N]), dW with both MN-major
+//     (a and dyt are stored [M][.], the depth m as the row), through
+//     wgmma's transpose immediates. dW puts the larger of K and N on the
+//     tile's 128 rows and is split over M into fp32 partials as below.
+//   * The extra pass costs bytes: it reads dy, y, x and writes dyt and a,
+//     about 1.8 KB a row at stage 1 (0.72 GB at M = 401 408, ~0.21 ms at
+//     3.35 TB/s, beside a whole-K6 bound of 0.153 ms). From stage 2 on,
+//     where the tensor cores bound the products, it costs little. Folding
+//     it back into the operand path is a later step.
+//   * The dx epilogue works from the accumulator registers: the relu mask
+//     from the fp32 pre-activation recomputed from x, dx = bf16(da * inv),
+//     and column partials of da * x and da reduced by warp shuffles and
+//     then across the 8 warps in order.
+//
+// K5 and K6's tiled route: one tiled GEMM core (128 x 64 block tile, depth
+// step 32, 256 threads) serves all three of their products.
+//   * The operands are staged through shared
 //     memory by per-kernel "fetch" functions that apply the prologue on the
 //     way in (the fp32 affine + relu of x, or the fold of the stat
 //     cotangents into dy), so the normalised operand never exists in device
@@ -41,19 +66,22 @@
 //   * The accumulator tile goes to shared memory once; the epilogue rounds
 //     each value to the compute dtype, stores it and sums the ROUNDED value
 //     (and its square) per column over the valid rows.
-//   * The TPU grid ran its row blocks in order and carried the stats and
-//     dW in VMEM across them. Here row blocks run in parallel: each writes
-//     per-block column partials, and dW is split over M (the split count is
-//     chosen by the host from M and K*N) into [splits, N, K] partials. Small
-//     second passes merge them in a fixed order: deterministic, no float
-//     atomics.
 //   * Ragged M, K and N are masked in the fetches and epilogues: no padding
 //     to 128 lanes, so K = 64 costs a 64-deep product.
 //
+// On both routes: the TPU grid ran its row blocks in order and carried the
+// stats and dW in VMEM across them. Here row blocks run in parallel: each
+// writes per-block column partials, and dW is split over M (the split
+// count is chosen by the host from M and the dW tile count) into fp32
+// partials. Small second passes merge them in a fixed order:
+// deterministic, no float atomics. On the wgmma route TMA fills rows past
+// M with zeros, which add nothing to dW, dinv or dbeta, and the epilogue
+// stores no dx there.
+//
 // C interface (bound with ctypes): pointers and the stream are void*;
 // dtype 0 = fp32, 1 = bf16; every function returns the cudaError_t of its
-// launches (0 = success). W is passed as [N, K] row-major (torch's
-// [out, in] conv weight); dW is returned in the same layout.
+// launches (0 = success). The tiled functions take W as [N, K] row-major
+// (torch's [out, in] conv weight) and return dW in the same layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +89,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma_core.cuh"
 
 namespace {
 
@@ -656,6 +686,299 @@ cudaError_t backward(const void* x, const void* w, const void* inv,
                   static_cast<float*>(dbeta), s);
 }
 
+// ===========================================================================
+// K6 on the wgmma route (bf16, K % 8 == 0, N % 8 == 0, 16-byte aligned
+// bases): a prologue pass, then two plain GEMMs on the TMA + wgmma core of
+// wgmma_core.cuh, then the same merges as above.
+// ===========================================================================
+
+// dyt = bf16((dy + dssum) + 2y * dssq) over [M, N], and a = bf16(relu?(x *
+// inv + beta)) over [M, K] (relu?(x) on the identity variant; no a at all
+// without affine and relu: the GEMM reads x). One thread per 8 elements,
+// 16-byte loads and stores; dyt chunks first, then a chunks. The rounding
+// steps are those of fold8 and activation, so the pass equals the plain
+// version bit for bit.
+template <bool kAffine, bool kRelu>
+__global__ void __launch_bounds__(256)
+bwd_prologue_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ y,
+                    const float* __restrict__ dssum,
+                    const float* __restrict__ dssq,
+                    const bf16* __restrict__ x, const float* __restrict__ inv,
+                    const float* __restrict__ beta, size_t chunks_dyt,
+                    size_t chunks_a, int N, int K, bf16* __restrict__ dyt,
+                    bf16* __restrict__ a) {
+  size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  bf16 v[kVec];
+  if (i < chunks_dyt) {
+    const size_t e = i * kVec;
+    const int n = static_cast<int>(e % N);
+    bf16 yv[kVec];
+    load8(dy + e, v);
+    load8(y + e, yv);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      v[j] = from_f<bf16>(__fadd_rn(__fadd_rn(to_f(v[j]), dssum[n + j]),
+                                    __fmul_rn(2.f * to_f(yv[j]), dssq[n + j])));
+    store8(dyt + e, v);
+    return;
+  }
+  i -= chunks_dyt;
+  if (i >= chunks_a) return;
+  const size_t e = i * kVec;
+  const int k = static_cast<int>(e % K);
+  load8(x + e, v);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+    v[j] = activation<bf16, kAffine, kRelu>(v[j], inv, beta, k + j);
+  store8(a + e, v);
+}
+
+// da[M, K] = dyt[M, N] . W (W held as [K, N]: both operands K-major, the
+// depth n contiguous). Epilogue from the accumulator registers: the relu
+// mask from the fp32 pre-activation recomputed from x, dx = bf16(da * inv),
+// and per-block column partials of da * x and da (warp shuffles over the
+// 8 lanes that share a column, then the 8 warps in order through shared
+// memory) into part_dinv / part_dbeta [ceil(M / 128), K].
+// grid (ceil(K / BN), ceil(M / 128)).
+template <int BN, bool kAffine, bool kRelu>
+__global__ void __launch_bounds__(wgmma_core::kThreads)
+bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap map_dyt,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const bf16* __restrict__ x,
+                    const float* __restrict__ inv,
+                    const float* __restrict__ beta, int M, int K, int N,
+                    bf16* __restrict__ dx, float* __restrict__ part_dinv,
+                    float* __restrict__ part_dbeta) {
+  using namespace wgmma_core;
+  extern __shared__ unsigned char smem[];
+  const int m0 = blockIdx.y * kTileRows, k0 = blockIdx.x * BN;
+  float acc[BN / 2];
+  auto issue = [&](uint32_t a_dst, uint32_t b_dst, uint32_t bar, int kt) {
+    mbar_expect_tx(bar, Ring<BN>::kStageBytes);
+    tma_load_2d(a_dst, &map_dyt, kt * kDepth, m0, bar);
+    tma_load_2d(b_dst, &map_w, kt * kDepth, k0, bar);
+  };
+  mainloop<BN, false>(smem, (N + kDepth - 1) / kDepth, issue, acc);
+
+  const int row0 = m0 + (threadIdx.x >> 7) * 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // the ring is free: column partials go there
+  float* red_i = reinterpret_cast<float*>(ring_base(smem));
+  float* red_b = red_i + 8 * BN;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = acc_col(4 * j), k = k0 + c;
+    float si0 = 0.f, si1 = 0.f, sb0 = 0.f, sb1 = 0.f;
+    if (k < K) {
+      const float iv0 = kAffine ? inv[k] : 1.f, iv1 = kAffine ? inv[k + 1] : 1.f;
+      const float bt0 = kAffine ? beta[k] : 0.f;
+      const float bt1 = kAffine ? beta[k + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row0 + acc_row(4 * j + 2 * h);
+        if (m >= M) continue;
+        const size_t at = static_cast<size_t>(m) * K + k;
+        const __nv_bfloat162 xv =
+            *reinterpret_cast<const __nv_bfloat162*>(x + at);
+        const float x0 = __low2float(xv), x1 = __high2float(xv);
+        float d0 = acc[4 * j + 2 * h], d1 = acc[4 * j + 2 * h + 1];
+        if (kAffine) {
+          if (kRelu && !(__fadd_rn(__fmul_rn(x0, iv0), bt0) > 0.f)) d0 = 0.f;
+          if (kRelu && !(__fadd_rn(__fmul_rn(x1, iv1), bt1) > 0.f)) d1 = 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(dx + at) =
+              __floats2bfloat162_rn(__fmul_rn(d0, iv0), __fmul_rn(d1, iv1));
+          si0 += d0 * x0;
+          si1 += d1 * x1;
+          sb0 += d0;
+          sb1 += d1;
+        } else {
+          if (kRelu && !(x0 > 0.f)) d0 = 0.f;
+          if (kRelu && !(x1 > 0.f)) d1 = 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(dx + at) =
+              __floats2bfloat162_rn(d0, d1);
+        }
+      }
+    }
+    if (kAffine) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        si0 += __shfl_xor_sync(0xffffffffu, si0, o);
+        si1 += __shfl_xor_sync(0xffffffffu, si1, o);
+        sb0 += __shfl_xor_sync(0xffffffffu, sb0, o);
+        sb1 += __shfl_xor_sync(0xffffffffu, sb1, o);
+      }
+      if (lane < 4) {
+        red_i[warp * BN + c] = si0;
+        red_i[warp * BN + c + 1] = si1;
+        red_b[warp * BN + c] = sb0;
+        red_b[warp * BN + c + 1] = sb1;
+      }
+    }
+  }
+  if (!kAffine) return;
+  __syncthreads();
+  const int t = threadIdx.x % BN;
+  const float* red = threadIdx.x < BN ? red_i : red_b;
+  float* part = threadIdx.x < BN ? part_dinv : part_dbeta;
+  if (threadIdx.x < 2 * BN && k0 + t < K) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += red[w * BN + t];
+    part[static_cast<size_t>(blockIdx.y) * K + k0 + t] = s;
+  }
+}
+
+// C[R, C] partials over one split of the rows m: C(r, c) = sum over m of
+// P[m, r] * Q[m, c], both operands stored [M][.] (MN-major for wgmma).
+// The host passes (P, Q) = (a, dyt) for dW [K, N] or (dyt, a) for dW^T
+// [N, K], whichever puts the larger width on the 128-row side.
+// grid (ceil(C / BN), ceil(R / 128), splits); part [splits, R, C] fp32.
+template <int BN>
+__global__ void __launch_bounds__(wgmma_core::kThreads)
+bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_p,
+                    const __grid_constant__ CUtensorMap map_q, int R, int C,
+                    int M, int rows_per_split, float* __restrict__ part) {
+  using namespace wgmma_core;
+  extern __shared__ unsigned char smem[];
+  const int r0 = blockIdx.y * kTileRows, c0 = blockIdx.x * BN;
+  const int m_begin = blockIdx.z * rows_per_split;
+  const int rows = min(rows_per_split, M - m_begin);
+  // A box wholly past R (R = 64) is not loaded: the warpgroup that reads
+  // it computes rows that are never stored.
+  const int a_boxes = R - r0 > 64 ? 2 : 1;
+  float acc[BN / 2];
+  auto issue = [&](uint32_t a_dst, uint32_t b_dst, uint32_t bar, int kt) {
+    const int m = m_begin + kt * kDepth;
+    mbar_expect_tx(bar, (a_boxes + BN / 64) * kBoxBytes);
+    for (int b = 0; b < a_boxes; ++b)
+      tma_load_2d(a_dst + b * kBoxBytes, &map_p, r0 + 64 * b, m, bar);
+    for (int b = 0; b < BN / 64; ++b)
+      tma_load_2d(b_dst + b * kBoxBytes, &map_q, c0 + 64 * b, m, bar);
+  };
+  mainloop<BN, true>(smem, (rows + kDepth - 1) / kDepth, issue, acc);
+
+  const int row0 = r0 + (threadIdx.x >> 7) * 64;
+  float* out = part + static_cast<size_t>(blockIdx.z) * R * C;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int r = row0 + acc_row(i), c = c0 + acc_col(i);
+    if (r < R && c < C)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * C + c) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+template <int BN, bool kAffine, bool kRelu>
+cudaError_t launch_dx_wgmma(const bf16* dyt, const bf16* w_kn, const bf16* x,
+                            const float* inv, const float* beta, int M, int K,
+                            int N, bf16* dx, float* part_dinv,
+                            float* part_dbeta, cudaStream_t s) {
+  using wgmma_core::Ring;
+  // The ring is above the 48 KB of dynamic shared memory given by default.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bwd_dx_wgmma_kernel<BN, kAffine, kRelu>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap map_dyt, map_w;
+  cudaError_t err = wgmma_core::encode_tensor_map_2d(
+      &map_dyt, dyt, N, M, wgmma_core::kDepth, wgmma_core::kTileRows);
+  if (err != cudaSuccess) return err;
+  err = wgmma_core::encode_tensor_map_2d(&map_w, w_kn, N, K,
+                                         wgmma_core::kDepth, BN);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(K, BN), cdiv(M, wgmma_core::kTileRows));
+  bwd_dx_wgmma_kernel<BN, kAffine, kRelu>
+      <<<grid, wgmma_core::kThreads, Ring<BN>::kSmemBytes, s>>>(
+          map_dyt, map_w, x, inv, beta, M, K, N, dx, part_dinv, part_dbeta);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_dw_wgmma(const bf16* p, const bf16* q, int R, int C, int M,
+                            int splits, int rows_per_split, float* part,
+                            cudaStream_t s) {
+  using wgmma_core::Ring;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bwd_dw_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Ring<BN>::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap map_p, map_q;
+  cudaError_t err =
+      wgmma_core::encode_tensor_map_2d(&map_p, p, R, M, 64, wgmma_core::kDepth);
+  if (err != cudaSuccess) return err;
+  err = wgmma_core::encode_tensor_map_2d(&map_q, q, C, M, 64,
+                                         wgmma_core::kDepth);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(C, BN), cdiv(R, wgmma_core::kTileRows), splits);
+  bwd_dw_wgmma_kernel<BN>
+      <<<grid, wgmma_core::kThreads, Ring<BN>::kSmemBytes, s>>>(
+          map_p, map_q, R, C, M, rows_per_split, part);
+  return cudaGetLastError();
+}
+
+template <bool kAffine, bool kRelu>
+cudaError_t backward_wgmma(const void* x, const void* w_kn, const void* inv,
+                           const void* beta, const void* y, const void* dy,
+                           const void* dssum, const void* dssq, int M, int K,
+                           int N, int bn_dx, int dw_rows_k, int bn_dw,
+                           int splits, int rows_per_split, void* dyt,
+                           void* a, void* dx, void* part_dw, void* dw,
+                           void* part_dinv, void* part_dbeta, void* dinv,
+                           void* dbeta, cudaStream_t s) {
+  const bf16* xt = static_cast<const bf16*>(x);
+  const float* invf = static_cast<const float*>(inv);
+  const float* betaf = static_cast<const float*>(beta);
+  bf16* dytb = static_cast<bf16*>(dyt);
+  const bool copy_a = kAffine || kRelu;
+  const bf16* act = copy_a ? static_cast<const bf16*>(a) : xt;
+  const size_t chunks_dyt = static_cast<size_t>(M) * N / kVec;
+  const size_t chunks_a = copy_a ? static_cast<size_t>(M) * K / kVec : 0;
+  const size_t chunks = chunks_dyt + chunks_a;
+  bwd_prologue_kernel<kAffine, kRelu>
+      <<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+          static_cast<const bf16*>(dy), static_cast<const bf16*>(y),
+          static_cast<const float*>(dssum), static_cast<const float*>(dssq),
+          xt, invf, betaf, chunks_dyt, chunks_a, N, K, dytb,
+          static_cast<bf16*>(a));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  float* pdinv = static_cast<float*>(part_dinv);
+  float* pdbeta = static_cast<float*>(part_dbeta);
+  const bf16* wk = static_cast<const bf16*>(w_kn);
+  err = bn_dx == 128
+            ? launch_dx_wgmma<128, kAffine, kRelu>(dytb, wk, xt, invf, betaf,
+                                                   M, K, N,
+                                                   static_cast<bf16*>(dx),
+                                                   pdinv, pdbeta, s)
+            : launch_dx_wgmma<64, kAffine, kRelu>(dytb, wk, xt, invf, betaf,
+                                                  M, K, N,
+                                                  static_cast<bf16*>(dx),
+                                                  pdinv, pdbeta, s);
+  if (err != cudaSuccess) return err;
+
+  const bf16* p = dw_rows_k ? act : dytb;
+  const bf16* q = dw_rows_k ? dytb : act;
+  const int R = dw_rows_k ? K : N, C = dw_rows_k ? N : K;
+  float* pdw = static_cast<float*>(part_dw);
+  err = bn_dw == 128
+            ? launch_dw_wgmma<128>(p, q, R, C, M, splits, rows_per_split, pdw,
+                                   s)
+            : launch_dw_wgmma<64>(p, q, R, C, M, splits, rows_per_split, pdw,
+                                  s);
+  if (err != cudaSuccess) return err;
+  const size_t count = static_cast<size_t>(R) * C;
+  sum_splits_kernel<bf16><<<static_cast<unsigned>((count + 255) / 256), 256,
+                            0, s>>>(pdw, splits, count,
+                                    static_cast<bf16*>(dw));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kAffine) return err;
+  const int blocks = static_cast<int>(cdiv(M, wgmma_core::kTileRows));
+  err = sum_rows(pdinv, blocks, K, static_cast<float*>(dinv), s);
+  if (err != cudaSuccess) return err;
+  return sum_rows(pdbeta, blocks, K, static_cast<float*>(dbeta), s);
+}
+
 }  // namespace
 
 // One instantiation per (dtype, affine, relu).
@@ -714,6 +1037,51 @@ int fbm_backward(int dtype, int affine, int relu, const void* x,
   FBM_DISPATCH(backward, dtype, affine, relu, x, w, inv, beta, y, dy, dssum,
                dssq, M, K, N, splits, rows_per_split, dx, part_dw, dw,
                part_dinv, part_dbeta, dinv, dbeta, s);
+}
+
+// K6 on the wgmma route: bf16 only; K and N multiples of 8 and every
+// pointer 16-byte aligned (TMA's global strides). w_kn is W as [K, N] (the
+// depth n contiguous). bn_dx, bn_dw: the B tile width of the dx and dW
+// GEMMs (64 or 128). dw_rows_k: dw is written as [K, N] (1) or [N, K] (0).
+// dyt [M, N] and a [M, K] bf16 scratch (a may be null without affine and
+// relu); part_dw [splits, rows, cols] and part_dinv / part_dbeta
+// [ceil(M/128), K] fp32 scratch; rows_per_split a multiple of 64.
+int fbm_backward_wgmma(int affine, int relu, const void* x, const void* w_kn,
+                       const void* inv, const void* beta, const void* y,
+                       const void* dy, const void* dssum, const void* dssq,
+                       int M, int K, int N, int bn_dx, int dw_rows_k,
+                       int bn_dw, int splits, int rows_per_split, void* dyt,
+                       void* a, void* dx, void* part_dw, void* dw,
+                       void* part_dinv, void* part_dbeta, void* dinv,
+                       void* dbeta, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool copy_a = affine || relu;
+  const void* need[] = {x, w_kn, y, dy, dyt, dx, copy_a ? a : x};
+  bool ok = M > 0 && K % kVec == 0 && N % kVec == 0 && K > 0 && N > 0 &&
+            (bn_dx == 64 || bn_dx == 128) && (bn_dw == 64 || bn_dw == 128) &&
+            rows_per_split % wgmma_core::kDepth == 0 &&
+            static_cast<long long>(splits) * rows_per_split >= M;
+  for (const void* p : need) ok = ok && p != nullptr && aligned16(p);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (affine)
+    return static_cast<int>(
+        relu ? backward_wgmma<true, true>(
+                   x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
+                   dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
+                   part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s)
+             : backward_wgmma<true, false>(
+                   x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
+                   dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
+                   part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s));
+  return static_cast<int>(
+      relu ? backward_wgmma<false, true>(
+                 x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
+                 dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
+                 part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s)
+           : backward_wgmma<false, false>(
+                 x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
+                 dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
+                 part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s));
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 """Build a kernel source of ``csrc/`` with nvcc and load it with ctypes.
 
 Each source is compiled on its own, at first use, into
-``creamfl_tpu_torch/_build/<hash of source and flags>/lib<name>.so`` (the
-directory is git-ignored), so a changed source gets a new library and an
-unchanged one is built once. The libraries have a plain C interface: no
-PyTorch headers, so a build takes seconds.
+``creamfl_tpu_torch/_build/<hash>/lib<name>.so`` (the directory is
+git-ignored), where the hash covers the source, every ``*.cuh`` header
+beside it (which the source may include) and the flags: a changed source
+or header gets a new library and an unchanged one is built once. The
+libraries have a plain C interface: no PyTorch headers, so a build takes
+seconds.
 """
 
 from __future__ import annotations
@@ -40,8 +42,11 @@ def nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{source.stem}.so"
 
 

@@ -46,40 +46,69 @@ def mm_bn_stats_reference(x: torch.Tensor, w: torch.Tensor,
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
+def bwd_prologue_reference(
+        x: torch.Tensor, inv: Optional[torch.Tensor],
+        beta: Optional[torch.Tensor], y: torch.Tensor, dy: torch.Tensor,
+        dssum: torch.Tensor, dssq: torch.Tensor, relu: bool,
+        dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dyt, a) in ``dtype``: the operands of K6's two products.
+
+    The stat cotangents fold into dy in fp32 from the stored y
+    (d ssum/dy = 1, d ssq/dy = 2y) and the folded dyt is rounded once;
+    a = relu?(x * inv + beta) in fp32, rounded once (relu?(x) on the
+    identity variant, ``inv`` and ``beta`` None)."""
+    dyt = (dy.float() + dssum) + (2.0 * y.float()) * dssq
+    if inv is None:
+        a = torch.relu(x) if relu else x
+    else:
+        a = x.float() * inv + beta
+        if relu:
+            a = torch.relu(a)
+    return dyt.to(dtype), a.to(dtype)
+
+
+def bwd_dx_reference(
+        x: torch.Tensor, w: torch.Tensor, inv: Optional[torch.Tensor],
+        beta: Optional[torch.Tensor], dyt: torch.Tensor, relu: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dx, dinv, dbeta) from the folded dyt: da = dyt @ w^T in fp32, masked
+    where the pre-activation (x * inv + beta in fp32, or x on the identity
+    variant) is not > 0; dx = da * inv rounded to x's dtype, dinv and dbeta
+    the fp32 column sums of da * x and da (None on the identity variant)."""
+    da = _matmul_f32(dyt, w.t())
+    zero = torch.zeros((), dtype=da.dtype)
+    if inv is None:
+        if relu:
+            da = torch.where(x > 0, da, zero)
+        return da.to(x.dtype), None, None
+    xf = x.float()
+    if relu:
+        da = torch.where(xf * inv + beta > 0, da, zero)
+    return (da * inv).to(x.dtype), (da * xf).sum(0), da.sum(0)
+
+
+def bwd_dw_reference(a: torch.Tensor, dyt: torch.Tensor) -> torch.Tensor:
+    """dW = a^T @ dyt with fp32 accumulation, rounded to the operands'
+    dtype."""
+    return _matmul_f32(a.t(), dyt).to(dyt.dtype)
+
+
 def mm_bn_stats_backward_reference(
         x: torch.Tensor, w: torch.Tensor, inv: Optional[torch.Tensor],
         beta: Optional[torch.Tensor], y: torch.Tensor, dy: torch.Tensor,
         dssum: torch.Tensor, dssq: torch.Tensor, relu: bool
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
            Optional[torch.Tensor]]:
-    """Plain backward of ``mm_bn_stats`` (what K6 computes). ``inv`` and
-    ``beta`` None select the identity variant, which returns no dinv/dbeta.
-
-    The stat cotangents fold into dy in fp32 from the stored y
-    (d ssum/dy = 1, d ssq/dy = 2y), and the folded dyt is rounded to the
-    compute dtype before both products. The relu mask is ``a > 0`` after
-    the fp32 affine, or ``x > 0`` on the identity path.
+    """Plain backward of ``mm_bn_stats`` (what K6 computes), in the three
+    steps of its wgmma route: the prologue (``bwd_prologue_reference``),
+    the dx product (``bwd_dx_reference``), the dW product
+    (``bwd_dw_reference``). ``inv`` and ``beta`` None select the identity
+    variant, which returns no dinv/dbeta.
     Returns (dx in x.dtype, dw [K, N] in w.dtype, dinv, dbeta fp32)."""
-    dyt = (dy.float() + dssum) + (2.0 * y.float()) * dssq
-    dyt_c = dyt.to(w.dtype)
-    da = _matmul_f32(dyt_c, w.t())
-    if inv is None:
-        if relu:
-            da = torch.where(x > 0, da, torch.zeros((), dtype=da.dtype))
-            a = torch.relu(x)
-        else:
-            a = x
-        dx, dinv, dbeta = da.to(x.dtype), None, None
-    else:
-        xf = x.float()
-        a = xf * inv + beta
-        if relu:
-            da = torch.where(a > 0, da, torch.zeros((), dtype=da.dtype))
-            a = torch.relu(a)
-        dx = (da * inv).to(x.dtype)
-        dinv, dbeta = (da * xf).sum(0), da.sum(0)
-    dw = _matmul_f32(a.to(w.dtype).t(), dyt_c).to(w.dtype)
-    return dx, dw, dinv, dbeta
+    dyt, a = bwd_prologue_reference(x, inv, beta, y, dy, dssum, dssq, relu,
+                                    w.dtype)
+    dx, dinv, dbeta = bwd_dx_reference(x, w, inv, beta, dyt, relu)
+    return dx, bwd_dw_reference(a, dyt), dinv, dbeta
 
 
 def mm_bn_stats(x: torch.Tensor, w: torch.Tensor,

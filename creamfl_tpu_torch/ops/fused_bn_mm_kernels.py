@@ -7,7 +7,17 @@ TPU kernels of the JAX package's ``ops/fused_bn_mm.py``:
 * ``mm_bn_stats_fwd`` (K5, ``_fwd_pallas``): y = relu?(x*inv + beta) @ w and
   the column sum / sum of squares of the stored y.
 * ``mm_bn_stats_bwd`` (K6, ``_bwd_pallas``): dx, dw, dinv, dbeta in one
-  call, with the stat cotangents folded into dy.
+  call, with the stat cotangents folded into dy. Two routes, chosen by
+  ``plan_bwd_route`` from dtype, shape and alignment and counted in
+  ``mm_bn_stats_bwd.launches_by_route``:
+
+  - ``"wgmma"`` (bf16, K and N multiples of 8, 16-byte aligned rows): a
+    prologue pass writes the folded dyt and the activation a in bf16, then
+    dx and dW run as two TMA + wgmma GEMMs (``csrc/wgmma_core.cuh``);
+  - ``"tiled"`` (fp32, or shapes TMA cannot describe): the wmma / FMA
+    tile kernels, which apply the prologue in their operand fetches.
+
+  A failed launch raises on either route; neither gives way to the other.
 
 ``MMBNStats`` (affine) and ``MMStatsIdentity`` (inv = 1, beta = 0
 statically) are the ``torch.autograd.Function``s over them that
@@ -22,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,9 +43,13 @@ SOURCE = builder.CSRC / "fused_bn_mm.cu"
 
 # Tile sizes of the kernels (must match csrc/fused_bn_mm.cu).
 BLOCK_ROWS, BLOCK_COLS, BLOCK_DEPTH = 128, 64, 32
+# The wgmma route's GEMM tile: 128 rows, 64 or 128 columns, depth step 64
+# (must match csrc/wgmma_core.cuh).
+WG_ROWS, WG_DEPTH = 128, 64
+ROUTES = ("wgmma", "tiled")
 _MAX_GRID_Y = 65535
 # dW partials: aim for this many blocks per SM across the split, and keep
-# the [splits, N, K] fp32 scratch under this many bytes.
+# the [splits, rows, cols] fp32 scratch under this many bytes.
 _DW_BLOCKS_PER_SM = 4
 _DW_PART_BYTES = 64 << 20
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +72,10 @@ def _lib() -> ctypes.CDLL:
     lib.fbm_backward.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i, i, i, i,
                                  i, p, p, p, p, p, p, p, p]
     lib.fbm_backward.restype = i
+    lib.fbm_backward_wgmma.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i,
+                                       i, i, i, i, i, p, p, p, p, p, p, p,
+                                       p, p, p]
+    lib.fbm_backward_wgmma.restype = i
     return lib
 
 
@@ -75,23 +93,69 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 # launch planning (host side; unit-tested on the CPU)
 # ---------------------------------------------------------------------------
 
-def plan_dw_splits(m: int, k: int, n: int, sm_count: int) -> Tuple[int, int]:
+def wgmma_cols(width: int) -> int:
+    """B tile width of a wgmma GEMM whose output has ``width`` columns:
+    128 where it divides the width, else 64 (stage 1's K = 64)."""
+    return 128 if width % 128 == 0 else 64
+
+
+class DwTile(NamedTuple):
+    """K6's dW product on one route: output [rows, cols] (dW [K, N] when
+    ``kn``, else dW^T [N, K]), tiles of tile_rows x tile_cols, depth step
+    ``depth`` rows of M."""
+    rows: int
+    cols: int
+    tile_rows: int
+    tile_cols: int
+    depth: int
+    kn: bool
+
+
+def dw_tile(k: int, n: int, route: str) -> DwTile:
+    """``"tiled"`` computes dW^T [N, K] in 128 x 64 tiles, 32 deep.
+    ``"wgmma"`` puts the larger of K and N on the tile's 128 rows (dW
+    [K, N] when K >= N, else dW^T [N, K]), 64 deep."""
+    if route == "wgmma":
+        rows, cols = max(k, n), min(k, n)
+        return DwTile(rows, cols, WG_ROWS, wgmma_cols(cols), WG_DEPTH,
+                      k >= n)
+    return DwTile(n, k, BLOCK_ROWS, BLOCK_COLS, BLOCK_DEPTH, False)
+
+
+def plan_dw_splits(m: int, k: int, n: int, sm_count: int,
+                   route: str = "tiled") -> Tuple[int, int]:
     """(splits, rows_per_split) of dW's reduction over the M rows.
 
-    dW [N, K] has ceil(N/128) * ceil(K/64) output tiles: one at stage 1
-    (64 x 64), 128 at stage 4 (2048 x 512). The rows are split until about
-    ``_DW_BLOCKS_PER_SM`` blocks per SM are in flight, as long as the
-    [splits, N, K] fp32 partials stay under ``_DW_PART_BYTES``. Every split
-    is a whole number of 32-row depth steps.
+    dW has ceil(rows / tile rows) * ceil(cols / tile cols) output tiles
+    (``dw_tile``): one at stage 1 (64 x 64), 64 to 128 at stage 4
+    (2048 x 512). The rows are split until about ``_DW_BLOCKS_PER_SM``
+    blocks per SM are in flight, as long as the [splits, rows, cols] fp32
+    partials stay under ``_DW_PART_BYTES``. Every split is a whole number
+    of the route's depth steps.
     """
-    tiles = -(-n // BLOCK_ROWS) * -(-k // BLOCK_COLS)
-    depth_steps = -(-m // BLOCK_DEPTH)
+    t = dw_tile(k, n, route)
+    tiles = -(-t.rows // t.tile_rows) * -(-t.cols // t.tile_cols)
+    depth_steps = -(-m // t.depth)
     splits = -(-_DW_BLOCKS_PER_SM * sm_count // tiles)
     splits = min(splits, depth_steps, _DW_PART_BYTES // (4 * n * k),
                  _MAX_GRID_Y)
     splits = max(1, splits)
-    rows = BLOCK_DEPTH * -(-depth_steps // splits)
+    rows = t.depth * -(-depth_steps // splits)
     return -(-m // rows), rows
+
+
+def plan_bwd_route(x: torch.Tensor, w_kn: torch.Tensor, y: torch.Tensor,
+                   dy: torch.Tensor) -> str:
+    """K6's route for these (contiguous) operands; ``w_kn`` is W as a
+    contiguous [K, N]. ``"wgmma"`` needs bf16, K and N multiples of 8 and
+    16-byte aligned bases: TMA's global strides and the prologue's 16-byte
+    accesses. Anything else takes ``"tiled"``."""
+    (_, k), n = x.shape, w_kn.shape[1]
+    if x.dtype != torch.bfloat16 or k % 8 or n % 8:
+        return "tiled"
+    if any(t.data_ptr() % 16 for t in (x, w_kn, y, dy)):
+        return "tiled"
+    return "wgmma"
 
 
 def _check_inputs(name: str, x: torch.Tensor, w: torch.Tensor,
@@ -157,9 +221,13 @@ def mm_bn_stats_bwd(x: torch.Tensor, w: torch.Tensor,
                     inv: Optional[torch.Tensor],
                     beta: Optional[torch.Tensor], y: torch.Tensor,
                     dy: torch.Tensor, dssum: torch.Tensor,
-                    dssq: torch.Tensor, relu: bool):
+                    dssq: torch.Tensor, relu: bool,
+                    route: Optional[str] = None):
     """(dx, dw [K, N], dinv, dbeta) of ``mm_bn_stats`` (K6); dinv and dbeta
-    are None on the identity variant."""
+    are None on the identity variant. ``route`` None lets
+    ``plan_bwd_route`` choose; a named route is taken as asked ("tiled"
+    takes every input; "wgmma" raises where the planner would not take
+    it), so that the two can be timed on the same inputs."""
     if x.device.type == "cpu":
         return plain.mm_bn_stats_backward_reference(x, w, inv, beta, y, dy,
                                                     dssum, dssq, relu)
@@ -170,16 +238,24 @@ def mm_bn_stats_bwd(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("mm_bn_stats_bwd: y and dy must be "
                          f"[{m}, {n}] {x.dtype}")
     x, y, dy = x.contiguous(), y.contiguous(), dy.contiguous()
-    wt = w.t().contiguous()
     dssum = dssum.float().contiguous()
     dssq = dssq.float().contiguous()
     affine = inv is not None
     dev = x.device
-    splits, rows = plan_dw_splits(
-        m, k, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    w_kn = w.contiguous()
+    planned = plan_bwd_route(x, w_kn, y, dy)
+    if route is None:
+        route = planned
+    elif route not in ROUTES or (route == "wgmma" and planned != "wgmma"):
+        raise ValueError(f"mm_bn_stats_bwd: route {route!r} does not take "
+                         f"these inputs (planned: {planned!r})")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, rows = plan_dw_splits(m, k, n, sm_count, route)
+    tile = dw_tile(k, n, route)
     dx = torch.empty(m, k, dtype=x.dtype, device=dev)
-    dw_t = torch.empty(n, k, dtype=x.dtype, device=dev)
-    part_dw = torch.empty(splits, n, k, dtype=torch.float32, device=dev)
+    dw_out = torch.empty(tile.rows, tile.cols, dtype=x.dtype, device=dev)
+    part_dw = torch.empty(splits, tile.rows, tile.cols, dtype=torch.float32,
+                          device=dev)
     dinv = dbeta = part_ib = None
     if affine:
         inv, beta = inv.contiguous(), beta.contiguous()
@@ -187,18 +263,35 @@ def mm_bn_stats_bwd(x: torch.Tensor, w: torch.Tensor,
                               device=dev)
         dinv = torch.empty(k, dtype=torch.float32, device=dev)
         dbeta = torch.empty(k, dtype=torch.float32, device=dev)
+    parts = (_ptr(None if part_ib is None else part_ib[0]),
+             _ptr(None if part_ib is None else part_ib[1]))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        _check(_lib().fbm_backward(
-            _DTYPES[x.dtype], int(affine), int(relu), x.data_ptr(),
-            wt.data_ptr(), _ptr(inv), _ptr(beta), y.data_ptr(),
-            dy.data_ptr(), dssum.data_ptr(), dssq.data_ptr(), m, k, n,
-            splits, rows, dx.data_ptr(), part_dw.data_ptr(),
-            dw_t.data_ptr(), _ptr(None if part_ib is None else part_ib[0]),
-            _ptr(None if part_ib is None else part_ib[1]), _ptr(dinv),
-            _ptr(dbeta), torch.cuda.current_stream(dev).cuda_stream),
-            "mm_bn_stats_bwd")
+        if route == "wgmma":
+            dyt = torch.empty(m, n, dtype=x.dtype, device=dev)
+            act = (torch.empty(m, k, dtype=x.dtype, device=dev)
+                   if affine or relu else None)
+            err = _lib().fbm_backward_wgmma(
+                int(affine), int(relu), x.data_ptr(), w_kn.data_ptr(),
+                _ptr(inv), _ptr(beta), y.data_ptr(), dy.data_ptr(),
+                dssum.data_ptr(), dssq.data_ptr(), m, k, n, wgmma_cols(k),
+                int(tile.kn), tile.tile_cols, splits, rows,
+                dyt.data_ptr(), _ptr(act), dx.data_ptr(), part_dw.data_ptr(),
+                dw_out.data_ptr(), *parts, _ptr(dinv), _ptr(dbeta), stream)
+        else:
+            w_nk = w.t().contiguous()  # [N, K]: the conv weight's layout
+            err = _lib().fbm_backward(
+                _DTYPES[x.dtype], int(affine), int(relu), x.data_ptr(),
+                w_nk.data_ptr(), _ptr(inv), _ptr(beta),
+                y.data_ptr(), dy.data_ptr(), dssum.data_ptr(),
+                dssq.data_ptr(), m, k, n, splits, rows, dx.data_ptr(),
+                part_dw.data_ptr(), dw_out.data_ptr(), *parts, _ptr(dinv),
+                _ptr(dbeta), stream)
+    _check(err, f"mm_bn_stats_bwd ({route})")
     mm_bn_stats_bwd.launches += 1
-    return dx, dw_t.t(), dinv, dbeta
+    mm_bn_stats_bwd.launches_by_route[route] += 1
+    dw = dw_out if tile.kn else dw_out.t()
+    return dx, dw, dinv, dbeta
 
 
 class MMBNStats(torch.autograd.Function):
@@ -245,6 +338,7 @@ _WRAPPERS = (mm_bn_stats_fwd, mm_bn_stats_bwd)
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+    mm_bn_stats_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -16,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from creamfl_tpu.ops.fused_bn_mm import (_mm_bn_stats_pallas,
+import chip_smoke
+from creamfl_tpu.ops.fused_bn_mm import (_bwd_pallas, _mm_bn_stats_pallas,
                                          _mm_stats_pallas_id,
                                          mm_bn_stats_reference as j_reference)
+from creamfl_tpu_torch.models.resnet import RESNET_CONFIGS
+from creamfl_tpu_torch.ops import build as B
 from creamfl_tpu_torch.ops import fused_bn_mm as P
 from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
 
@@ -144,19 +147,123 @@ def test_weight_gradient_flows_through_the_cast():
     assert bool(torch.isfinite(wt.grad).all())
 
 
-@pytest.mark.parametrize("m,k,n", [(401408, 64, 64), (401408, 256, 128),
-                                   (6272, 512, 2048), (6272, 2048, 512),
-                                   (1000, 48, 80), (7, 3, 5)])
-def test_dw_split_plan(m, k, n):
-    splits, rows = FK.plan_dw_splits(m, k, n, sm_count=132)
-    assert rows % FK.BLOCK_DEPTH == 0
+_SPLIT_CASES = [(401408, 64, 64), (401408, 256, 128), (6272, 512, 2048),
+                (6272, 2048, 512), (1000, 48, 80), (7, 3, 5)]
+
+
+@pytest.mark.parametrize("route,m,k,n", [
+    pytest.param(route, *c, id="-".join(map(str, c)) if route == "tiled"
+                 else "-".join(map(str, ("wgmma",) + c)))
+    for route in FK.ROUTES for c in _SPLIT_CASES
+    if route == "tiled" or (c[1] % 8 == 0 and c[2] % 8 == 0)])
+def test_dw_split_plan(route, m, k, n):
+    splits, rows = FK.plan_dw_splits(m, k, n, sm_count=132, route=route)
+    t = FK.dw_tile(k, n, route)
+    assert rows % t.depth == 0
     assert splits * rows >= m > (splits - 1) * rows
     assert splits * n * k * 4 <= 64 << 20
-    tiles = -(-n // FK.BLOCK_ROWS) * -(-k // FK.BLOCK_COLS)
+    assert {t.rows, t.cols} == {k, n}
+    assert t.kn == (route == "wgmma" and k >= n)
+    tiles = -(-t.rows // t.tile_rows) * -(-t.cols // t.tile_cols)
     # About four blocks per SM, unless the rows run out first (rounding
-    # each split up to whole 32-row steps may drop a few splits).
+    # each split up to whole depth steps may drop a few splits).
     assert tiles * splits >= 0.9 * min(132 * 4,
-                                       tiles * -(-m // FK.BLOCK_DEPTH))
+                                       tiles * -(-m // t.depth))
+
+
+_R101 = sorted({(k, n, affine, relu) for _, _, _, k, n, affine, relu in
+                chip_smoke.trunk_geometry(128, 224,
+                                          RESNET_CONFIGS["resnet101"][1])})
+
+
+def _route_inputs(m, k, n, dtype, offset=0):
+    """x [m, k] starting ``offset`` elements into its storage, w as the
+    transposed view of an [n, k] weight (as the trunk passes it), y, dy."""
+    x = torch.zeros(m * k + offset, dtype=dtype)[offset:].view(m, k)
+    w = torch.zeros(n, k, dtype=dtype).t()
+    y, dy = torch.zeros(m, n, dtype=dtype), torch.zeros(m, n, dtype=dtype)
+    return x, w.contiguous(), y, dy
+
+
+def test_r101_has_16_distinct_geometries():
+    assert len(_R101) == 16
+
+
+@pytest.mark.parametrize("k,n,affine,relu", _R101)
+def test_r101_bf16_takes_the_wgmma_route(k, n, affine, relu):
+    """Every distinct 1x1 geometry of ResNet-101 at batch 128 in bf16 (M
+    does not enter the choice; 8 rows stand for it here)."""
+    assert FK.plan_bwd_route(*_route_inputs(8, k, n, torch.bfloat16)) == \
+        "wgmma"
+    t = FK.dw_tile(k, n, "wgmma")
+    assert t.tile_cols == FK.wgmma_cols(min(k, n)) and t.rows >= t.cols
+    assert FK.wgmma_cols(k) == (64 if k == 64 else 128)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,offset", [
+    (8, 64, 256, torch.float32, 0),      # fp32
+    (8, 45, 64, torch.bfloat16, 0),      # K % 8 != 0
+    (8, 64, 77, torch.bfloat16, 0),      # N % 8 != 0
+    (8, 64, 256, torch.bfloat16, 1),     # a view 2 bytes off alignment
+], ids=["fp32", "k45", "n77", "unaligned"])
+def test_other_inputs_take_the_tiled_route(m, k, n, dtype, offset):
+    x, w, y, dy = _route_inputs(m, k, n, dtype, offset)
+    assert FK.plan_bwd_route(x, w, y, dy) == "tiled"
+
+
+def test_launch_counts_by_route_reset():
+    FK.mm_bn_stats_bwd.launches_by_route["wgmma"] += 3
+    FK.reset_launch_counts()
+    assert FK.mm_bn_stats_bwd.launches_by_route == {"wgmma": 0, "tiled": 0}
+    assert FK.launch_counts() == {"mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("relu", [False, True])
+def test_bwd_prologue_and_products_match_pallas(affine, relu):
+    """The wgmma route's three steps as plain versions (the prologue, then
+    the dx and the dW product) against the JAX ``_bwd_pallas`` in interpret
+    mode (32-row blocks, the last ragged) at ragged M, K, N, fp32."""
+    x, w, inv, beta, cs, cq = _data(5)
+    rng = np.random.default_rng(6)
+    y = rng.normal(size=(M, N)).astype(np.float32)
+    dy = (rng.normal(size=(M, N)) * 0.1).astype(np.float32)
+    want = _bwd_pallas(*map(jnp.asarray, (x, w, inv, beta, y, dy, cs, cq)),
+                       relu, 32, True, identity=not affine)
+    tx, tw, ti, tb = map(torch.tensor, (x, w, inv, beta))
+    if not affine:
+        ti = tb = None
+    dyt, a = P.bwd_prologue_reference(tx, ti, tb, torch.tensor(y),
+                                      torch.tensor(dy), torch.tensor(cs),
+                                      torch.tensor(cq), relu, torch.float32)
+    dx, dinv, dbeta = P.bwd_dx_reference(tx, tw, ti, tb, dyt, relu)
+    dw = P.bwd_dw_reference(a, dyt)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    _close(dx, want[0], tol, "dx")
+    _close(dw, want[1], tol, "dw")
+    if affine:
+        _close(dinv, want[2], tol, "dinv")
+        _close(dbeta, want[3], tol, "dbeta")
+    else:
+        assert dinv is None and dbeta is None
+    got = P.mm_bn_stats_backward_reference(tx, tw, ti, tb, torch.tensor(y),
+                                           torch.tensor(dy), torch.tensor(cs),
+                                           torch.tensor(cq), relu)
+    for g, r in zip(got, (dx, dw, dinv, dbeta)):
+        assert (g is None and r is None) or torch.equal(g, r)
+
+
+def test_library_path_hashes_the_headers(tmp_path):
+    """An edited header beside a source gives a new library path, so the
+    source that includes it is rebuilt."""
+    src, header = tmp_path / "k.cu", tmp_path / "core.cuh"
+    src.write_text('#include "core.cuh"\n')
+    header.write_text("// v1\n")
+    first = B.library_path(src)
+    assert B.library_path(src) == first
+    header.write_text("// v2\n")
+    assert B.library_path(src) != first
+    assert B.library_path(src).name == "libk.so"
 
 
 def test_kernel_input_checks():
