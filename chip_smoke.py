@@ -11,12 +11,15 @@ Phases (any failure exits non-zero):
    card at the main path's shapes, plus one odd shape, and time kernel,
    plain version and one PyTorch call computing the same function.
 3. Hold K5 (fused BN-normalise + 1x1 conv + stats, forward) and K6 (its
-   backward) against their plain versions at a ragged-M bf16 shape, at
+   backward) against their plain versions at a ragged-M bf16 shape (the
+   first call of either wgmma route, so that a hang shows at once), at
    every distinct 1x1 geometry of the fused ResNet-101 trunk at batch 128
-   (bf16: K6 on its wgmma route), plus ragged fp32 shapes (K6 on its tiled
-   route); time the conv3 geometry of each stage against the plain
-   version, cuBLAS on the product alone, and the bound, K6 on both routes
-   in the same run, and K6's total per train step on each route.
+   (bf16: both on their wgmma routes), plus ragged fp32 shapes (both on
+   their tiled routes), asserting each call's route; time the conv3
+   geometry of each stage against the plain version, cuBLAS on the
+   products alone, and the bound, each kernel on both routes in the same
+   run with its device time per call split by kernel, and K5's and K6's
+   totals per train step on each route.
 4. The image-client half of a CreamFL round at the paper's width: three
    ResNet-18 clients (100 classes, feature_dim 256) take task and contrast
    steps, run a local test and extract features over the full 50 000-row
@@ -25,8 +28,8 @@ Phases (any failure exits non-zero):
 5. The server at the paper's width (ResNet-101 + BERT-base, embed 256,
    bf16, batch 128 at 224², max_len 32): train steps, an extraction step at
    batch 256, a distill step against 50 000 x 256 targets and an eval step,
-   on the fused trunk (70 K5 and 70 K6 launches per train step, every K6
-   launch on the wgmma route), then the
+   on the fused trunk (70 K5 and 70 K6 launches per train step, every one
+   on the wgmma route), then the
    same on the standard trunk from the same weights, compared at step 0.
 
 Each path runs with the launch counts zeroed just before it and read just
@@ -125,29 +128,52 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(fn, reps: int = 3):
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name without return type, namespaces, template
+    and call arguments: 'void (anonymous namespace)::fwd_wgmma_kernel<128,
+    1>(CUtensorMap, ...)' -> 'fwd_wgmma_kernel'."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ").split("<")[0].split("(")[0]
+    return name.split("::")[-1]
+
+
+# The kernels of each wrapper in csrc/fused_bn_mm.cu, by short name (K6's
+# sum_rows_kernel and sum_splits_kernel merge its partials; K5's merge has
+# its own name).
+K5_KERNELS = ("fwd_kernel", "fwd_activation_kernel", "fwd_wgmma_kernel",
+              "fwd_stats_merge_kernel")
+K6_KERNELS = ("bwd_dx_kernel", "bwd_dw_kernel", "bwd_prologue_kernel",
+              "bwd_dx_wgmma_kernel", "bwd_dw_wgmma_kernel", "sum_rows_kernel",
+              "sum_splits_kernel")
+
+
+def device_ms_by_kernel(fn, reps: int = 3, attempts: int = 3):
     """Device milliseconds per call of each kernel that ``fn()`` launches,
     by short kernel name (torch.profiler over ``reps`` calls after one
     warm-up): the device's share of a call whose CUDA-event time may
-    include the host's."""
+    include the host's. A session can come back without any device event;
+    it is taken again, up to ``attempts`` times, and then this raises
+    rather than report zero."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("<")[0].split("(")[0]
-            name = name.split("::")[-1]
-            out[name] += (e.time_range.end - e.time_range.start) / 1e3 / reps
-    return dict(out)
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = defaultdict(float)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                out[short_kernel_name(e.name)] += (
+                    e.time_range.end - e.time_range.start) / 1e3 / reps
+        if out:
+            return dict(out)
+        log(f"  profiler session {attempt} recorded no device event")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -343,16 +369,6 @@ def _fused_inputs(m, k, n, affine, dtype, gen, dev):
     return x, w, inv, beta, dy, dssum, dssq
 
 
-def _plain_fwd(x, w, inv, beta, relu):
-    from creamfl_tpu_torch.ops import fused_bn_mm as P
-
-    k = x.shape[1]
-    if inv is None:
-        inv = torch.ones(k, device=x.device)
-        beta = torch.zeros(k, device=x.device)
-    return P.mm_bn_stats_reference(x, w, inv, beta, relu)
-
-
 def fused_tolerances(dtype):
     """Kernel vs plain version, same roundings, different summation order.
     bf16: an output rounded from two fp32 sums that differ in their last
@@ -382,7 +398,7 @@ def check_fused(tag, x, w, inv, beta, relu, dy, dssum, dssq):
                     atol=t["sum_atol"] * float(scale.max()))
 
     y, ssum, ssq = FK.mm_bn_stats_fwd(x, w, inv, beta, relu)
-    y_p, ssum_p, ssq_p = _plain_fwd(x, w, inv, beta, relu)
+    y_p, ssum_p, ssq_p = P.mm_bn_stats_reference(x, w, inv, beta, relu)
     yabs = y_p.float().abs().sum(0)
     e5 = max(check(f"{tag} y", y.float(), y_p.float(), elem(y_p)),
              check(f"{tag} ssum", ssum, ssum_p, col(ssum_p, yabs)),
@@ -404,12 +420,12 @@ def check_fused(tag, x, w, inv, beta, relu, dy, dssum, dssq):
 
 
 def fused_kernel_phase(seed: int):
-    """K5/K6 vs plain at a ragged-M bf16 shape first (a hang of the K6 wgmma
-    route shows at once), then at each distinct 1x1 geometry of the R101
-    trunk at batch SERVER_BS (bf16, K6 on the wgmma route), then ragged
-    fp32 shapes (K6 on the tiled route); time the conv3 geometry of each
-    stage on both K6 routes, and K6 per train step on each route. Returns
-    the JSON records of K5 and K6."""
+    """K5/K6 vs plain at a ragged-M bf16 shape first (the first call of
+    each wgmma route: a hang shows at once), then at each distinct 1x1
+    geometry of the R101 trunk at batch SERVER_BS (bf16, both on the wgmma
+    route), then ragged fp32 shapes (both on the tiled route); time the
+    conv3 geometry of each stage on both routes of each, and K5 and K6 per
+    train step on each route. Returns the JSON records of K5 and K6."""
     from collections import Counter
 
     from creamfl_tpu_torch.models.resnet import RESNET_CONFIGS
@@ -442,14 +458,15 @@ def fused_kernel_phase(seed: int):
                f"{str(dtype)[6:]}")
         x, w, inv, beta, dy, dssum, dssq = _fused_inputs(
             m, k, n, affine, dtype, gen, dev)
-        before = dict(FK.mm_bn_stats_bwd.launches_by_route)
+        wrappers = (FK.mm_bn_stats_fwd, FK.mm_bn_stats_bwd)
+        before = [dict(f.launches_by_route) for f in wrappers]
         e5, e6 = check_fused(tag, x, w, inv, beta, relu, dy, dssum, dssq)
         want = "wgmma" if dtype == torch.bfloat16 else "tiled"
-        took = {r: c - before[r]
-                for r, c in FK.mm_bn_stats_bwd.launches_by_route.items()}
-        if took != {r: int(r == want) for r in FK.ROUTES}:
-            raise AssertionError(f"{tag}: K6 took routes {took}, not "
-                                 f"{want}")
+        for f, b in zip(wrappers, before):
+            took = {r: c - b[r] for r, c in f.launches_by_route.items()}
+            if took != {r: int(r == want) for r in FK.ROUTES}:
+                raise AssertionError(f"{tag}: {f.__name__} took routes "
+                                     f"{took}, not {want}")
         for name, e in (("mm_bn_stats_fwd", e5), ("mm_bn_stats_bwd", e6)):
             errs[name] = max(errs[name], e)
             stage_errs[name, stage] = max(stage_errs.get((name, stage), 0.0),
@@ -467,77 +484,93 @@ def fused_kernel_phase(seed: int):
         y = FK.mm_bn_stats_fwd(x, w, inv, beta, relu)[0]
         dyt = ((dy.float() + dssum) + 2.0 * y.float() * dssq).to(
             torch.bfloat16)
-        fwd = dict(
-            ms=cuda_time_ms(lambda: FK.mm_bn_stats_fwd(x, w, inv, beta,
-                                                       relu)),
-            plain_ms=cuda_time_ms(lambda: _plain_fwd(x, w, inv, beta, relu)),
-            library_ms=cuda_time_ms(lambda: torch.matmul(a, w)))
-        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-            2.0 * m * k * n, 2.0 * (m * k + k * n + m * n) + 4.0 * 2 * (k + n),
-            PEAK_BF16_FLOPS)
+
+        def fwd_on(route):
+            return lambda: FK.mm_bn_stats_fwd(x, w, inv, beta, relu,
+                                              route=route)
 
         def bwd_on(route):
             return lambda: FK.mm_bn_stats_bwd(x, w, inv, beta, y, dy, dssum,
                                               dssq, relu, route=route)
 
-        # Both K6 routes in turns on the same inputs: wgmma, tiled, wgmma.
-        ms_w = cuda_time_ms(bwd_on("wgmma"))
-        ms_t = cuda_time_ms(bwd_on("tiled"))
-        bwd = dict(
-            ms=min(ms_w, cuda_time_ms(bwd_on("wgmma"))),
-            tiled_ms=ms_t,
-            plain_ms=cuda_time_ms(lambda: P.mm_bn_stats_backward_reference(
-                x, w, inv, beta, y, dy, dssum, dssq, relu)),
-            library_ms=cuda_time_ms(lambda: (torch.matmul(dyt, w.t()),
-                                             torch.matmul(a.t(), dyt))))
+        def both_routes(on, plain_fn, library_fn):
+            """Event times of both routes in turns on the same inputs
+            (wgmma, tiled, wgmma), the plain version and the library call;
+            the device time of one call on each route, split by kernel on
+            the wgmma route."""
+            ms_w = cuda_time_ms(on("wgmma"))
+            ms_t = cuda_time_ms(on("tiled"))
+            r = dict(ms=min(ms_w, cuda_time_ms(on("wgmma"))), tiled_ms=ms_t,
+                     plain_ms=cuda_time_ms(plain_fn),
+                     library_ms=cuda_time_ms(library_fn))
+            parts = device_ms_by_kernel(on("wgmma"))
+            r["device_ms"] = sum(parts.values())
+            r["tiled_device_ms"] = sum(
+                device_ms_by_kernel(on("tiled")).values())
+            return r, parts
+
+        fwd, fparts = both_routes(
+            fwd_on, lambda: P.mm_bn_stats_reference(x, w, inv, beta, relu),
+            lambda: torch.matmul(a, w))
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+            2.0 * m * k * n, 2.0 * (m * k + k * n + m * n) + 4.0 * 2 * (k + n),
+            PEAK_BF16_FLOPS)
+        bwd, parts = both_routes(
+            bwd_on, lambda: P.mm_bn_stats_backward_reference(
+                x, w, inv, beta, y, dy, dssum, dssq, relu),
+            lambda: (torch.matmul(dyt, w.t()), torch.matmul(a.t(), dyt)))
         bwd["bound_ms"], bwd["bound_by"] = bound_ms(
             4.0 * m * k * n,
             2.0 * (2 * m * k + 2 * k * n + 2 * m * n) + 4.0 * (4 * k + 2 * n),
             PEAK_BF16_FLOPS)
-        parts = device_ms_by_kernel(bwd_on("wgmma"))
-        bwd["device_ms"] = sum(parts.values())
-        bwd["tiled_device_ms"] = sum(
-            device_ms_by_kernel(bwd_on("tiled")).values())
-        log(f"  K6 s{stage} conv3 device time per call: wgmma route "
-            f"{bwd['device_ms']:.3f} ms "
-            + json.dumps({kern: round(v, 4) for kern, v in parts.items()})
-            + f", tiled route {bwd['tiled_device_ms']:.3f} ms")
+        for kname, r, split in (("K5", fwd, fparts), ("K6", bwd, parts)):
+            log(f"  {kname} s{stage} conv3 device time per call: wgmma route "
+                f"{r['device_ms']:.3f} ms "
+                + json.dumps({kern: round(v, 4) for kern, v in split.items()})
+                + f", tiled route {r['tiled_device_ms']:.3f} ms")
         for name, r in (("mm_bn_stats_fwd", fwd), ("mm_bn_stats_bwd", bwd)):
-            extra = (f" (tiled route {r['tiled_ms']:.3f} ms)"
-                     if "tiled_ms" in r else "")
             log(f"  time {name} s{stage} conv3 M={m} K={k} N={n}: kernel "
-                f"{r['ms']:.3f} ms{extra}, plain {r['plain_ms']:.3f} ms, "
+                f"{r['ms']:.3f} ms (tiled route {r['tiled_ms']:.3f} ms), "
+                f"plain {r['plain_ms']:.3f} ms, "
                 f"library {r['library_ms']:.3f} ms, bound "
                 f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
             rows.append(dict(name=name, stage=stage, m=m, k=k, n=n, **r,
                              stage_max_abs_err=stage_errs[name, stage]))
         if stage == JSON_STAGE:
-            rec = {"mm_bn_stats_fwd": fwd,
-                   "mm_bn_stats_bwd": {key: v for key, v in bwd.items()
-                                       if key not in ("tiled_ms", "device_ms",
-                                                      "tiled_device_ms")}}
+            rec = {name: {key: v for key, v in r.items()
+                          if key not in ("tiled_ms", "device_ms",
+                                         "tiled_device_ms")}
+                   for name, r in (("mm_bn_stats_fwd", fwd),
+                                   ("mm_bn_stats_bwd", bwd))}
         del x, w, inv, beta, dy, a, y, dyt
         torch.cuda.empty_cache()
     log(f"[fused] per-stage times {json.dumps(rows)}")
 
-    # K6 per train step on each route: each distinct geometry timed once
-    # per route, times its launches per step (the counts sum to 70).
+    # K5 and K6 per train step on each route: each distinct geometry timed
+    # once per kernel and route, times its launches per step (the counts
+    # sum to 70).
     per_call = Counter(calls)
-    step_ms = dict.fromkeys(FK.ROUTES, 0.0)
+    step_ms = {(kname, route): 0.0 for kname in ("K5", "K6")
+               for route in FK.ROUTES}
     for geom in distinct:
         _, _, m, k, n, affine, relu = geom
         x, w, inv, beta, dy, dssum, dssq = _fused_inputs(
             m, k, n, affine, torch.bfloat16, gen, dev)
         y = FK.mm_bn_stats_fwd(x, w, inv, beta, relu)[0]
         for route in FK.ROUTES:
-            step_ms[route] += per_call[geom] * cuda_time_ms(
+            step_ms["K5", route] += per_call[geom] * cuda_time_ms(
+                lambda: FK.mm_bn_stats_fwd(x, w, inv, beta, relu,
+                                           route=route), reps=5)
+            step_ms["K6", route] += per_call[geom] * cuda_time_ms(
                 lambda: FK.mm_bn_stats_bwd(x, w, inv, beta, y, dy, dssum,
                                            dssq, relu, route=route), reps=5)
         del x, w, inv, beta, dy, y
         torch.cuda.empty_cache()
-    log(f"[fused] K6 per train step ({sum(per_call.values())} launches over "
-        f"{len(distinct)} geometries): wgmma route {step_ms['wgmma']:.3f} ms, "
-        f"tiled route {step_ms['tiled']:.3f} ms")
+    for kname in ("K5", "K6"):
+        log(f"[fused] {kname} per train step ({sum(per_call.values())} "
+            f"launches over {len(distinct)} geometries): wgmma route "
+            f"{step_ms[kname, 'wgmma']:.3f} ms, tiled route "
+            f"{step_ms[kname, 'tiled']:.3f} ms")
     for name in rec:
         rec[name]["max_abs_err"] = errs[name]
     return rec
@@ -666,8 +699,9 @@ def synth_text(seed: int, row0: int, bs: int, vocab: int, dev):
 
 def profile_step(engine, state, inputs, tag: str, top: int = 12) -> None:
     """One more train step under torch.profiler: device time by kernel,
-    the share of the fused_bn_mm kernels (K5/K6 and their merges), and the
-    device's idle share of the step's wall time."""
+    the shares of K5's and K6's kernels (each with its merges, matched by
+    exact short name), and the device's idle share of the step's wall
+    time."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -700,15 +734,13 @@ def profile_step(engine, state, inputs, tag: str, top: int = 12) -> None:
     wall = (max(e for _, e in spans + cpu_spans)
             - min(s for s, _ in spans + cpu_spans))
     total = sum(by_name.values())
-    fused = sum(v for k, v in by_name.items() if any(
-        n in k for n in ("fwd_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
-                         "bwd_prologue_kernel", "bwd_dx_wgmma_kernel",
-                         "bwd_dw_wgmma_kernel", "sum_rows_kernel",
-                         "sum_splits_kernel")))
+    k5, k6 = (sum(v for k, v in by_name.items()
+                  if short_kernel_name(k) in names)
+              for names in (K5_KERNELS, K6_KERNELS))
     log(f"[profile] {tag} train step: wall {wall / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms (idle share {1 - busy / wall:.3f}), "
-        f"kernel time {total / 1e3:.3f} ms, of it fused_bn_mm "
-        f"{fused / 1e3:.3f} ms")
+        f"kernel time {total / 1e3:.3f} ms, of it K5 {k5 / 1e3:.3f} ms and "
+        f"K6 {k6 / 1e3:.3f} ms (together {(k5 + k6) / 1e3:.3f} ms)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
 
@@ -719,8 +751,9 @@ def run_server(engine, state, seed: int, dev, timer, tag: str,
     batch 0 (the step-0 features), SERVER_STEPS train steps, an extraction
     step at EXTRACT_BS, a distill step and an eval step. Each phase is
     seeded so that two engines draw the same dropout. ``count`` returns the
-    kernel launch counts (K5, K6, K6 on the wgmma route), checked per train
-    step: every K6 launch of the bf16 trunk takes the wgmma route. Returns
+    kernel launch counts (K5, K5 on the wgmma route, K6, K6 on the wgmma
+    route), checked per train step: every K5 and K6 launch of the bf16
+    trunk takes the wgmma route. Returns
     (step-0 trunk grid, step-0 features, losses, fp32 step-0 grid of a copy
     of the trunk or None)."""
     vocab = engine.model.bert_config.vocab_size
@@ -761,12 +794,14 @@ def run_server(engine, state, seed: int, dev, timer, tag: str,
             state, ldict = engine.train_step(state, *inputs)
         losses.append(float(ldict["loss"]))
         if count:
-            fwd, bwd, bwd_wgmma = (a - b for a, b in zip(count(), before))
-            if (fwd, bwd, bwd_wgmma) != (70, 70, 70):
+            fwd, fwd_wgmma, bwd, bwd_wgmma = (
+                a - b for a, b in zip(count(), before))
+            if (fwd, fwd_wgmma, bwd, bwd_wgmma) != (70, 70, 70, 70):
                 raise AssertionError(
-                    f"train step {step}: K5 launched {fwd} and K6 {bwd} "
-                    f"times ({bwd_wgmma} on the wgmma route), not 70, 70 "
-                    f"and 70")
+                    f"train step {step}: K5 launched {fwd} times "
+                    f"({fwd_wgmma} on the wgmma route) and K6 {bwd} "
+                    f"({bwd_wgmma} on the wgmma route), not 70 each, all "
+                    f"on the wgmma route")
     crit = scalars()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{tag}: non-finite losses {losses}")
@@ -850,7 +885,9 @@ def server_phase(seed: int, dev=torch.device("cuda")):
 
         def count():
             c = FK.launch_counts()
-            return (c["mm_bn_stats_fwd"], c["mm_bn_stats_bwd"],
+            return (c["mm_bn_stats_fwd"],
+                    FK.mm_bn_stats_fwd.launches_by_route["wgmma"],
+                    c["mm_bn_stats_bwd"],
                     FK.mm_bn_stats_bwd.launches_by_route["wgmma"])
 
         results[tag] = run_server(

@@ -3,9 +3,14 @@
 // fp32 accumulation.
 //
 // Replaces the Pallas TPU kernels of creamfl_tpu/ops/fused_bn_mm.py:
-//   * fwd_kernel + sum_rows_kernel          <- _fwd_pallas / _fwd_kernel (K5)
+//   * K5, _fwd_pallas / _fwd_kernel (creamfl_tpu/ops/fused_bn_mm.py:99):
 //       y = relu?(x * inv + beta) @ W, plus the fp32 column sum and sum of
-//       squares of the STORED y (rounded to the compute dtype);
+//       squares of the STORED y (rounded to the compute dtype); on two
+//       routes, with the same conditions as K6's below:
+//       - wgmma: fwd_activation_kernel (only where x needs the affine or
+//         the relu) + fwd_wgmma_kernel (on the TMA + wgmma core) +
+//         fwd_stats_merge_kernel;
+//       - tiled: fwd_kernel + fwd_stats_merge_kernel;
 //   * K6, _bwd_pallas / _bwd_kernel (creamfl_tpu/ops/fused_bn_mm.py:212):
 //       dyt = dy + dssum + 2 y dssq (rounded to the compute dtype),
 //       dx = (dyt W^T masked by the relu) * inv, dW = a^T dyt,
@@ -45,6 +50,24 @@
 //     from the fp32 pre-activation recomputed from x, dx = bf16(da * inv),
 //     and column partials of da * x and da reduced by warp shuffles and
 //     then across the 8 warps in order.
+//
+// K5's wgmma route:
+//   * Its one transformed operand is x. The identity variant without relu
+//     (conv1 and the projections) needs no pass: TMA reads x itself. Else
+//     one elementwise pass writes a = bf16(relu?(x * inv + beta)) [M, K]
+//     (the same code as the a half of K6's prologue): 2 * M * K * 2 bytes,
+//     0.10 GB at stage 1's conv3.
+//   * The GEMM is plain: a (or x) and W [N, K] both K-major, B tile 64 or
+//     128 columns. A product one depth step deep (K = 64) runs a one-stage
+//     ring, so the stages it would not use cost it no occupancy.
+//   * y is most of the bytes (M * N * 2: 0.21 GB of ~0.26 GB at stage 1's
+//     conv3). The epilogue rounds each accumulator to bf16 once, sums the
+//     rounded values and their squares per column (warp shuffles over the
+//     8 lanes of a column, then the 8 warps in order), stages the rounded
+//     tile in the free ring (16-byte chunks XOR-swizzled by row, so both
+//     the register-layout writes and the row reads are free of bank
+//     conflicts) and stores it as 16-byte row segments: a warp writes
+//     whole 128- or 256-byte rows.
 //
 // K5 and K6's tiled route: one tiled GEMM core (128 x 64 block tile, depth
 // step 32, 256 threads) serves all three of their products.
@@ -433,15 +456,16 @@ __device__ __forceinline__ void write_column_partial(float* red, int c,
 
 // ---------------------------------------------------------------------------
 // K5: y[M, N] = act(x)[M, K] @ W^T, W [N, K]; column partials of y, y^2.
-// grid (ceil(N / kBN), ceil(M / kBM)); part_* [gridDim.y, N]. vec_k: x and
-// W rows take 16-byte loads (K % 8 == 0, aligned).
+// grid (ceil(N / kBN), ceil(M / kBM)); part [gridDim.y, 2N]: a block's
+// row holds its N column sums, then its N sums of squares. vec_k: x and W
+// rows take 16-byte loads (K % 8 == 0, aligned).
 // ---------------------------------------------------------------------------
 template <typename T, bool kAffine, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
            const float* __restrict__ inv, const float* __restrict__ beta,
            int M, int K, int N, bool vec_k, T* __restrict__ y,
-           float* __restrict__ part_sum, float* __restrict__ part_sq) {
+           float* __restrict__ part) {
   __shared__ __align__(128) unsigned char smem[kSmemC];
   __shared__ float red_s[kGroups * kBN], red_q[kGroups * kBN];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
@@ -473,9 +497,9 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   red_s[group * kBN + c] = s;
   red_q[group * kBN + c] = q;
-  const size_t at = static_cast<size_t>(blockIdx.y) * N + n;
-  write_column_partial(red_s, c, group, n < N, part_sum + at);
-  write_column_partial(red_q, c, group, n < N, part_sq + at);
+  const size_t at = static_cast<size_t>(blockIdx.y) * 2 * N + n;
+  write_column_partial(red_s, c, group, n < N, part + at);
+  write_column_partial(red_q, c, group, n < N, part + at + N);
 }
 
 // ---------------------------------------------------------------------------
@@ -592,8 +616,9 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
 // block; each group sums its rows in order, then group 0 adds the groups in
 // order (deterministic).
 constexpr int kSumCols = 32, kSumGroups = 32;
-__global__ void sum_rows_kernel(const float* __restrict__ part, int rows,
-                                int cols, float* __restrict__ out) {
+__device__ __forceinline__ void sum_rows_block(const float* __restrict__ part,
+                                               int rows, int cols,
+                                               float* __restrict__ out) {
   __shared__ float red[kSumGroups][kSumCols + 1];
   const int c = blockIdx.x * kSumCols + threadIdx.x;
   const int g = threadIdx.y;
@@ -610,10 +635,33 @@ __global__ void sum_rows_kernel(const float* __restrict__ part, int rows,
   }
 }
 
+// K6's merges of dinv / dbeta.
+__global__ void sum_rows_kernel(const float* __restrict__ part, int rows,
+                                int cols, float* __restrict__ out) {
+  sum_rows_block(part, rows, cols, out);
+}
+
+// K5's merge of its [blocks, 2N] stat partials into [2N]: the same sum,
+// under its own name so that a profile tells K5's time from K6's.
+__global__ void fwd_stats_merge_kernel(const float* __restrict__ part,
+                                       int rows, int cols,
+                                       float* __restrict__ out) {
+  sum_rows_block(part, rows, cols, out);
+}
+
+const dim3 kSumBlock(kSumCols, kSumGroups);
+
 cudaError_t sum_rows(const float* part, int rows, int cols, float* out,
                      cudaStream_t s) {
-  sum_rows_kernel<<<(cols + kSumCols - 1) / kSumCols,
-                    dim3(kSumCols, kSumGroups), 0, s>>>(part, rows, cols, out);
+  sum_rows_kernel<<<(cols + kSumCols - 1) / kSumCols, kSumBlock, 0, s>>>(
+      part, rows, cols, out);
+  return cudaGetLastError();
+}
+
+cudaError_t merge_stats(const float* part, int rows, int n, float* stats,
+                        cudaStream_t s) {
+  fwd_stats_merge_kernel<<<(2 * n + kSumCols - 1) / kSumCols, kSumBlock, 0,
+                           s>>>(part, rows, 2 * n, stats);
   return cudaGetLastError();
 }
 
@@ -626,22 +674,17 @@ inline bool aligned16(const void* p) {
 template <typename T, bool kAffine, bool kRelu>
 cudaError_t forward(const void* x, const void* w, const void* inv,
                     const void* beta, int M, int K, int N, void* y,
-                    void* part_sum, void* part_sq, void* ssum, void* ssq,
-                    cudaStream_t s) {
+                    void* part, void* stats, cudaStream_t s) {
   const dim3 grid(cdiv(N, kBN), cdiv(M, kBM));
   const bool vec_k = K % kVec == 0 && aligned16(x) && aligned16(w);
   fwd_kernel<T, kAffine, kRelu><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(inv), static_cast<const float*>(beta), M, K,
-      N, vec_k, static_cast<T*>(y), static_cast<float*>(part_sum),
-      static_cast<float*>(part_sq));
-  cudaError_t err = cudaGetLastError();
+      N, vec_k, static_cast<T*>(y), static_cast<float*>(part));
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = sum_rows(static_cast<const float*>(part_sum), grid.y, N,
-                 static_cast<float*>(ssum), s);
-  if (err != cudaSuccess) return err;
-  return sum_rows(static_cast<const float*>(part_sq), grid.y, N,
-                  static_cast<float*>(ssq), s);
+  return merge_stats(static_cast<const float*>(part), grid.y, N,
+                     static_cast<float*>(stats), s);
 }
 
 template <typename T, bool kAffine, bool kRelu>
@@ -687,10 +730,186 @@ cudaError_t backward(const void* x, const void* w, const void* inv,
 }
 
 // ===========================================================================
-// K6 on the wgmma route (bf16, K % 8 == 0, N % 8 == 0, 16-byte aligned
-// bases): a prologue pass, then two plain GEMMs on the TMA + wgmma core of
-// wgmma_core.cuh, then the same merges as above.
+// The wgmma routes of K5 and K6 (bf16, K % 8 == 0, N % 8 == 0, 16-byte
+// aligned bases): elementwise passes, then plain GEMMs on the TMA + wgmma
+// core of wgmma_core.cuh, then the same merges as above.
 // ===========================================================================
+
+// Chunk i (8 elements; K % 8 == 0, so within one row) of a = bf16(relu?(x *
+// inv + beta)) [M, K] (relu?(x) on the identity variant): one 16-byte load
+// and store, rounded as in ``activation``, so bit for bit the plain version.
+template <bool kAffine, bool kRelu>
+__device__ __forceinline__ void activation_chunk(
+    const bf16* __restrict__ x, const float* __restrict__ inv,
+    const float* __restrict__ beta, int K, size_t i, bf16* __restrict__ a) {
+  const size_t e = i * kVec;
+  const int k = static_cast<int>(e % K);
+  bf16 v[kVec];
+  load8(x + e, v);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+    v[j] = activation<bf16, kAffine, kRelu>(v[j], inv, beta, k + j);
+  store8(a + e, v);
+}
+
+// K5's pass: a over [M, K], one thread per chunk.
+template <bool kAffine, bool kRelu>
+__global__ void __launch_bounds__(256)
+fwd_activation_kernel(const bf16* __restrict__ x,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ beta, size_t chunks, int K,
+                      bf16* __restrict__ a) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < chunks) activation_chunk<kAffine, kRelu>(x, inv, beta, K, i, a);
+}
+
+// y[M, N] = A[M, K] . W^T (A = a, or x itself; W [N, K]: both operands
+// K-major, as in bwd_dx_wgmma_kernel), over a ring of S stages. Epilogue:
+// each accumulator rounded to bf16 once; per-block column partials of the
+// rounded y and y^2 over the rows < M (warp shuffles over the 8 lanes that
+// share a column, then the 8 warps in order) into part [ceil(M / 128), 2N]
+// (a block's N sums, then its N sums of squares); the rounded tile staged
+// in the free ring and stored as 16-byte row segments, no row past M.
+// grid (ceil(N / BN), ceil(M / 128)).
+template <int BN, int S>
+__global__ void __launch_bounds__(wgmma_core::kThreads)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_w, int M, int K,
+                 int N, bf16* __restrict__ y, float* __restrict__ part) {
+  using namespace wgmma_core;
+  extern __shared__ unsigned char smem[];
+  __shared__ float red[2][8][BN];  // [sum | square][warp][tile column]
+  const int m0 = blockIdx.y * kTileRows, n0 = blockIdx.x * BN;
+  float acc[BN / 2];
+  auto issue = [&](uint32_t a_dst, uint32_t b_dst, uint32_t bar, int kt) {
+    mbar_expect_tx(bar, Ring<BN, S>::kStageBytes);
+    tma_load_2d(a_dst, &map_a, kt * kDepth, m0, bar);
+    tma_load_2d(b_dst, &map_w, kt * kDepth, n0, bar);
+  };
+  mainloop<BN, false, S>(smem, (K + kDepth - 1) / kDepth, issue, acc);
+
+  // The rounded tile, 128 rows of BN / 8 16-byte chunks; chunk j of row r
+  // at r * BN / 8 + (j ^ (r & 7)). It fits in the ring's first stage.
+  constexpr int kChunks = BN / 8;
+  static_assert(kTileRows * BN * 2 <= Ring<BN, S>::kStageBytes,
+                "the y tile fits in one stage");
+  const int row0 = (threadIdx.x >> 7) * 64;  // this warpgroup's tile rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // the ring is free
+  uint32_t* tile = reinterpret_cast<uint32_t*>(ring_base(smem));
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = acc_col(4 * j);  // = 8j + 2 (lane & 3): chunk j
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + acc_row(4 * j + 2 * h);
+      const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                                     acc[4 * j + 2 * h + 1]);
+      tile[(r * kChunks + (j ^ (r & 7))) * 4 + (lane & 3)] =
+          *reinterpret_cast<const uint32_t*>(&v);
+      if (m0 + r < M) {
+        const float f0 = __low2float(v), f1 = __high2float(v);
+        s0 += f0;
+        s1 += f1;
+        q0 += f0 * f0;
+        q1 += f1 * f1;
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, o);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, o);
+    }
+    if (lane < 4) {
+      red[0][warp][c] = s0;
+      red[0][warp][c + 1] = s1;
+      red[1][warp][c] = q0;
+      red[1][warp][c + 1] = q1;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * BN) {
+    const int which = threadIdx.x / BN, t = threadIdx.x % BN;
+    if (n0 + t < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[which][w][t];
+      part[static_cast<size_t>(blockIdx.y) * 2 * N + which * N + n0 + t] = s;
+    }
+  }
+  const uint4* tile16 = reinterpret_cast<const uint4*>(tile);
+  static_assert(kTileRows * kChunks % kThreads == 0, "whole store rounds");
+#pragma unroll
+  for (int it = 0; it < kTileRows * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks, j = i % kChunks;
+    const int m = m0 + r, n = n0 + 8 * j;
+    if (m < M && n < N)
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * N + n) =
+          tile16[r * kChunks + (j ^ (r & 7))];
+  }
+}
+
+template <int BN, int S>
+cudaError_t launch_fwd_wgmma(const bf16* act, const bf16* w_nk, int M, int K,
+                             int N, bf16* y, float* part, cudaStream_t s) {
+  using R = wgmma_core::Ring<BN, S>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fwd_wgmma_kernel<BN, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      R::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap map_a, map_w;
+  cudaError_t err = wgmma_core::encode_tensor_map_2d(
+      &map_a, act, K, M, wgmma_core::kDepth, wgmma_core::kTileRows);
+  if (err != cudaSuccess) return err;
+  err = wgmma_core::encode_tensor_map_2d(&map_w, w_nk, K, N,
+                                         wgmma_core::kDepth, BN);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(N, BN), cdiv(M, wgmma_core::kTileRows));
+  fwd_wgmma_kernel<BN, S><<<grid, wgmma_core::kThreads, R::kSmemBytes, s>>>(
+      map_a, map_w, M, K, N, y, part);
+  return cudaGetLastError();
+}
+
+// One depth step (K <= 64) takes the one-stage ring.
+template <int BN>
+cudaError_t fwd_gemm(const bf16* act, const bf16* w_nk, int M, int K, int N,
+                     bf16* y, float* part, cudaStream_t s) {
+  return K <= wgmma_core::kDepth
+             ? launch_fwd_wgmma<BN, 1>(act, w_nk, M, K, N, y, part, s)
+             : launch_fwd_wgmma<BN, wgmma_core::Ring<BN>::kStages>(
+                   act, w_nk, M, K, N, y, part, s);
+}
+
+template <bool kAffine, bool kRelu>
+cudaError_t forward_wgmma(const void* x, const void* w_nk, const void* inv,
+                          const void* beta, int M, int K, int N, int bn,
+                          void* a, void* y, void* part, void* stats,
+                          cudaStream_t s) {
+  const bf16* act = static_cast<const bf16*>(x);
+  if (kAffine || kRelu) {
+    const size_t chunks = static_cast<size_t>(M) * K / kVec;
+    fwd_activation_kernel<kAffine, kRelu>
+        <<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+            act, static_cast<const float*>(inv),
+            static_cast<const float*>(beta), chunks, K, static_cast<bf16*>(a));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    act = static_cast<const bf16*>(a);
+  }
+  const bf16* w = static_cast<const bf16*>(w_nk);
+  bf16* yb = static_cast<bf16*>(y);
+  float* pf = static_cast<float*>(part);
+  const cudaError_t err =
+      bn == 128 ? fwd_gemm<128>(act, w, M, K, N, yb, pf, s)
+                : fwd_gemm<64>(act, w, M, K, N, yb, pf, s);
+  if (err != cudaSuccess) return err;
+  return merge_stats(pf, static_cast<int>(cdiv(M, wgmma_core::kTileRows)), N,
+                     static_cast<float*>(stats), s);
+}
 
 // dyt = bf16((dy + dssum) + 2y * dssq) over [M, N], and a = bf16(relu?(x *
 // inv + beta)) over [M, K] (relu?(x) on the identity variant; no a at all
@@ -708,11 +927,10 @@ bwd_prologue_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ y,
                     size_t chunks_a, int N, int K, bf16* __restrict__ dyt,
                     bf16* __restrict__ a) {
   size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  bf16 v[kVec];
   if (i < chunks_dyt) {
     const size_t e = i * kVec;
     const int n = static_cast<int>(e % N);
-    bf16 yv[kVec];
+    bf16 v[kVec], yv[kVec];
     load8(dy + e, v);
     load8(y + e, yv);
 #pragma unroll
@@ -723,14 +941,7 @@ bwd_prologue_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ y,
     return;
   }
   i -= chunks_dyt;
-  if (i >= chunks_a) return;
-  const size_t e = i * kVec;
-  const int k = static_cast<int>(e % K);
-  load8(x + e, v);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j)
-    v[j] = activation<bf16, kAffine, kRelu>(v[j], inv, beta, k + j);
-  store8(a + e, v);
+  if (i < chunks_a) activation_chunk<kAffine, kRelu>(x, inv, beta, K, i, a);
 }
 
 // da[M, K] = dyt[M, N] . W (W held as [K, N]: both operands K-major, the
@@ -1003,18 +1214,47 @@ cudaError_t backward_wgmma(const void* x, const void* w_kn, const void* inv,
     return static_cast<int>(cudaErrorInvalidValue);                        \
   } while (0)
 
+// The wgmma routes (bf16 only): one instantiation per (affine, relu).
+#define WG_DISPATCH(FN, AFFINE, RELU, ...)                                 \
+  do {                                                                     \
+    if (AFFINE) {                                                          \
+      return static_cast<int>(RELU ? FN<true, true>(__VA_ARGS__)           \
+                                   : FN<true, false>(__VA_ARGS__));        \
+    }                                                                      \
+    return static_cast<int>(RELU ? FN<false, true>(__VA_ARGS__)            \
+                                 : FN<false, false>(__VA_ARGS__));         \
+  } while (0)
+
 extern "C" {
 
 // K5. x [M, K], w [N, K] in the compute dtype; inv, beta [K] fp32 (null
-// when affine == 0); y [M, N] out; part_sum / part_sq [ceil(M/128), N]
-// scratch; ssum, ssq [N] fp32 out.
+// when affine == 0); y [M, N] out; part [ceil(M/128), 2N] fp32 scratch;
+// stats [2N] fp32 out: the N column sums, then the N sums of squares.
 int fbm_forward(int dtype, int affine, int relu, const void* x,
                 const void* w, const void* inv, const void* beta, int M,
-                int K, int N, void* y, void* part_sum, void* part_sq,
-                void* ssum, void* ssq, void* stream) {
+                int K, int N, void* y, void* part, void* stats,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FBM_DISPATCH(forward, dtype, affine, relu, x, w, inv, beta, M, K, N, y,
-               part_sum, part_sq, ssum, ssq, s);
+               part, stats, s);
+}
+
+// K5 on the wgmma route: bf16 only; K and N multiples of 8 and x, w_nk, y
+// (and a, where it is written) 16-byte aligned. w_nk is W as [N, K]; bn the
+// B tile width (64 or 128). a [M, K] bf16 scratch, null without affine and
+// relu; part and stats as for fbm_forward.
+int fbm_forward_wgmma(int affine, int relu, const void* x, const void* w_nk,
+                      const void* inv, const void* beta, int M, int K, int N,
+                      int bn, void* a, void* y, void* part, void* stats,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* need[] = {x, w_nk, y, affine || relu ? a : x};
+  bool ok = M > 0 && K > 0 && N > 0 && K % kVec == 0 && N % kVec == 0 &&
+            (bn == 64 || bn == 128) && part != nullptr && stats != nullptr;
+  for (const void* p : need) ok = ok && p != nullptr && aligned16(p);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  WG_DISPATCH(forward_wgmma, affine, relu, x, w_nk, inv, beta, M, K, N, bn,
+              a, y, part, stats, s);
 }
 
 // K6. x [M, K], w [N, K], y and dy [M, N] in the compute dtype; inv, beta,
@@ -1063,25 +1303,9 @@ int fbm_backward_wgmma(int affine, int relu, const void* x, const void* w_kn,
             static_cast<long long>(splits) * rows_per_split >= M;
   for (const void* p : need) ok = ok && p != nullptr && aligned16(p);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  if (affine)
-    return static_cast<int>(
-        relu ? backward_wgmma<true, true>(
-                   x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
-                   dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
-                   part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s)
-             : backward_wgmma<true, false>(
-                   x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
-                   dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
-                   part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s));
-  return static_cast<int>(
-      relu ? backward_wgmma<false, true>(
-                 x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
-                 dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
-                 part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s)
-           : backward_wgmma<false, false>(
-                 x, w_kn, inv, beta, y, dy, dssum, dssq, M, K, N, bn_dx,
-                 dw_rows_k, bn_dw, splits, rows_per_split, dyt, a, dx,
-                 part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s));
+  WG_DISPATCH(backward_wgmma, affine, relu, x, w_kn, inv, beta, y, dy, dssum,
+              dssq, M, K, N, bn_dx, dw_rows_k, bn_dw, splits, rows_per_split,
+              dyt, a, dx, part_dw, dw, part_dinv, part_dbeta, dinv, dbeta, s);
 }
 
 }  // extern "C"

@@ -43,11 +43,14 @@ constexpr int kBoxBytes = 64 * 64 * 2;     // one 64 x 64 bf16 box: 8 KB
 constexpr int kSwizzleGroup = 8 * 128;     // 8 rows of 128 bytes
 
 // Ring geometry for a B tile of BN rows: S stages of (A + B), then S full
-// and S empty barriers; the base is rounded up to 1024 bytes.
-template <int BN>
+// and S empty barriers; the base is rounded up to 1024 bytes. By default
+// S fills ~96 KB (two blocks an SM); a product one depth step deep takes
+// S = 1, so that stages it never uses cost it no occupancy.
+template <int BN, int S = (BN == 64 ? 4 : 3)>
 struct Ring {
   static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
-  static constexpr int kStages = BN == 64 ? 4 : 3;
+  static_assert(S >= 1, "at least one stage");
+  static constexpr int kStages = S;
   static constexpr int kABytes = kTileRows * kDepth * 2;
   static constexpr int kBBytes = BN * kDepth * 2;
   static constexpr int kStageBytes = kABytes + kBBytes;
@@ -235,13 +238,12 @@ __device__ __forceinline__ int acc_col(int i) {
 // (mbar_expect_tx) and issues the TMA copies of depth step kt into the A
 // and B tiles at shared addresses a_dst and b_dst. On return every copy
 // has landed and been consumed; after a __syncthreads() the caller may
-// reuse the ring's memory (ring_base).
-template <int BN, bool kMN, typename Issue>
+// reuse the ring's memory (ring_base); its stages, not its barriers.
+template <int BN, bool kMN, int S = Ring<BN>::kStages, typename Issue>
 __device__ __forceinline__ void mainloop(unsigned char* smem, int nk,
                                          const Issue& issue,
                                          float (&acc)[BN / 2]) {
-  using R = Ring<BN>;
-  constexpr int S = R::kStages;
+  using R = Ring<BN, S>;
   const uint32_t raw = smem_u32(smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t full = base + S * R::kStageBytes;

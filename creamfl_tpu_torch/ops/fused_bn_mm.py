@@ -9,7 +9,8 @@ its output can be one pass over memory:
     ssum, ssq = col-sums of y, y^2 # batch stats of the STORED y
 
 This module holds the plain PyTorch versions (``mm_bn_stats_reference``
-forward, ``mm_bn_stats_backward_reference`` backward) and the entry point
+forward, ``mm_bn_stats_backward_reference`` backward, each split into the
+steps of the kernels' wgmma route) and the entry point
 ``mm_bn_stats``, a ``torch.autograd.Function`` whose forward and backward
 go through the wrappers of ``ops.fused_bn_mm_kernels``: CUDA tensors run the
 hand-written kernels (K5 forward, K6 backward), CPU tensors these plain
@@ -30,20 +31,44 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def mm_bn_stats_reference(x: torch.Tensor, w: torch.Tensor,
-                          inv: torch.Tensor, beta: torch.Tensor,
-                          relu: bool) -> Tuple[torch.Tensor, torch.Tensor,
-                                               torch.Tensor]:
-    """Plain forward. ``x`` [M, K], ``w`` [K, N] (both in the compute dtype),
-    ``inv``/``beta`` [K] fp32. Returns (y [M, N] in x.dtype, ssum [N] fp32,
-    ssq [N] fp32). y is rounded to x's dtype BEFORE the stats are taken,
-    as the unfused conv's stored output is. Differentiable by autograd."""
-    a = x.float() * inv + beta
-    if relu:
-        a = torch.relu(a)
-    y = _matmul_f32(a.to(w.dtype), w).to(x.dtype)
+def activation_reference(x: torch.Tensor, inv: Optional[torch.Tensor],
+                         beta: Optional[torch.Tensor], relu: bool,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """a = relu?(x * inv + beta) in fp32, rounded once to ``dtype``
+    (relu?(x) on the identity variant, ``inv`` and ``beta`` None): the
+    operand of K5's product and of K6's dW product."""
+    if inv is None:
+        a = torch.relu(x) if relu else x
+    else:
+        a = x.float() * inv + beta
+        if relu:
+            a = torch.relu(a)
+    return a.to(dtype)
+
+
+def mm_stats_reference(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, ssum, ssq): y = a @ w with fp32 accumulation, rounded to
+    ``dtype`` BEFORE the stats are taken (as the unfused conv's stored
+    output is); ssum and ssq the fp32 column sums of y and y^2."""
+    y = _matmul_f32(a, w).to(dtype)
     yf = y.float()
     return y, yf.sum(0), (yf * yf).sum(0)
+
+
+def mm_bn_stats_reference(x: torch.Tensor, w: torch.Tensor,
+                          inv: Optional[torch.Tensor],
+                          beta: Optional[torch.Tensor],
+                          relu: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Plain forward (what K5 computes), in the two steps of its wgmma
+    route: the activation (``activation_reference``), then the product with
+    its stats (``mm_stats_reference``). ``x`` [M, K], ``w`` [K, N] (both in
+    the compute dtype), ``inv``/``beta`` [K] fp32, or both None for the
+    identity variant. Returns (y [M, N] in x.dtype, ssum [N] fp32, ssq [N]
+    fp32). Differentiable by autograd."""
+    return mm_stats_reference(activation_reference(x, inv, beta, relu,
+                                                   w.dtype), w, x.dtype)
 
 
 def bwd_prologue_reference(
@@ -55,16 +80,9 @@ def bwd_prologue_reference(
 
     The stat cotangents fold into dy in fp32 from the stored y
     (d ssum/dy = 1, d ssq/dy = 2y) and the folded dyt is rounded once;
-    a = relu?(x * inv + beta) in fp32, rounded once (relu?(x) on the
-    identity variant, ``inv`` and ``beta`` None)."""
+    a is ``activation_reference``."""
     dyt = (dy.float() + dssum) + (2.0 * y.float()) * dssq
-    if inv is None:
-        a = torch.relu(x) if relu else x
-    else:
-        a = x.float() * inv + beta
-        if relu:
-            a = torch.relu(a)
-    return dyt.to(dtype), a.to(dtype)
+    return dyt.to(dtype), activation_reference(x, inv, beta, relu, dtype)
 
 
 def bwd_dx_reference(

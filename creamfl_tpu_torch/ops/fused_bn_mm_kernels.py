@@ -7,24 +7,30 @@ TPU kernels of the JAX package's ``ops/fused_bn_mm.py``:
 * ``mm_bn_stats_fwd`` (K5, ``_fwd_pallas``): y = relu?(x*inv + beta) @ w and
   the column sum / sum of squares of the stored y.
 * ``mm_bn_stats_bwd`` (K6, ``_bwd_pallas``): dx, dw, dinv, dbeta in one
-  call, with the stat cotangents folded into dy. Two routes, chosen by
-  ``plan_bwd_route`` from dtype, shape and alignment and counted in
-  ``mm_bn_stats_bwd.launches_by_route``:
+  call, with the stat cotangents folded into dy.
 
-  - ``"wgmma"`` (bf16, K and N multiples of 8, 16-byte aligned rows): a
-    prologue pass writes the folded dyt and the activation a in bf16, then
-    dx and dW run as two TMA + wgmma GEMMs (``csrc/wgmma_core.cuh``);
-  - ``"tiled"`` (fp32, or shapes TMA cannot describe): the wmma / FMA
-    tile kernels, which apply the prologue in their operand fetches.
+Each runs on one of two routes, chosen per call by ``plan_fwd_route`` /
+``plan_bwd_route`` from dtype, shape and alignment and counted in
+``<wrapper>.launches_by_route``:
 
-  A failed launch raises on either route; neither gives way to the other.
+- ``"wgmma"`` (bf16, K and N multiples of 8, 16-byte aligned rows): an
+  elementwise pass writes the operands that need a transform in bf16 (K5:
+  the activation a, none at all on the identity variant without relu; K6:
+  the folded dyt and a), then plain TMA + wgmma GEMMs
+  (``csrc/wgmma_core.cuh``) with their epilogues;
+- ``"tiled"`` (fp32, or shapes TMA cannot describe): the wmma / FMA tile
+  kernels, which apply the transforms in their operand fetches.
+
+A failed launch raises on either route; neither gives way to the other.
 
 ``MMBNStats`` (affine) and ``MMStatsIdentity`` (inv = 1, beta = 0
 statically) are the ``torch.autograd.Function``s over them that
 ``ops.fused_bn_mm.mm_bn_stats`` applies. A wrapper given CPU tensors runs
 the plain version of ``ops.fused_bn_mm``; given CUDA tensors it launches
-the kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``. The library is built by ``ops.build`` at first use.
+the kernel or raises; a route asked for is checked on either device.
+Each wrapper counts its launches in ``<wrapper>.launches`` and, per route,
+in ``<wrapper>.launches_by_route``. The library is built by ``ops.build``
+at first use.
 """
 
 from __future__ import annotations
@@ -66,9 +72,11 @@ def _lib() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fbm_forward.argtypes = [i, i, i, p, p, p, p, i, i, i, p, p, p, p, p,
-                                p]
+    lib.fbm_forward.argtypes = [i, i, i, p, p, p, p, i, i, i, p, p, p, p]
     lib.fbm_forward.restype = i
+    lib.fbm_forward_wgmma.argtypes = [i, i, p, p, p, p, i, i, i, i, p, p, p,
+                                      p, p]
+    lib.fbm_forward_wgmma.restype = i
     lib.fbm_backward.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i, i, i, i,
                                  i, p, p, p, p, p, p, p, p]
     lib.fbm_backward.restype = i
@@ -144,18 +152,50 @@ def plan_dw_splits(m: int, k: int, n: int, sm_count: int,
     return -(-m // rows), rows
 
 
+def _plan_route(dtype: torch.dtype, k: int, n: int, *tensors) -> str:
+    """``"wgmma"`` needs bf16, K and N multiples of 8 and 16-byte aligned
+    bases: TMA's global strides and the passes' 16-byte accesses. Anything
+    else takes ``"tiled"``."""
+    if dtype != torch.bfloat16 or k % 8 or n % 8:
+        return "tiled"
+    if any(t.data_ptr() % 16 for t in tensors):
+        return "tiled"
+    return "wgmma"
+
+
+def plan_fwd_route(x: torch.Tensor, w_nk: torch.Tensor,
+                   y: torch.Tensor) -> str:
+    """K5's route for these (contiguous) operands; ``w_nk`` is W as a
+    contiguous [N, K] (the conv weight's layout), ``y`` the [M, N] output."""
+    return _plan_route(x.dtype, x.shape[1], w_nk.shape[0], x, w_nk, y)
+
+
 def plan_bwd_route(x: torch.Tensor, w_kn: torch.Tensor, y: torch.Tensor,
                    dy: torch.Tensor) -> str:
     """K6's route for these (contiguous) operands; ``w_kn`` is W as a
-    contiguous [K, N]. ``"wgmma"`` needs bf16, K and N multiples of 8 and
-    16-byte aligned bases: TMA's global strides and the prologue's 16-byte
-    accesses. Anything else takes ``"tiled"``."""
-    (_, k), n = x.shape, w_kn.shape[1]
-    if x.dtype != torch.bfloat16 or k % 8 or n % 8:
-        return "tiled"
-    if any(t.data_ptr() % 16 for t in (x, w_kn, y, dy)):
-        return "tiled"
-    return "wgmma"
+    contiguous [K, N]."""
+    return _plan_route(x.dtype, x.shape[1], w_kn.shape[1], x, w_kn, y, dy)
+
+
+def resolve_route(name: str, asked: Optional[str], planned: str) -> str:
+    """The route a wrapper takes: the planner's, unless one is asked for.
+    A named route is taken as asked ("tiled" takes every input; "wgmma"
+    raises where the planner would not take it), so that the two can be
+    timed on the same inputs."""
+    if asked is None:
+        return planned
+    if asked not in ROUTES or (asked == "wgmma" and planned != "wgmma"):
+        raise ValueError(f"{name}: route {asked!r} does not take these "
+                         f"inputs (planned: {planned!r})")
+    return asked
+
+
+def plan_stats_partials(m: int, n: int) -> Tuple[int, int]:
+    """Shape of K5's fp32 stat partials on either route: one row per
+    128-row block of y, holding the block's N column sums and then its N
+    sums of squares; one merge pass sums the rows in order into [2N]
+    (both routes' row blocks are 128 rows: BLOCK_ROWS == WG_ROWS)."""
+    return -(-m // BLOCK_ROWS), 2 * n
 
 
 def _check_inputs(name: str, x: torch.Tensor, w: torch.Tensor,
@@ -184,36 +224,47 @@ def _check_inputs(name: str, x: torch.Tensor, w: torch.Tensor,
 
 def mm_bn_stats_fwd(x: torch.Tensor, w: torch.Tensor,
                     inv: Optional[torch.Tensor],
-                    beta: Optional[torch.Tensor], relu: bool
+                    beta: Optional[torch.Tensor], relu: bool,
+                    route: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, ssum, ssq) of relu?(x*inv + beta) @ w (K5). ``x`` [M, K], ``w``
-    [K, N] in one compute dtype; ``inv``/``beta`` None: identity."""
-    if x.device.type == "cpu":
-        if inv is None:
-            k = x.shape[1]
-            inv = torch.ones(k)
-            beta = torch.zeros(k)
-        return plain.mm_bn_stats_reference(x, w, inv, beta, relu)
-    _check_inputs("mm_bn_stats_fwd", x, w, inv, beta)
+    [K, N] in one compute dtype; ``inv``/``beta`` None: identity. ``route``
+    None lets ``plan_fwd_route`` choose (see ``resolve_route``)."""
+    cpu = x.device.type == "cpu"
+    if not cpu:
+        _check_inputs("mm_bn_stats_fwd", x, w, inv, beta)
     (m, k), n = x.shape, w.shape[1]
     x = x.contiguous()
-    wt = w.t().contiguous()  # [N, K]: the conv weight's own layout
+    w_nk = w.t().contiguous()  # [N, K]: the conv weight's own layout
+    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    route = resolve_route("mm_bn_stats_fwd", route,
+                          plan_fwd_route(x, w_nk, y))
+    if cpu:
+        return plain.mm_bn_stats_reference(x, w, inv, beta, relu)
     affine = inv is not None
     if affine:
         inv, beta = inv.contiguous(), beta.contiguous()
-    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    parts = torch.empty(2, -(-m // BLOCK_ROWS), n, dtype=torch.float32,
-                        device=x.device)
-    stats = torch.empty(2, n, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _check(_lib().fbm_forward(
-            _DTYPES[x.dtype], int(affine), int(relu), x.data_ptr(),
-            wt.data_ptr(), _ptr(inv), _ptr(beta), m, k, n, y.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream),
-            "mm_bn_stats_fwd")
+    dev = x.device
+    part = torch.empty(plan_stats_partials(m, n), dtype=torch.float32,
+                       device=dev)
+    stats = torch.empty(2, n, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if route == "wgmma":
+            act = (torch.empty(m, k, dtype=x.dtype, device=dev)
+                   if affine or relu else None)
+            err = _lib().fbm_forward_wgmma(
+                int(affine), int(relu), x.data_ptr(), w_nk.data_ptr(),
+                _ptr(inv), _ptr(beta), m, k, n, wgmma_cols(n), _ptr(act),
+                y.data_ptr(), part.data_ptr(), stats.data_ptr(), stream)
+        else:
+            err = _lib().fbm_forward(
+                _DTYPES[x.dtype], int(affine), int(relu), x.data_ptr(),
+                w_nk.data_ptr(), _ptr(inv), _ptr(beta), m, k, n,
+                y.data_ptr(), part.data_ptr(), stats.data_ptr(), stream)
+    _check(err, f"mm_bn_stats_fwd ({route})")
     mm_bn_stats_fwd.launches += 1
+    mm_bn_stats_fwd.launches_by_route[route] += 1
     return y, stats[0], stats[1]
 
 
@@ -225,30 +276,26 @@ def mm_bn_stats_bwd(x: torch.Tensor, w: torch.Tensor,
                     route: Optional[str] = None):
     """(dx, dw [K, N], dinv, dbeta) of ``mm_bn_stats`` (K6); dinv and dbeta
     are None on the identity variant. ``route`` None lets
-    ``plan_bwd_route`` choose; a named route is taken as asked ("tiled"
-    takes every input; "wgmma" raises where the planner would not take
-    it), so that the two can be timed on the same inputs."""
-    if x.device.type == "cpu":
+    ``plan_bwd_route`` choose (see ``resolve_route``)."""
+    cpu = x.device.type == "cpu"
+    (m, k), n = x.shape, w.shape[1]
+    if not cpu:
+        _check_inputs("mm_bn_stats_bwd", x, w, inv, beta)
+        if (y.shape != (m, n) or dy.shape != (m, n) or y.dtype != x.dtype
+                or dy.dtype != x.dtype):
+            raise ValueError("mm_bn_stats_bwd: y and dy must be "
+                             f"[{m}, {n}] {x.dtype}")
+    x, y, dy = x.contiguous(), y.contiguous(), dy.contiguous()
+    w_kn = w.contiguous()
+    route = resolve_route("mm_bn_stats_bwd", route,
+                          plan_bwd_route(x, w_kn, y, dy))
+    if cpu:
         return plain.mm_bn_stats_backward_reference(x, w, inv, beta, y, dy,
                                                     dssum, dssq, relu)
-    _check_inputs("mm_bn_stats_bwd", x, w, inv, beta)
-    (m, k), n = x.shape, w.shape[1]
-    if (y.shape != (m, n) or dy.shape != (m, n) or y.dtype != x.dtype
-            or dy.dtype != x.dtype):
-        raise ValueError("mm_bn_stats_bwd: y and dy must be "
-                         f"[{m}, {n}] {x.dtype}")
-    x, y, dy = x.contiguous(), y.contiguous(), dy.contiguous()
     dssum = dssum.float().contiguous()
     dssq = dssq.float().contiguous()
     affine = inv is not None
     dev = x.device
-    w_kn = w.contiguous()
-    planned = plan_bwd_route(x, w_kn, y, dy)
-    if route is None:
-        route = planned
-    elif route not in ROUTES or (route == "wgmma" and planned != "wgmma"):
-        raise ValueError(f"mm_bn_stats_bwd: route {route!r} does not take "
-                         f"these inputs (planned: {planned!r})")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, rows = plan_dw_splits(m, k, n, sm_count, route)
     tile = dw_tile(k, n, route)
@@ -338,7 +385,7 @@ _WRAPPERS = (mm_bn_stats_fwd, mm_bn_stats_bwd)
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
-    mm_bn_stats_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def launch_counts() -> Dict[str, int]:

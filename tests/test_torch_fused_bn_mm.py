@@ -17,7 +17,8 @@ import pytest
 import torch
 
 import chip_smoke
-from creamfl_tpu.ops.fused_bn_mm import (_bwd_pallas, _mm_bn_stats_pallas,
+from creamfl_tpu.ops.fused_bn_mm import (_bwd_pallas, _fwd_pallas,
+                                         _mm_bn_stats_pallas,
                                          _mm_stats_pallas_id,
                                          mm_bn_stats_reference as j_reference)
 from creamfl_tpu_torch.models.resnet import RESNET_CONFIGS
@@ -200,12 +201,17 @@ def test_r101_bf16_takes_the_wgmma_route(k, n, affine, relu):
     assert FK.wgmma_cols(k) == (64 if k == 64 else 128)
 
 
-@pytest.mark.parametrize("m,k,n,dtype,offset", [
+_TILED_CASES = [
     (8, 64, 256, torch.float32, 0),      # fp32
     (8, 45, 64, torch.bfloat16, 0),      # K % 8 != 0
     (8, 64, 77, torch.bfloat16, 0),      # N % 8 != 0
     (8, 64, 256, torch.bfloat16, 1),     # a view 2 bytes off alignment
-], ids=["fp32", "k45", "n77", "unaligned"])
+]
+_TILED_IDS = ["fp32", "k45", "n77", "unaligned"]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,offset", _TILED_CASES,
+                         ids=_TILED_IDS)
 def test_other_inputs_take_the_tiled_route(m, k, n, dtype, offset):
     x, w, y, dy = _route_inputs(m, k, n, dtype, offset)
     assert FK.plan_bwd_route(x, w, y, dy) == "tiled"
@@ -213,9 +219,93 @@ def test_other_inputs_take_the_tiled_route(m, k, n, dtype, offset):
 
 def test_launch_counts_by_route_reset():
     FK.mm_bn_stats_bwd.launches_by_route["wgmma"] += 3
+    FK.mm_bn_stats_fwd.launches_by_route["tiled"] += 2
+    FK.mm_bn_stats_fwd.launches += 2
     FK.reset_launch_counts()
     assert FK.mm_bn_stats_bwd.launches_by_route == {"wgmma": 0, "tiled": 0}
+    assert FK.mm_bn_stats_fwd.launches_by_route == {"wgmma": 0, "tiled": 0}
     assert FK.launch_counts() == {"mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}
+
+
+@pytest.mark.parametrize("k,n,affine,relu", _R101)
+def test_r101_bf16_fwd_takes_the_wgmma_route(k, n, affine, relu):
+    """K5's planner on every distinct 1x1 geometry of ResNet-101 (M does
+    not enter the choice); its B tile is 64 wide only at N = 64."""
+    x, w, y, _ = _route_inputs(8, k, n, torch.bfloat16)
+    assert FK.plan_fwd_route(x, w.t().contiguous(), y) == "wgmma"
+    assert FK.wgmma_cols(n) == (64 if n == 64 else 128)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,offset", _TILED_CASES,
+                         ids=_TILED_IDS)
+def test_other_fwd_inputs_take_the_tiled_route(m, k, n, dtype, offset):
+    x, w, y, _ = _route_inputs(m, k, n, dtype, offset)
+    assert FK.plan_fwd_route(x, w.t().contiguous(), y) == "tiled"
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
+@pytest.mark.parametrize("m,k,n,dtype,offset", _TILED_CASES,
+                         ids=_TILED_IDS)
+def test_asking_wgmma_where_the_planner_refuses_raises(wrapper, m, k, n,
+                                                       dtype, offset):
+    """A route asked for is checked before the device decides between
+    kernel and plain version, so this shows on the CPU too."""
+    x, w, y, dy = _route_inputs(m, k, n, dtype, offset)
+    stats = torch.zeros(n), torch.zeros(n)
+
+    def call(route):
+        if wrapper == "fwd":
+            return FK.mm_bn_stats_fwd(x, w, None, None, False, route=route)
+        return FK.mm_bn_stats_bwd(x, w, None, None, y, dy, *stats, False,
+                                  route=route)
+
+    with pytest.raises(ValueError, match="does not take"):
+        call("wgmma")
+    with pytest.raises(ValueError, match="does not take"):
+        call("wmma")
+    call("tiled")  # takes every input
+
+
+def test_asked_routes_on_inputs_the_planner_takes():
+    x, w, y, dy = _route_inputs(8, 64, 128, torch.bfloat16)
+    for route in (None, *FK.ROUTES):
+        got = FK.mm_bn_stats_fwd(x, w, None, None, True, route=route)
+        assert got[0].shape == (8, 128)
+    assert FK.resolve_route("f", None, "tiled") == "tiled"
+    assert FK.resolve_route("f", "tiled", "wgmma") == "tiled"
+
+
+@pytest.mark.parametrize("m,n", [(1000, 128), (401408, 256), (128, 64),
+                                 (7, 8)])
+def test_stats_partials_plan(m, n):
+    """[blocks, 2N]: one row per 128-row block of y, covering every row."""
+    blocks, cols = FK.plan_stats_partials(m, n)
+    assert cols == 2 * n
+    assert blocks * FK.BLOCK_ROWS >= m > (blocks - 1) * FK.BLOCK_ROWS
+    assert FK.BLOCK_ROWS == FK.WG_ROWS
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("relu", [False, True])
+def test_fwd_activation_and_product_match_pallas(affine, relu):
+    """K5's wgmma route as plain steps (the activation, then the product
+    with its stats) against the JAX ``_fwd_pallas`` in interpret mode
+    (32-row blocks, the last ragged) at ragged M, K, N, fp32; together they
+    are the plain forward."""
+    x, w, inv, beta, _, _ = _data(7)
+    ji, jb = ((inv, beta) if affine
+              else (np.ones_like(inv), np.zeros_like(beta)))
+    want = _fwd_pallas(*map(jnp.asarray, (x, w, ji, jb)), relu, 32, True,
+                       identity=not affine)
+    tx, tw, ti, tb = map(torch.tensor, (x, w, inv, beta))
+    if not affine:
+        ti = tb = None
+    a = P.activation_reference(tx, ti, tb, relu, torch.float32)
+    got = P.mm_stats_reference(a, tw, torch.float32)
+    for g, j, name in zip(got, want, ("y", "ssum", "ssq")):
+        _close(g, j, dict(rtol=1e-5, atol=1e-5), name)
+    whole = P.mm_bn_stats_reference(tx, tw, ti, tb, relu)
+    assert all(torch.equal(g, r) for g, r in zip(got, whole))
 
 
 @pytest.mark.parametrize("affine", [True, False])
@@ -251,6 +341,31 @@ def test_bwd_prologue_and_products_match_pallas(affine, relu):
                                            torch.tensor(cq), relu)
     for g, r in zip(got, (dx, dw, dinv, dbeta)):
         assert (g is None and r is None) or torch.equal(g, r)
+
+
+@pytest.mark.parametrize("raw,short,owner", [
+    ("void (anonymous namespace)::fwd_wgmma_kernel<128, 1>(CUtensorMap_st,"
+     " CUtensorMap_st, int, int, int, __nv_bfloat16*, float*)",
+     "fwd_wgmma_kernel", "K5"),
+    ("void (anonymous namespace)::fwd_stats_merge_kernel(float const*, int,"
+     " int, float*)", "fwd_stats_merge_kernel", "K5"),
+    ("void (anonymous namespace)::bwd_prologue_kernel<true, true>(...)",
+     "bwd_prologue_kernel", "K6"),
+    ("void (anonymous namespace)::sum_rows_kernel(float const*, int, int, "
+     "float*)", "sum_rows_kernel", "K6"),
+    ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<64> >"
+     "(Flash_fwd_params)", "flash_fwd_kernel", None),
+    ("ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_tn",
+     "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_tn", None),
+], ids=["k5-gemm", "k5-merge", "k6-pass", "k6-merge", "flash", "cublas"])
+def test_profile_kernel_names(raw, short, owner):
+    """The profile attributes a kernel to K5 or K6 by its exact short name,
+    so a library kernel whose name contains 'fwd_kernel' is neither."""
+    assert chip_smoke.short_kernel_name(raw) == short
+    owners = [o for o, names in (("K5", chip_smoke.K5_KERNELS),
+                                 ("K6", chip_smoke.K6_KERNELS))
+              if short in names]
+    assert owners == ([owner] if owner else [])
 
 
 def test_library_path_hashes_the_headers(tmp_path):
