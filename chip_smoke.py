@@ -1,15 +1,20 @@
 """Drive the PyTorch/CUDA port on one GPU and check its kernels.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--probe]
 
 Phases (any failure exits non-zero):
 
 1. Build the kernel sources (``creamfl_tpu_torch/csrc/gallery.cu`` and
    ``csrc/fused_bn_mm.cu``), one nvcc each, in parallel.
-2. Hold each gallery kernel (K1 row logsumexp, K2 softmax matvec, K3 fused
-   gallery CE, K4 con_w diagonal) against its plain PyTorch version on the
-   card at the main path's shapes, plus one odd shape, and time kernel,
-   plain version and one PyTorch call computing the same function.
+2. The gallery kernels' first calls on their tc route, small and ragged, in
+   a subprocess under a time limit (``--probe`` runs this step alone).
+   Then hold each gallery kernel (K1 row logsumexp, K2 softmax matvec, K3
+   fused gallery CE, K4 con_w diagonal) on both of its routes (tc: 3xTF32
+   mma.sync; simt: fp32 FMAs) against its plain PyTorch version on the
+   card at the main path's shapes, an odd shape, the mlp_local width (D
+   512) and bf16 features (K3), each call's route asserted, and time both
+   routes, the plain version and one PyTorch call computing the same
+   function.
 3. Hold K5 (fused BN-normalise + 1x1 conv + stats, forward) and K6 (its
    backward) against their plain versions at a ragged-M bf16 shape (the
    first call of either wgmma route, so that a hang shows at once), at
@@ -24,7 +29,8 @@ Phases (any failure exits non-zero):
    ResNet-18 clients (100 classes, feature_dim 256) take task and contrast
    steps, run a local test and extract features over the full 50 000-row
    public set; then con_w aggregates their representations against
-   50 000 x 256 global features. K1-K4 must have launched here.
+   50 000 x 256 global features. K1-K4 must have launched here, every
+   launch on the tc route.
 5. The server at the paper's width (ResNet-101 + BERT-base, embed 256,
    bf16, batch 128 at 224², max_len 32): train steps, an extraction step at
    batch 256, a distill step against 50 000 x 256 targets and an eval step,
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense tensor cores
+PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 N_PUB, DIM, N_CLASS = 50_000, 256, 100
@@ -94,8 +101,12 @@ KERNELS = {
     "mm_bn_stats_bwd": (FUSED_SOURCE, "creamfl_tpu/ops/fused_bn_mm.py:212"),
 }
 GALLERY_KERNELS = tuple(KERNELS)[:4]
+# The tc route's first calls run in a subprocess under this limit (s).
+PROBE_TIMEOUT = 240
 # Tolerances of kernel vs plain version, both fp32; they differ only in
-# summation order (split-and-merge over gallery tiles vs cuBLAS blocks).
+# summation order (split-and-merge over gallery tiles vs cuBLAS blocks) and,
+# on the tc route, by 3xTF32's dropped small*small terms (~2^-22 of each
+# product, below fp32 summation noise).
 TOL = {
     # lse of up to 50 000 terms is ~11-30: 1e-4 absolute is ~10 ulp.
     "row_logsumexp": dict(rtol=0.0, atol=1e-4),
@@ -103,6 +114,9 @@ TOL = {
     # sums of 50 000 small products; atol covers entries near zero.
     "softmax_matvec": dict(rtol=1e-4, atol=1e-6),
     "dfeats": dict(rtol=1e-4, atol=1e-6),
+    # bf16 dfeats against the plain fp32 ones: the fp32 tolerance plus the
+    # bf16 rounding of the result (at most 2^-8 relative).
+    "dfeats_bf16": dict(rtol=1e-4 + 2.0 ** -8, atol=1e-6),
     # a mean of lse - label logit: relative to the loss value.
     "ce_loss": dict(rtol=1e-5, atol=0.0),
 }
@@ -221,88 +235,231 @@ def build_phase() -> None:
                 log("  ptxas:", line.strip())
 
 
+def gallery_route_counts():
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    return {fn: dict(getattr(K, fn).launches_by_route)
+            for fn in GALLERY_KERNELS}
+
+
+def expect_routes(tag: str, before, want) -> None:
+    """Each wrapper in ``want`` ({name: (route, n)}) launched n times since
+    ``before``, all on that route; the others not at all."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    now = gallery_route_counts()
+    for fn in GALLERY_KERNELS:
+        route, n = want.get(fn, ("tc", 0))
+        took = {r: now[fn][r] - before[fn][r] for r in K.ROUTES}
+        if took != {r: n if r == route else 0 for r in K.ROUTES}:
+            raise AssertionError(f"{tag}: {fn} took routes {took}, not "
+                                 f"{n} on {route}")
+
+
+def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
+    """K1, K2 and K3 (forward and backward) on ``route`` against their
+    plain versions, with each call's route asserted. bf16 features run K3
+    alone: its loss against the plain CE of the same (upcast) values, its
+    bf16 dfeats against the plain fp32 dfeats."""
+    from creamfl_tpu_torch.ops import gallery as P
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    before = gallery_route_counts()
+    if f.dtype == torch.float32:
+        lse_p = P.streaming_logsumexp(f, gal, tau)
+        errs["row_logsumexp"] = max(errs["row_logsumexp"], check(
+            f"{tag} row_logsumexp", K.row_logsumexp(f, gal, tau, route=route),
+            lse_p, TOL["row_logsumexp"]))
+        errs["softmax_matvec"] = max(errs["softmax_matvec"], check(
+            f"{tag} softmax_matvec",
+            K.softmax_matvec(f, gal, lse_p, tau, route=route),
+            P.softmax_matvec(f, gal, lse_p, tau), TOL["softmax_matvec"]))
+        expect_routes(f"{tag} K1/K2", before, {
+            "row_logsumexp": (route, 1), "softmax_matvec": (route, 1)})
+        before = gallery_route_counts()
+    fk = f.clone().requires_grad_(True)
+    fp = f.detach().float().clone().requires_grad_(True)
+    loss_k = K.fused_gallery_ce(fk, gal, labels, tau, route=route)
+    loss_k.backward()
+    loss_p = P.gallery_cross_entropy(fp, gal, labels, tau)
+    loss_p.backward()
+    expect_routes(f"{tag} K3", before, {
+        "fused_gallery_ce": (route, 1), "row_logsumexp": (route, 1),
+        "softmax_matvec": (route, 1)})
+    if fk.grad.dtype != f.dtype:
+        raise AssertionError(f"{tag}: dfeats in {fk.grad.dtype}")
+    e_loss = check(f"{tag} fused_gallery_ce loss", loss_k.detach(),
+                   loss_p.detach(), TOL["ce_loss"])
+    e_grad = check(f"{tag} fused_gallery_ce dfeats", fk.grad.float(),
+                   fp.grad, TOL["dfeats" if f.dtype == torch.float32
+                                else "dfeats_bf16"])
+    errs["fused_gallery_ce"] = max(errs["fused_gallery_ce"], e_loss, e_grad)
+
+
+def check_conw_case(tag, v, g, route, errs) -> None:
+    from creamfl_tpu_torch.ops import gallery as P
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    before = gallery_route_counts()
+    errs["conw_diag"] = max(errs["conw_diag"], check(
+        f"{tag} conw_diag", K.conw_diag(v, g, route=route),
+        P.gallery_log_softmax_diag(v, g), TOL["conw_diag"]))
+    errs["row_logsumexp"] = max(errs["row_logsumexp"], check(
+        f"{tag} row_logsumexp tau=1", K.row_logsumexp(v, g, 1.0, route=route),
+        P.streaming_logsumexp(v, g, 1.0), TOL["row_logsumexp"]))
+    expect_routes(f"{tag} K4/K1", before, {
+        "conw_diag": (route, 1), "row_logsumexp": (route, 1)})
+
+
+def probe_phase(seed: int) -> None:
+    """The tc route's first calls, small and ragged, on both routes: K4 at
+    300 x 300 x 256, K1-K3 at 77 x 1001 x 48 and 70 x 333 x 512 (unit rows,
+    see ``kernel_phase``). Run in a subprocess under a time limit by
+    ``main``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
+    for route in ("tc", "simt"):
+        check_conw_case(f"probe {route} 300x300x256",
+                        unit_rows(300, 256, gen, dev),
+                        unit_rows(300, 256, gen, dev), route, errs)
+        for m, n, d in ((77, 1001, 48), (70, 333, 512)):
+            f, gal = unit_rows(m, d, gen, dev), unit_rows(n, d, gen, dev)
+            labels = torch.randint(0, n, (m,), generator=gen, device=dev)
+            check_gallery_case(f"probe {route} {m}x{n}x{d}", f, gal, labels,
+                               0.5, route, errs)
+    torch.cuda.synchronize()
+    log(f"[probe] ok, worst errors {json.dumps(errs)}")
+
+
+def gallery_bounds(flops: float, nbytes: float):
+    """(fp32-FMA bound, 3xTF32 bound): the same bytes; 3x the operations
+    at the TF32 tensor-core peak for the second."""
+    return bound_ms(flops, nbytes), bound_ms(3.0 * flops, nbytes,
+                                             PEAK_TF32_FLOPS)
+
+
+def time_both_routes(name, on, plain_fn, library_fn, flops, nbytes, reps=10):
+    """Event times of both routes in turns on the same inputs (tc, simt,
+    tc), the plain version and the library call, the device time of one
+    call on each route split by kernel and of the library call, and both
+    bounds. The record's "ms" and "bound_ms" are the tc route's (the main
+    path's)."""
+    ms_tc = cuda_time_ms(on("tc"), reps)
+    ms_simt = cuda_time_ms(on("simt"), reps)
+    r = dict(ms=min(ms_tc, cuda_time_ms(on("tc"), reps)), simt_ms=ms_simt,
+             plain_ms=cuda_time_ms(plain_fn, reps),
+             library_ms=cuda_time_ms(library_fn, reps))
+    parts = {route: device_ms_by_kernel(on(route)) for route in ("tc", "simt")}
+    r["library_device_ms"] = sum(device_ms_by_kernel(library_fn).values())
+    (b32, by32), (b_tc, by_tc) = gallery_bounds(flops, nbytes)
+    r.update(bound_ms=b_tc, bound_by=by_tc, fp32_bound_ms=b32,
+             fp32_bound_by=by32)
+    log(f"  time {name}: tc {r['ms']:.3f} ms, simt {ms_simt:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms "
+        f"(device {r['library_device_ms']:.3f} ms), bound 3xTF32 "
+        f"{b_tc:.3f} ms ({by_tc}), fp32 {b32:.3f} ms ({by32})")
+    for route in ("tc", "simt"):
+        log(f"  {name} device time per call, {route}: "
+            f"{sum(parts[route].values()):.4f} ms "
+            + json.dumps({k: round(v, 4) for k, v in parts[route].items()}))
+    r["device_ms"] = sum(parts["tc"].values())
+    r["simt_device_ms"] = sum(parts["simt"].values())
+    return r
+
+
+def tc_peak_phase(iters: int = 4096) -> float:
+    """The card's mma.sync m16n8k8 TF32 rate (register operands, 8
+    independent products per warp, 1-8 blocks of 8 warps per SM): the
+    ceiling of the tc route, whose 3xTF32 takes 3 of them per product.
+    Returns the best TFLOP/s."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    best = 0.0
+    for per_sm in (1, 2, 4, 8):
+        blocks = sms * per_sm
+        ms = cuda_time_ms(lambda: K.tc_peak(blocks, iters, dev), reps=5)
+        rate = blocks * 8 * iters * 8 * (2 * 16 * 8 * 8) / ms / 1e9
+        best = max(best, rate)
+        log(f"  mma.sync TF32 rate, {per_sm} block(s) of 8 warps per SM: "
+            f"{rate:.1f} TFLOP/s")
+    log(f"[kernels] mma.sync TF32 peak {best:.1f} TFLOP/s (3xTF32: "
+        f"{best / 3:.1f} TFLOP/s of fp32 products; wgmma TF32 data sheet "
+        f"peak {PEAK_TF32_FLOPS / 1e12:.0f})")
+    return best
+
+
 def kernel_phase(seed: int):
-    """Kernel vs plain version at the main path's shapes. Returns per-kernel
-    records (without launch counts) for the JSON line."""
+    """K1-K4 on both routes against their plain versions at the main
+    path's shapes (con_w 50 000² x 256; contrast M 128 and the ragged 80
+    against 50 000 x 256), an odd shape (77 x 1001 x 48), the mlp_local
+    width (128 x 50 000 x 512) and bf16 features (K3), each call's route
+    asserted; then each timed on both routes. Returns per-kernel records
+    (without launch counts) for the JSON line."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    errs = {k: 0.0 for k in GALLERY_KERNELS}
+    errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
     rec = {}
-
-    def timed(name, kernel, plain, library, flops, nbytes, reps=10):
-        ms = cuda_time_ms(kernel, reps)
-        plain_ms = cuda_time_ms(plain, reps)
-        lib_ms = cuda_time_ms(library, reps)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
-        log(f"  time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library {lib_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by})")
+    tc_peak_phase()
 
     # K4 and K1 at con_w's 50 000 x 50 000 x 256 (tau = 1).
     log(f"[kernels] con_w shape {N_PUB} x {N_PUB} x {DIM}")
     v = unit_rows(N_PUB, DIM, gen, dev)
     g = unit_rows(N_PUB, DIM, gen, dev)
-    errs["conw_diag"] = check("conw_diag", K.conw_diag(v, g),
-                              P.gallery_log_softmax_diag(v, g),
-                              TOL["conw_diag"])
-    errs["row_logsumexp"] = check("row_logsumexp tau=1",
-                                  K.row_logsumexp(v, g, 1.0),
-                                  P.streaming_logsumexp(v, g, 1.0),
-                                  TOL["row_logsumexp"])
+    for route in K.ROUTES:
+        check_conw_case(f"con_w {route}", v, g, route, errs)
     n, d = N_PUB, DIM
-    timed("conw_diag", lambda: K.conw_diag(v, g),
-          lambda: P.gallery_log_softmax_diag(v, g),
-          lambda: torch.log_softmax(v @ g.T, dim=1).diagonal(),
-          2.0 * n * n * d + 2.0 * n * d, 4.0 * (2 * n * d + n), reps=5)
+    rec["conw_diag"] = time_both_routes(
+        "conw_diag", lambda r: lambda: K.conw_diag(v, g, route=r),
+        lambda: P.gallery_log_softmax_diag(v, g),
+        lambda: torch.log_softmax(v @ g.T, dim=1).diagonal(),
+        2.0 * n * n * d + 2.0 * n * d, 4.0 * (2 * n * d + n), reps=5)
     del v, g
     torch.cuda.empty_cache()
 
-    # K1, K2, K3 at the contrast step's shapes, then one odd shape
-    # (D = 48, N a multiple of no tile, M not a multiple of a row block).
+    # K1, K2, K3 at the contrast step's shapes, an odd shape (D = 48, N a
+    # multiple of no tile, M not a multiple of a row block), the mlp_local
+    # width, and bf16 features. All rows are unit rows, as the features and
+    # galleries of the main path are: TOL assumes logits of at most 1/tau.
+    # (At randn scale, logits ~44 at D 48, the plain fp32 K2 itself misses
+    # TOL against float64, 1.1e-5 absolute on entries near zero; a kernel
+    # met it there only by summing in cuBLAS's order.)
     g = unit_rows(N_PUB, DIM, gen, dev)
-    cases = [(PUB_BS, g, 0.5, "main"), (TAIL_BS, g, 0.5, "ragged"),
-             (77, torch.randn(1001, 48, generator=gen, device=dev), 0.5,
-              "odd")]
-    for m, gal, tau, tag in cases:
+    g512 = unit_rows(N_PUB, 512, gen, dev)
+    cases = [(PUB_BS, g, "main"), (TAIL_BS, g, "ragged"),
+             (77, unit_rows(1001, 48, gen, dev), "odd"),
+             (PUB_BS, g512, "mlp_local D512"), (PUB_BS, g, "bf16")]
+    tau = 0.5
+    for m, gal, tag in cases:
         n, d = gal.shape
         log(f"[kernels] {tag}: M={m} N={n} D={d} tau={tau}")
-        f = (unit_rows(m, d, gen, dev) if tag != "odd"
-             else torch.randn(m, d, generator=gen, device=dev))
+        f = unit_rows(m, d, gen, dev)
+        if tag == "bf16":
+            f = f.to(torch.bfloat16)
         labels = torch.randint(0, n, (m,), generator=gen, device=dev)
-        lse_k = K.row_logsumexp(f, gal, tau)
-        lse_p = P.streaming_logsumexp(f, gal, tau)
-        errs["row_logsumexp"] = max(errs["row_logsumexp"], check(
-            "row_logsumexp", lse_k, lse_p, TOL["row_logsumexp"]))
-        errs["softmax_matvec"] = max(errs["softmax_matvec"], check(
-            "softmax_matvec", K.softmax_matvec(f, gal, lse_p, tau),
-            P.softmax_matvec(f, gal, lse_p, tau), TOL["softmax_matvec"]))
-        fk = f.clone().requires_grad_(True)
-        fp = f.clone().requires_grad_(True)
-        loss_k = K.fused_gallery_ce(fk, gal, labels, tau)
-        loss_k.backward()
-        loss_p = P.gallery_cross_entropy(fp, gal, labels, tau)
-        loss_p.backward()
-        e_loss = check("fused_gallery_ce loss", loss_k.detach(),
-                       loss_p.detach(), TOL["ce_loss"])
-        e_grad = check("fused_gallery_ce dfeats", fk.grad, fp.grad,
-                       TOL["dfeats"])
-        errs["fused_gallery_ce"] = max(errs["fused_gallery_ce"], e_loss,
-                                       e_grad)
+        for route in K.ROUTES:
+            check_gallery_case(f"{tag} {route}", f, gal, labels, tau, route,
+                               errs)
         if tag != "main":
             continue
-        timed("row_logsumexp", lambda: K.row_logsumexp(f, gal, tau),
-              lambda: P.streaming_logsumexp(f, gal, tau),
-              lambda: torch.logsumexp(f @ gal.T / tau, dim=1),
-              2.0 * m * n * d, 4.0 * (m * d + n * d + m))
-        timed("softmax_matvec", lambda: K.softmax_matvec(f, gal, lse_p, tau),
-              lambda: P.softmax_matvec(f, gal, lse_p, tau),
-              lambda: torch.softmax(f @ gal.T / tau, dim=1) @ gal,
-              4.0 * m * n * d, 4.0 * (m * d + n * d + m + m * d))
+        lse_p = P.streaming_logsumexp(f, gal, tau)
+        rec["row_logsumexp"] = time_both_routes(
+            "row_logsumexp",
+            lambda r: lambda: K.row_logsumexp(f, gal, tau, route=r),
+            lambda: P.streaming_logsumexp(f, gal, tau),
+            lambda: torch.logsumexp(f @ gal.T / tau, dim=1),
+            2.0 * m * n * d, 4.0 * (m * d + n * d + m))
+        rec["softmax_matvec"] = time_both_routes(
+            "softmax_matvec",
+            lambda r: lambda: K.softmax_matvec(f, gal, lse_p, tau, route=r),
+            lambda: P.softmax_matvec(f, gal, lse_p, tau),
+            lambda: torch.softmax(f @ gal.T / tau, dim=1) @ gal,
+            4.0 * m * n * d, 4.0 * (m * d + n * d + m + m * d))
 
         def ce(fn):
             def run():
@@ -313,20 +470,28 @@ def kernel_phase(seed: int):
         # Bound: a forward and a backward product of M x N x D each (the
         # logits kept from the forward); K3 recomputes them in K2 instead,
         # 2 M N D operations above the bound, to store no M x N logits.
-        timed("fused_gallery_ce",
-              ce(lambda x: K.fused_gallery_ce(x, gal, labels, tau)),
-              ce(lambda x: P.gallery_cross_entropy(x, gal, labels, tau)),
-              ce(lambda x: F.cross_entropy(x @ gal.T / tau, labels)),
-              4.0 * m * n * d, 4.0 * (2 * m * d + n * d) + 8.0 * m)
-        # K3's own launches (K1 forward, K2 backward) without the autograd
-        # bookkeeping and small ops around them.
-        alone = cuda_time_ms(lambda: K.softmax_matvec(
-            f, gal, K.row_logsumexp(f, gal, tau), tau))
-        log(f"  time fused_gallery_ce kernels alone (K1 + K2): "
-            f"{alone:.3f} ms")
+        rec["fused_gallery_ce"] = time_both_routes(
+            "fused_gallery_ce",
+            lambda r: ce(lambda x: K.fused_gallery_ce(x, gal, labels, tau,
+                                                      route=r)),
+            ce(lambda x: P.gallery_cross_entropy(x, gal, labels, tau)),
+            ce(lambda x: F.cross_entropy(x @ gal.T / tau, labels)),
+            4.0 * m * n * d, 4.0 * (2 * m * d + n * d) + 8.0 * m)
+        # K3's partial passes with K1's and K2's plain merges, without the
+        # autograd bookkeeping.
+        for route in K.ROUTES:
+            alone = cuda_time_ms(lambda: K.softmax_matvec(
+                f, gal, K.row_logsumexp(f, gal, tau, route=route), tau,
+                route=route))
+            log(f"  time fused_gallery_ce kernels alone (K1 + K2), {route}: "
+                f"{alone:.3f} ms")
     for name in rec:
         rec[name]["max_abs_err"] = errs[name]
-    return rec
+    log(f"[kernels] records {json.dumps(rec)}")
+    # The JSON line keeps the contract's keys; the rest is in the log.
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    return {name: {k: r[k] for k in keep} for name, r in rec.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -927,9 +1092,29 @@ def server_phase(seed: int, dev=torch.device("cuda")):
     return results["fused_counts"]
 
 
+def run_probe(seed: int) -> None:
+    """``probe_phase`` in a subprocess under PROBE_TIMEOUT seconds, so that
+    a kernel that hangs shows as a timeout and stops the run."""
+    cmd = [sys.executable, __file__, "--probe", "--seed", str(seed)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=PROBE_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        log((e.stdout or b"").decode() if isinstance(e.stdout, bytes)
+            else e.stdout or "")
+        raise AssertionError(f"the tc probe took over {PROBE_TIMEOUT} s")
+    log(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"the tc probe failed ({proc.returncode})")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--probe", action="store_true",
+                        help="build and run the tc probe in this process, "
+                        "then stop without the result line")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -941,16 +1126,27 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     build_phase()
+    if opts.probe:
+        probe_phase(opts.seed)
+        return 0
+    run_probe(opts.seed)
     rec = kernel_phase(opts.seed)
     rec.update(fused_kernel_phase(opts.seed))
     counts = {}
     # Each path runs with the launch counts zeroed just before it and read
-    # just after: the image-client slice (K1-K4), then the server (K5/K6).
+    # just after: the image-client slice (K1-K4, every launch on the tc
+    # route), then the server (K5/K6).
     K.reset_launch_counts()
     slice_phase(opts.seed)
     torch.cuda.synchronize()
     counts.update(K.launch_counts())
-    log(f"[slice] kernels {json.dumps(K.launch_counts())}")
+    log(f"[slice] kernels {json.dumps(K.launch_counts())} by route "
+        f"{json.dumps(gallery_route_counts())}")
+    for name in GALLERY_KERNELS:
+        by_route = getattr(K, name).launches_by_route
+        if by_route != {"tc": counts[name], "simt": 0}:
+            raise AssertionError(f"slice: {name} took routes {by_route}, "
+                                 f"not all {counts[name]} on tc")
     counts.update(server_phase(opts.seed))
     log(f"[server] kernels {json.dumps(counts)}")
     missing = [k for k in KERNELS if counts.get(k, 0) <= 0]

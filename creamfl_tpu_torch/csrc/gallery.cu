@@ -1,46 +1,74 @@
-// Gallery kernels for Hopper (sm_90a), fp32 throughout.
+// Gallery kernels for Hopper (sm_90a), fp32 in and fp32 accumulation.
 //
-// Replaces the Pallas TPU kernels of creamfl_tpu/ops/pallas_gallery.py:
-//   * lse_partial_kernel + lse_merge_kernel  <- row_logsumexp / _lse_kernel
-//     (K1) and, with the diagonal folded into the merge pass,
-//     conw_diag_pallas (K4);
-//   * matvec_partial_kernel + sum_splits_kernel <- _softmax_matvec /
-//     _softmax_matvec_kernel (K2), the backward of fused_gallery_ce (K3).
+// Replace the Pallas TPU kernels of creamfl_tpu/ops/pallas_gallery.py:
+//   * an lse partial pass + lse_merge_kernel <- row_logsumexp / _lse_kernel
+//     (K1); with the diagonal dot in the merge, conw_diag_pallas (K4); with
+//     the label logit and the mean in the merge (one block), the forward of
+//     fused_gallery_ce (K3);
+//   * a matvec partial pass + merge_splits_kernel <- _softmax_matvec /
+//     _softmax_matvec_kernel (K2); with the label row, gbar and 1/(tau M)
+//     in the merge, the backward of fused_gallery_ce (K3).
+// K3 is thus two launches forward and two backward, nothing between them.
 //
-// What bounds them on an H100: both do 2*M*N*D (K1) or 4*M*N*D (K2) fp32
-// FMA operations on inputs of (M + N) * D floats. At the main-path shapes
-// (con_w: M = N = 50 000, D = 256; contrast CE: M = 128, N = 50 000) the
-// arithmetic intensity is hundreds of operations per byte, so they are
-// bound by fp32 FMA throughput (67 TFLOP/s outside the tensor cores), not by
-// the 51 MB gallery read (~15 us at 3.35 TB/s).
+// Each partial pass has two routes, chosen per call by the host wrapper
+// (ops/gallery_kernels.py:plan_gallery_route):
+//   * "tc": 3xTF32 mma.sync tile kernels on gallery_core.cuh (fp32,
+//     D % 8 == 0, D <= 512, 16-byte aligned bases);
+//   * "simt": the first fp32 FMA kernels, for every other call and kept
+//     beside "tc" for comparison.
+//
+// What bounds them on an H100: K1 does 2*M*N*D operations and K2 4*M*N*D
+// on inputs of (M + N) * D floats. At the main-path shapes (con_w: M = N =
+// 50 000, D = 256; contrast CE: M = 128, N = 50 000) that is hundreds of
+// operations per byte, so they are bound by operations, not by the 51 MB
+// gallery read (~15 us at 3.35 TB/s): 67 TFLOP/s for fp32 FMAs; for 3xTF32
+// on the tensor cores, a third of the TF32 rate -- 495 TFLOP/s for wgmma,
+// ~310 measured for the mma.sync used here (gallery_core.cuh has that and
+// the error argument: fp32 accuracy to within a few roundings, so the
+// plain fp32 versions' tolerances hold on unit-norm features).
 //
 // What the design does about it:
 //   * The TPU grid walked the gallery's column blocks in order on one core,
-//     carrying the running (max, sum) in VMEM. Here the column range is also
-//     split across blocks (the split count is chosen from M by the host
-//     wrapper), so that M = 128 still fills all 132 SMs. Each block writes a
-//     partial (max, sum) per row -- or a partial [rows, D] product for K2 --
-//     and a second small pass merges the splits in a fixed order
+//     carrying the running (max, sum) in VMEM. Here the column range is
+//     split across blocks (the host picks the split count from M: "tc"
+//     aims at one wave of resident blocks, each walking many tiles), each
+//     block writes a partial (max, sum) per row -- or a partial [rows, D]
+//     product -- and a merge pass sums the splits in a fixed order
 //     (deterministic; no float atomics).
-//   * K1 is a register-tiled SGEMM (128 x 128 block tile, 8 x 8 per thread,
-//     operands staged through shared memory) whose epilogue, instead of
-//     storing logits, folds each tile into per-thread online-softmax
-//     accumulators; the logits never leave registers.
-//   * K2 stages one 64-row gallery tile in shared memory and uses it twice:
-//     once for the logits (then p = exp(logit - lse)), once for p @ g_tile,
-//     accumulated in registers (4 rows x D/32 columns per thread).
-//   * Ragged M, N and any D (no padding of D to a lane multiple) are masked
-//     inside the kernels. No TF32: plain fp32 FMAs, so results agree with
-//     the fp32 plain versions up to summation order.
+//   * "tc" lse: 64 v rows resident in shared memory, 128-row gallery
+//     tiles streamed in 32-float depth chunks through a 3-stage cp.async
+//     ring; the logits stay in registers and fold into per-thread online
+//     (max, sum) accumulators.
+//   * "tc" matvec: 64 v rows resident (32 past D 256); whole 64-row
+//     (32-row) gallery tiles through a 2-stage ring, each used twice:
+//     logits on the tensor cores, p = exp(logit - lse) through a small
+//     shared tile (in TF32 halves), then p @ g_tile on the tensor cores
+//     into [rows, D] register accumulators; each warp holds two m16 row
+//     tiles, so that a gallery fragment, loaded and split once, serves two
+//     products.
+//   * Fragments read along D come by ldmatrix, and operands are split with
+//     integer instructions: the split and the shared-memory loads, not the
+//     products, set the tc kernels' pace (chip_smoke.py times them).
+//   * "simt": K1 a register-tiled SGEMM (128 x 128 block tile, 8 x 8 per
+//     thread) with the online-softmax epilogue; K2 one 64-row gallery tile
+//     in shared memory used for the logits and for p @ g_tile (4 rows x
+//     D/32 columns per thread). Ragged M, N and any D are masked.
 //
 // C interface (bound with ctypes): every pointer and the stream are void*,
 // every function returns the cudaError_t of its launches (0 = success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gallery_core.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// route "simt": fp32 FMA kernels
+// ---------------------------------------------------------------------------
 
 constexpr int kLseBM = 128;      // rows of v per block
 constexpr int kLseBN = 128;      // gallery rows (logit columns) per tile
@@ -71,7 +99,7 @@ __device__ __forceinline__ void load_tile_rows(const float* __restrict__ src,
 }
 
 // Partial row logsumexp of (v @ g^T) * inv_tau over one split of the
-// gallery's column tiles: part_max/part_sum[split, row].
+// gallery's column tiles: part_max/part_sum[row, split].
 template <bool kVec4>
 __global__ void __launch_bounds__(kLseThreads, 2)
 lse_partial_kernel(const float* __restrict__ v, const float* __restrict__ g,
@@ -174,17 +202,10 @@ lse_partial_kernel(const float* __restrict__ v, const float* __restrict__ g,
     }
     const int row = row0 + ty * 8 + i;
     if (tx == 0 && row < M) {
-      part_max[static_cast<size_t>(split) * M + row] = m;
-      part_sum[static_cast<size_t>(split) * M + row] = s;
+      part_max[static_cast<size_t>(row) * gridDim.y + split] = m;
+      part_sum[static_cast<size_t>(row) * gridDim.y + split] = s;
     }
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -192,38 +213,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// One warp per row: lse = max + log(sum) over the splits; with the diagonal,
-// out = <v_row, g_row> - lse (con_w's diag(log_softmax(V G^T))).
-__global__ void lse_merge_kernel(const float* __restrict__ part_max,
-                                 const float* __restrict__ part_sum, int M,
-                                 int S, const float* __restrict__ v,
-                                 const float* __restrict__ g, int D,
-                                 int with_diag, float* __restrict__ out) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;  // uniform across the warp
-  float m = -INFINITY;
-  for (int s = lane; s < S; s += 32)
-    m = fmaxf(m, part_max[static_cast<size_t>(s) * M + row]);
-  m = warp_max(m);
-  float sum = 0.f;
-  for (int s = lane; s < S; s += 32) {
-    const float pm = part_max[static_cast<size_t>(s) * M + row];
-    if (pm != -INFINITY)
-      sum += part_sum[static_cast<size_t>(s) * M + row] * expf(pm - m);
-  }
-  sum = warp_sum(sum);
-  float result = m + logf(sum);
-  if (with_diag) {
-    float dot = 0.f;
-    for (int d = lane; d < D; d += 32)
-      dot = fmaf(v[static_cast<size_t>(row) * D + d],
-                 g[static_cast<size_t>(row) * D + d], dot);
-    result = warp_sum(dot) - result;
-  }
-  if (lane == 0) out[row] = result;
 }
 
 constexpr int kMvBM = 32;       // rows of v per block (4 per warp)
@@ -331,15 +320,6 @@ matvec_partial_kernel(const float* __restrict__ v, const float* __restrict__ g,
   }
 }
 
-__global__ void sum_splits_kernel(const float* __restrict__ part, int S,
-                                  size_t n, float* __restrict__ out) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[static_cast<size_t>(k) * n + i];
-  out[i] = s;
-}
-
 template <int kNJ>
 cudaError_t launch_matvec(const float* v, const float* g, const float* lse,
                           int M, int N, int D, float inv_tau,
@@ -358,74 +338,652 @@ cudaError_t launch_matvec(const float* v, const float* g, const float* lse,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// route "tc": 3xTF32 mma.sync on the tile core of gallery_core.cuh
+// ---------------------------------------------------------------------------
+
+constexpr int kLseTcBM = 64;      // rows of v per block (resident in smem)
+constexpr int kLseTcBN = 128;     // gallery rows (logit columns) per tile
+constexpr int kLseTcStages = 3;   // ring of [kLseTcBN][kDepth] depth chunks
+
+// Partial row logsumexp of (v @ g^T) * inv_tau over one split of the
+// gallery's column tiles, on the tensor cores: part_max/part_sum[row, split].
+// The block's 64 v rows stay in shared memory; each gallery tile streams
+// through the ring in depth chunks of 32 floats. 8 warps as 2 (rows) x 4
+// (columns), 32 x 32 logits each (2 x 4 m16n8 tiles); after a tile's last
+// chunk each thread folds its logits into online (max, sum) per row, so
+// the logits never leave registers.
+__global__ void __launch_bounds__(gcore::kThreads, 2)
+lse_tc_kernel(const float* __restrict__ v, const float* __restrict__ g,
+              int M, int N, int D, int Dpad, float inv_tau,
+              int tiles_per_split, float* __restrict__ part_max,
+              float* __restrict__ part_sum) {
+  using namespace gcore;
+  constexpr int S = kLseTcStages;
+  extern __shared__ __align__(16) float smem[];
+  float* Vs = smem;                      // [kLseTcBM][Dpad], swizzled
+  float* ring = Vs + kLseTcBM * Dpad;    // S x [kLseTcBN][kDepth], swizzled
+
+  const int warp = threadIdx.x / 32;
+  const int mw = warp & 1, nw = warp >> 1;
+  const int gq = lane_group(), tq = lane_in_group();
+  const int row0 = blockIdx.x * kLseTcBM;
+  const int split = blockIdx.y;
+  const int n_tiles = (N + kLseTcBN - 1) / kLseTcBN;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int n_chunks = Dpad / kDepth;
+  const int n_steps = max(t_end - t_begin, 0) * n_chunks;
+
+  auto load_chunk = [&](int q) {
+    const int t = t_begin + q / n_chunks;
+    const int c0 = (q % n_chunks) * kDepth;
+    float* dst = ring + (q % S) * (kLseTcBN * kDepth);
+    for (int id = threadIdx.x; id < kLseTcBN * (kDepth / 4); id += kThreads) {
+      const int r = id / (kDepth / 4);
+      const int c = (id % (kDepth / 4)) * 4;
+      const int gr = t * kLseTcBN + r;
+      const bool ok = gr < N && c0 + c < D;
+      const float* src = ok ? g + static_cast<size_t>(gr) * D + c0 + c : g;
+      cp_async16(dst + swz(r, c, kDepth), src, ok ? 16 : 0);
+    }
+  };
+
+  load_rows_async(Vs, v, row0, kLseTcBM, M, D, Dpad);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_steps) load_chunk(s);
+    cp_async_commit();
+  }
+
+  float acc[2][4][4];  // the tile's logits, summed over depth chunks
+  float chunk[2][4][4];  // one chunk's, on the tensor cores (truncating)
+  float run_max[4], run_sum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    run_max[i] = -INFINITY;
+    run_sum[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = chunk[i][j][e] = 0.f;
+
+  for (int q = 0; q < n_steps; ++q) {
+    // Chunk q (and the v block) has landed for this thread; after the
+    // barrier for every thread, and every thread is done with chunk q - 1,
+    // whose stage the next copy overwrites.
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (q + S - 1 < n_steps) load_chunk(q + S - 1);
+    cp_async_commit();
+
+    const float* Bs = ring + (q % S) * (kLseTcBN * kDepth);
+    const int kc = q % n_chunks;
+#pragma unroll
+    for (int ks = 0; ks < kDepth / 8; ++ks) {
+      FragA a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        load_a(Vs, Dpad, mw * 32 + i * 16, kc * kDepth + ks * 8, a[i]);
+#pragma unroll
+      for (int jj = 0; jj < 4; jj += 2) {
+        FragB b[2];
+        load_b_nk2(Bs, kDepth, nw * 32 + jj * 8, ks * 8, b[0], b[1]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma3(chunk[i][jj + j], a[i], b[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) add_to(acc[i][j], chunk[i][j]);
+
+    if (kc == n_chunks - 1) {
+      // The tile is complete: fold it into each owned row's (max, sum).
+      // Thread rows: mw*32 + i*16 + gq + 8h; columns nw*32 + j*8 + 2tq + e.
+      const int col0 = (t_begin + q / n_chunks) * kLseTcBN + nw * 32 + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float tile_max = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (col0 + j * 8 + e < N)
+                tile_max = fmaxf(tile_max, acc[i][j][2 * h + e] * inv_tau);
+          if (tile_max != -INFINITY) {
+            const int r = 2 * i + h;
+            const float new_max = fmaxf(run_max[r], tile_max);
+            float s = run_sum[r] * expf(run_max[r] - new_max);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (col0 + j * 8 + e < N)
+                  s += expf(acc[i][j][2 * h + e] * inv_tau - new_max);
+            run_max[r] = new_max;
+            run_sum[r] = s;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j][2 * h] = 0.f;
+            acc[i][j][2 * h + 1] = 0.f;
+          }
+        }
+    }
+  }
+
+  // Merge the 4 threads of a row group (lanes 4gq .. 4gq+3), then the 4
+  // column warps in order, through the (now idle) ring.
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, run_max[r], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, run_sum[r], off);
+      lse_combine(run_max[r], run_sum[r], m2, s2);
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red_max = ring;                     // [4][kLseTcBM]
+  float* red_sum = ring + 4 * kLseTcBM;      // [4][kLseTcBM]
+  if (tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mw * 32 + i * 16 + gq + 8 * h;
+        red_max[nw * kLseTcBM + row] = run_max[2 * i + h];
+        red_sum[nw * kLseTcBM + row] = run_sum[2 * i + h];
+      }
+  }
+  __syncthreads();
+  const int row = threadIdx.x;
+  if (row < kLseTcBM && row0 + row < M) {
+    float m = red_max[row], s = red_sum[row];
+#pragma unroll
+    for (int w = 1; w < 4; ++w)
+      lse_combine(m, s, red_max[w * kLseTcBM + row],
+                  red_sum[w * kLseTcBM + row]);
+    part_max[static_cast<size_t>(row0 + row) * gridDim.y + split] = m;
+    part_sum[static_cast<size_t>(row0 + row) * gridDim.y + split] = s;
+  }
+}
+
+// Partial softmax(v g^T * inv_tau - lse) @ g over one split of the
+// gallery's kBN-row tiles, on the tensor cores: part[split, row, :].
+// kBM rows of v stay in shared memory; whole gallery tiles [kBN][Dpad]
+// stream through a kStages ring: 64 x 64 and 2 stages up to D 256 (226
+// KB), 32 x 32 and 2 stages up to D 512. Warps as 2 (rows: kMT m16 tiles
+// each) x 4 (columns). Per tile:
+//   1. logits [kBM, kBN] = v @ g_tile^T over D, each warp kMT x kNJ1
+//      m16n8 tiles, summed per 32-deep chunk;
+//   2. p = exp(logit * inv_tau - lse) (0 past N), split once into its
+//      TF32 halves, into two [kBM][kBN + 4] tiles;
+//   3. acc [kBM, D] += p @ g_tile, each warp its kMT m16 tiles x the
+//      8-column tiles w, w + 4, ... of D (w its column), in a fresh
+//      accumulator per gallery tile; each B fragment serves kMT products.
+template <int kBM, int kBN, int kStages>
+__global__ void __launch_bounds__(gcore::kThreads, 1)
+matvec_tc_kernel(const float* __restrict__ v, const float* __restrict__ g,
+                 const float* __restrict__ lse, int M, int N, int D,
+                 int Dpad, float inv_tau, int tiles_per_split,
+                 float* __restrict__ part) {
+  using namespace gcore;
+  constexpr int kWM = 2, kWN = 4;
+  constexpr int kMT = kBM / 16 / kWM;   // m16 tiles per warp
+  constexpr int kNJ1 = kBN / kWN / 8;   // logit n8 tiles per warp
+  constexpr int kQ = 16 / kMT;          // D's 8-column tiles per warp, most
+  constexpr int kPsPitch = kBN + 4;     // 4 mod 32: conflict-free rows
+  extern __shared__ __align__(16) float smem[];
+  float* Vs = smem;                         // [kBM][Dpad]
+  float* ring = Vs + kBM * Dpad;            // kStages x [kBN][Dpad]
+  float* Ps = ring + kStages * kBN * Dpad;  // [kBM][kPsPitch] x 2:
+  float* Ps_small = Ps + kBM * kPsPitch;    // p's TF32 halves
+
+  const int warp = threadIdx.x / 32;
+  const int wm = warp % kWM, wn = warp / kWM;
+  const int r_warp = wm * kMT * 16;     // the warp's first row in the block
+  const int c_warp = wn * (kBN / kWN);  // and first logit column
+  const int gq = lane_group(), tq = lane_in_group();
+  const int row0 = blockIdx.x * kBM;
+  const int split = blockIdx.y;
+  const int n_tiles = (N + kBN - 1) / kBN;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0);
+  const int n_d8 = D / 8;
+
+  auto load_tile = [&](int q) {
+    load_rows_async(ring + (q % kStages) * (kBN * Dpad), g,
+                    (t_begin + q) * kBN, kBN, N, D, Dpad);
+  };
+
+  load_rows_async(Vs, v, row0, kBM, M, D, Dpad);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_tile(s);
+    cp_async_commit();
+  }
+
+  float lse_r[kMT][2];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + r_warp + i * 16 + gq + 8 * h;
+      lse_r[i][h] = gr < M ? lse[gr] : 0.f;
+    }
+  float acc[kMT][kQ][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int q = 0; q < n_steps; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile q landed; tile q - 1 and its p are consumed
+    if (q + kStages - 1 < n_steps) load_tile(q + kStages - 1);
+    cp_async_commit();
+    const float* Gs = ring + (q % kStages) * (kBN * Dpad);
+
+    // Logits summed over 32-deep chunks (t1: one chunk's, on the tensor
+    // cores); D % 8 == 0, so a chunk may end early at D.
+    float s1[kMT][kNJ1][4], t1[kMT][kNJ1][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNJ1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s1[i][j][e] = t1[i][j][e] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kDepth) {
+#pragma unroll
+      for (int ks = 0; ks < kDepth; ks += 8) {
+        if (c0 + ks < D) {
+          FragA a[kMT];
+#pragma unroll
+          for (int i = 0; i < kMT; ++i)
+            load_a(Vs, Dpad, r_warp + i * 16, c0 + ks, a[i]);
+          FragB b[kNJ1];
+          if constexpr (kNJ1 == 1) {
+            load_b_nk1(Gs, Dpad, c_warp, c0 + ks, b[0]);
+          } else {
+#pragma unroll
+            for (int jj = 0; jj < kNJ1; jj += 2)
+              load_b_nk2(Gs, Dpad, c_warp + jj * 8, c0 + ks, b[jj],
+                         b[jj + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < kMT; ++i)
+#pragma unroll
+            for (int j = 0; j < kNJ1; ++j) mma3(t1[i][j], a[i], b[j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ1; ++j) add_to(s1[i][j], t1[i][j]);
+    }
+    const int col_base = (t_begin + q) * kBN;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNJ1; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c_warp + j * 8 + 2 * tq;
+          const float p0 = col_base + c < N
+                               ? expf(s1[i][j][2 * h] * inv_tau - lse_r[i][h])
+                               : 0.f;
+          const float p1 =
+              col_base + c + 1 < N
+                  ? expf(s1[i][j][2 * h + 1] * inv_tau - lse_r[i][h])
+                  : 0.f;
+          const float b0 = __uint_as_float(to_tf32(p0));
+          const float b1 = __uint_as_float(to_tf32(p1));
+          const int o = (r_warp + i * 16 + gq + 8 * h) * kPsPitch + c;
+          *reinterpret_cast<float2*>(Ps + o) = make_float2(b0, b1);
+          *reinterpret_cast<float2*>(Ps_small + o) =
+              make_float2(p0 - b0, p1 - b1);
+        }
+    __syncthreads();  // p complete
+
+    // This tile's p @ g_tile in fresh accumulators (t2), then into acc.
+    float t2[kMT][kQ][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t2[i][j][e] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < kBN; k0 += 8) {
+      FragA a[kMT];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        load_a_halves(Ps, Ps_small, kPsPitch, r_warp + i * 16, k0, a[i]);
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int d8 = wn + kWN * j;
+        if (d8 < n_d8) {
+          FragB b;
+          load_b_kn(Gs, Dpad, k0, d8 * 8, b);
+#pragma unroll
+          for (int i = 0; i < kMT; ++i) mma3(t2[i][j], a[i], b);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) add_to(acc[i][j], t2[i][j]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int d8 = wn + kWN * j;
+      if (d8 >= n_d8) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = row0 + r_warp + i * 16 + gq + 8 * h;
+        if (gr < M)
+          *reinterpret_cast<float2*>(
+              part + (static_cast<size_t>(split) * M + gr) * D + d8 * 8 +
+              2 * tq) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// Dynamic shared memory of the "tc" kernels (mirrored by
+// ops/gallery_kernels.py:tc_smem_bytes).
+size_t lse_tc_smem(int Dpad) {
+  return sizeof(float) *
+         (static_cast<size_t>(kLseTcBM) * Dpad +
+          kLseTcStages * kLseTcBN * gcore::kDepth);
+}
+
+template <int kBM, int kBN, int kStages>
+size_t matvec_tc_smem(int Dpad) {
+  return sizeof(float) * (static_cast<size_t>(kBM + kStages * kBN) * Dpad +
+                          2 * kBM * (kBN + 4));
+}
+
+template <int kBM, int kBN, int kStages>
+cudaError_t launch_matvec_tc(const float* v, const float* g, const float* lse,
+                             int M, int N, int D, int Dpad, float inv_tau,
+                             int tiles_per_split, int splits, float* part,
+                             cudaStream_t stream) {
+  const size_t smem = matvec_tc_smem<kBM, kBN, kStages>(Dpad);
+  auto kernel = matvec_tc_kernel<kBM, kBN, kStages>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kBM - 1) / kBM, splits);
+  kernel<<<grid, gcore::kThreads, smem, stream>>>(
+      v, g, lse, M, N, D, Dpad, inv_tau, tiles_per_split, part);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// merges (both routes)
+// ---------------------------------------------------------------------------
+
+enum LseMode { kLse = 0, kDiag = 1, kCe = 2 };
+
+__device__ __forceinline__ float warp_dot(const float* __restrict__ a,
+                                          const float* __restrict__ b, int D) {
+  float dot = 0.f;
+  for (int d = threadIdx.x % 32; d < D; d += 32) dot = fmaf(a[d], b[d], dot);
+  return warp_sum(dot);
+}
+
+// One warp per row (rows strided over the grid): lse = max + log(sum) over
+// the splits in order. kLse: out = lse. kDiag (M == N): out = <v_i, g_i> -
+// lse (con_w's diag(log_softmax(V G^T))). kCe (one block): out = lse, and
+// loss[0] = mean over rows of lse_i - <v_i, g_{labels_i}> * inv_tau, summed
+// per warp in row order and then over the warps in order; a label outside
+// [0, N) gives NaN.
+__global__ void lse_merge_kernel(const float* __restrict__ part_max,
+                                 const float* __restrict__ part_sum, int M,
+                                 int S, const float* __restrict__ v,
+                                 const float* __restrict__ g, int N, int D,
+                                 float inv_tau, int mode,
+                                 const long long* __restrict__ labels,
+                                 float* __restrict__ out,
+                                 float* __restrict__ loss) {
+  __shared__ float warp_total[32];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float total = 0.f;
+  for (int row = blockIdx.x * warps + warp; row < M;
+       row += gridDim.x * warps) {  // uniform across the warp
+    // The row's S partials are contiguous: each lane merges its share in
+    // order, then the lanes merge in a fixed butterfly.
+    const float* pm = part_max + static_cast<size_t>(row) * S;
+    const float* ps = part_sum + static_cast<size_t>(row) * S;
+    float m = -INFINITY, sum = 0.f;
+    for (int s = lane; s < S; s += 32) gcore::lse_combine(m, sum, pm[s], ps[s]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, sum, off);
+      gcore::lse_combine(m, sum, m2, s2);
+    }
+    const float lse = m + logf(sum);
+    float result = lse;
+    const float* vr = v + static_cast<size_t>(row) * D;
+    if (mode == kDiag) {
+      result = warp_dot(vr, g + static_cast<size_t>(row) * D, D) - lse;
+    } else if (mode == kCe) {
+      const long long label = labels[row];
+      const float dot =
+          (label >= 0 && label < N)
+              ? warp_dot(vr, g + static_cast<size_t>(label) * D, D)
+              : NAN;
+      total += lse - dot * inv_tau;
+    }
+    if (lane == 0) out[row] = result;
+  }
+  if (mode == kCe) {
+    if (lane == 0) warp_total[warp] = total;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int w = 0; w < warps; ++w) s += warp_total[w];
+      loss[0] = s / static_cast<float>(M);
+    }
+  }
+}
+
+// out[i] = sum over the splits, in order, of part[k, i] (i over M x D).
+// With dfeats != 0 (K3's backward): out[row, d] = (sum - g[labels_row, d])
+// * (gbar[0] / tau_m), tau_m = tau * M, gbar read from device memory; a
+// label outside [0, N) gives NaN. out is bf16 when out_bf16, else fp32.
+__global__ void merge_splits_kernel(const float* __restrict__ part, int S,
+                                    int M, int D, int dfeats,
+                                    const long long* __restrict__ labels,
+                                    const float* __restrict__ g, int N,
+                                    const float* __restrict__ gbar,
+                                    float tau_m, int out_bf16,
+                                    void* __restrict__ out) {
+  const size_t n = static_cast<size_t>(M) * D;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += part[static_cast<size_t>(k) * n + i];
+  if (dfeats) {
+    const long long label = labels[i / D];
+    const float gv = (label >= 0 && label < N)
+                         ? g[static_cast<size_t>(label) * D + i % D]
+                         : NAN;
+    s = (s - gv) * (gbar[0] / tau_m);
+  }
+  if (out_bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(s);
+  else
+    static_cast<float*>(out)[i] = s;
+}
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The card's mma.sync m16n8k8 TF32 rate, the ceiling of the "tc" kernels:
+// each warp runs `iters` rounds of 8 independent mma.sync on register
+// operands (no loads), then writes one sum per thread so that nothing is
+// dropped.
+__global__ void __launch_bounds__(gcore::kThreads)
+tc_peak_kernel(int iters, float* __restrict__ out) {
+  uint32_t a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = __float_as_uint(1.0f + 1e-3f * static_cast<float>(threadIdx.x + i));
+  b[0] = __float_as_uint(0.5f);
+  b[1] = __float_as_uint(0.25f);
+  float acc[8][4] = {};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) gcore::mma_tf32(acc[j], a, b);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum += acc[j][e];
+  out[static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x] = sum;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Row logsumexp of (v @ g^T) * inv_tau -> out[M]; with with_diag != 0 (and
-// M == N) out[i] = <v_i, g_i> - lse_i instead. part_max / part_sum are
-// [splits, M] scratch; splits * tiles_per_split must cover ceil(N / 128).
-int gallery_row_lse(const void* v, const void* g, int M, int N, int D,
-                    float inv_tau, int splits, int tiles_per_split,
-                    void* part_max, void* part_sum, int with_diag, void* out,
-                    void* stream) {
+// route 0 ("simt", the fp32 FMA kernel) or 1 ("tc": D % 8 == 0,
+// D <= 512, 16-byte aligned v and g). Row logsumexp of (v @ g^T) * inv_tau
+// through [M, splits] partials part_max / part_sum, whose splits *
+// tiles_per_split must cover the route's column tiles (simt 128, tc 128
+// gallery rows), then one merge in `mode` (see lse_merge_kernel): kLse and
+// kDiag write out[M]; kCe writes out[M] = lse and loss[1], labels [M]
+// int64.
+int gallery_lse(int route, const void* v, const void* g, int M, int N, int D,
+                float inv_tau, int splits, int tiles_per_split,
+                void* part_max, void* part_sum, int mode, const void* labels,
+                void* out, void* loss, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* vf = static_cast<const float*>(v);
   const float* gf = static_cast<const float*>(g);
   float* pm = static_cast<float*>(part_max);
   float* ps = static_cast<float*>(part_sum);
-  const dim3 grid((M + kLseBM - 1) / kLseBM, splits);
-  const bool vec4 = (D % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(v) % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(g) % 16 == 0);
-  if (vec4) {
-    lse_partial_kernel<true><<<grid, kLseThreads, 0, s>>>(
-        vf, gf, M, N, D, inv_tau, tiles_per_split, pm, ps);
+  if (route == 1) {
+    if (D % 8 != 0 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
+    const int Dpad = round_up(D, gcore::kDepth);
+    const size_t smem = lse_tc_smem(Dpad);
+    cudaError_t err = cudaFuncSetAttribute(
+        lse_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    // All of the SM's 228 KB as shared memory: two blocks fit up to D 256.
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(lse_tc_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((M + kLseTcBM - 1) / kLseTcBM, splits);
+    lse_tc_kernel<<<grid, gcore::kThreads, smem, s>>>(
+        vf, gf, M, N, D, Dpad, inv_tau, tiles_per_split, pm, ps);
   } else {
-    lse_partial_kernel<false><<<grid, kLseThreads, 0, s>>>(
-        vf, gf, M, N, D, inv_tau, tiles_per_split, pm, ps);
+    const dim3 grid((M + kLseBM - 1) / kLseBM, splits);
+    const bool vec4 = (D % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(v) % 16 == 0) &&
+                      (reinterpret_cast<uintptr_t>(g) % 16 == 0);
+    if (vec4) {
+      lse_partial_kernel<true><<<grid, kLseThreads, 0, s>>>(
+          vf, gf, M, N, D, inv_tau, tiles_per_split, pm, ps);
+    } else {
+      lse_partial_kernel<false><<<grid, kLseThreads, 0, s>>>(
+          vf, gf, M, N, D, inv_tau, tiles_per_split, pm, ps);
+    }
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int warps_per_block = 8;
-  lse_merge_kernel<<<(M + warps_per_block - 1) / warps_per_block,
-                     32 * warps_per_block, 0, s>>>(
-      pm, ps, M, splits, vf, gf, D, with_diag, static_cast<float*>(out));
+  // kCe: one block of 32 warps (the loss sums in a fixed order).
+  const int warps_per_block = mode == kCe ? 32 : 8;
+  const int blocks =
+      mode == kCe ? 1 : (M + warps_per_block - 1) / warps_per_block;
+  lse_merge_kernel<<<blocks, 32 * warps_per_block, 0, s>>>(
+      pm, ps, M, splits, vf, gf, N, D, inv_tau, mode,
+      static_cast<const long long*>(labels), static_cast<float*>(out),
+      static_cast<float*>(loss));
   return static_cast<int>(cudaGetLastError());
 }
 
-// softmax((v @ g^T) * inv_tau - lse) @ g -> out[M, D], given the row lse.
-// part is [splits, M, D] scratch; splits * tiles_per_split must cover
-// ceil(N / 64). Requires D <= 512.
-int gallery_softmax_matvec(const void* v, const void* g, const void* lse,
-                           int M, int N, int D, float inv_tau, int splits,
-                           int tiles_per_split, void* part, void* out,
-                           void* stream) {
+// softmax((v @ g^T) * inv_tau - lse) @ g through [splits, M, D] partials
+// `part` (splits * tiles_per_split must cover the route's tiles: simt 64,
+// tc 64 gallery rows up to D 256, else 32), then one merge: out[M, D] fp32 = the sum, or with
+// dfeats != 0 K3's dfeats (see merge_splits_kernel), bf16 when out_bf16.
+// Requires D <= 512; route 1 ("tc") also D % 8 == 0 and 16-byte aligned
+// v and g.
+int gallery_matvec(int route, const void* v, const void* g, const void* lse,
+                   int M, int N, int D, float inv_tau, int splits,
+                   int tiles_per_split, void* part, int dfeats,
+                   const void* labels, const void* gbar, float tau_m,
+                   int out_bf16, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* vf = static_cast<const float*>(v);
   const float* gf = static_cast<const float*>(g);
   const float* lf = static_cast<const float*>(lse);
   float* pf = static_cast<float*>(part);
-  const int nj = (D + 31) / 32;
   cudaError_t err;
-  if (nj <= 1) {
-    err = launch_matvec<1>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
-  } else if (nj <= 2) {
-    err = launch_matvec<2>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
-  } else if (nj <= 4) {
-    err = launch_matvec<4>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
-  } else if (nj <= 8) {
-    err = launch_matvec<8>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
-  } else if (nj <= 16) {
-    err = launch_matvec<16>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
+  if (D > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1) {
+    if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int Dpad = round_up(D, gcore::kDepth);
+    if (Dpad <= 256) {
+      err = launch_matvec_tc<64, 64, 2>(vf, gf, lf, M, N, D, Dpad, inv_tau,
+                                        tiles_per_split, splits, pf, s);
+    } else {
+      err = launch_matvec_tc<32, 32, 2>(vf, gf, lf, M, N, D, Dpad, inv_tau,
+                                        tiles_per_split, splits, pf, s);
+    }
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    const int nj = (D + 31) / 32;
+    if (nj <= 1) {
+      err = launch_matvec<1>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
+    } else if (nj <= 2) {
+      err = launch_matvec<2>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
+    } else if (nj <= 4) {
+      err = launch_matvec<4>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
+    } else if (nj <= 8) {
+      err = launch_matvec<8>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
+    } else {
+      err = launch_matvec<16>(vf, gf, lf, M, N, D, inv_tau, tiles_per_split, splits, pf, s);
+    }
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(M) * D;
   const int threads = 256;
-  sum_splits_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                      threads, 0, s>>>(pf, splits, n, static_cast<float*>(out));
+  merge_splits_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
+                        threads, 0, s>>>(
+      pf, splits, M, D, dfeats, static_cast<const long long*>(labels), gf, N,
+      static_cast<const float*>(gbar), tau_m, out_bf16, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tc_peak_kernel on `blocks` blocks of 256 threads; out holds blocks * 256
+// floats. Each block does 8 warps x iters x 8 m16n8k8 products.
+int gallery_tc_peak(int blocks, int iters, void* out, void* stream) {
+  tc_peak_kernel<<<blocks, gcore::kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

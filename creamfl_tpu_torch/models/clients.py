@@ -3,7 +3,10 @@
 Reference (`src/networks/resnet_client.py:104-208`): a ResNet trunk, a
 ``scale`` (= 128) feature multiplier, an optional 512 -> embed_dim linear
 and two classifier heads whose weights are ReLU-clamped inside the
-training forward. Feature mode returns the L2-normalised representation.
+training forward. Feature mode returns the L2-normalised representation;
+with ``mlp_local`` it first runs the 512-wide projection head
+``head_proj`` (``models.pcme.MLPHead``) and normalises twice, as the JAX
+package does. The features are then 512 wide.
 
 The clamp is an explicit parameter transform (``clamp_head_weights``)
 that the train step applies before the forward, as in the JAX package:
@@ -17,6 +20,7 @@ from typing import Tuple, Union
 import torch
 import torch.nn as nn
 
+from creamfl_tpu_torch.models.pcme import MLPHead
 from creamfl_tpu_torch.models.resnet import (ResNetBackbone, global_avg_pool,
                                              resnet_feature_dim)
 from creamfl_tpu_torch.ops.l2norm import l2_normalize
@@ -40,15 +44,16 @@ class ImageClientNet(nn.Module):
     representation; ``phase="train"`` returns
     (logits_task, logits_aux80, class_weight, aux_weight), the weights as
     [out, in]. BatchNorm follows the module's train/eval mode.
+
+    ``head_proj`` exists with ``mlp_local`` only, as in the JAX client
+    engine's tree; the train phase leaves it out of its graph (no
+    gradient, so SGD leaves it as the JAX engine's frozen copy does).
     """
 
     def __init__(self, cnn_type: str = "resnet18", num_class: int = 100,
                  embed_dim: int = 256, scale: float = 128.0,
                  mlp_local: bool = False):
         super().__init__()
-        if mlp_local:
-            raise NotImplementedError(
-                "--mlp_local (MLPHead) is ported with the server slice")
         self.scale = scale
         self.backbone = ResNetBackbone(cnn_type)
         width = resnet_feature_dim(cnn_type)
@@ -58,6 +63,7 @@ class ImageClientNet(nn.Module):
             width = embed_dim
         self.class_fc = nn.Linear(width, num_class)
         self.class_fc_2 = nn.Linear(width, 80)
+        self.head_proj = MLPHead(width) if mlp_local else None
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         x = global_avg_pool(self.backbone(images).float()) * self.scale
@@ -67,6 +73,8 @@ class ImageClientNet(nn.Module):
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
         x = self.embed(images)
         if phase == "features":
+            if self.head_proj is not None:
+                x = l2_normalize(self.head_proj(x))
             return l2_normalize(x)
         return (self.class_fc(x), self.class_fc_2(x), self.class_fc.weight,
                 self.class_fc_2.weight)

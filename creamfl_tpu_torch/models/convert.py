@@ -76,13 +76,24 @@ def flax_resnet_to_torch(params: Mapping, batch_stats: Mapping
 def flax_image_client_to_torch(params: Mapping, batch_stats: Mapping
                                ) -> Dict[str, torch.Tensor]:
     """ImageClientNet (Flax) -> ``state_dict`` of the port's
-    ``models.clients.ImageClientNet``."""
+    ``models.clients.ImageClientNet``, with ``head_proj`` (--mlp_local)
+    where the tree has it."""
     sd = {f"backbone.{k}": v for k, v in flax_resnet_to_torch(
         params["backbone"], batch_stats["backbone"]).items()}
     for head in ("linear", "class_fc", "class_fc_2"):
         if head in params:
             _linear(sd, head, params[head])
+    if "head_proj" in params:
+        _mlp_head(sd, "head_proj", params["head_proj"],
+                  batch_stats["head_proj"])
     return sd
+
+
+def _mlp_head(out: Dict, key: str, p: Mapping, s: Mapping) -> None:
+    """MLPHead (Flax) -> ``models.pcme.MLPHead`` keys under ``key``."""
+    _linear(out, f"{key}.fc1", p["fc1"])
+    _bn(out, f"{key}.bn", p["bn"], s["bn"])
+    _linear(out, f"{key}.fc2", p["fc2"])
 
 
 def _layer_norm(out: Dict, key: str, p: Mapping) -> None:
@@ -150,11 +161,8 @@ def flax_pcme_to_torch(params: Mapping, batch_stats: Mapping
     _linear(sd, "img_enc.fc", img["fc"])
     sd.update(flax_pie_to_torch(img["pie_net"], "img_enc.pie_net."))
     if "head_proj" in img:
-        head = img["head_proj"]
-        _linear(sd, "img_enc.head_proj.fc1", head["fc1"])
-        _bn(sd, "img_enc.head_proj.bn", head["bn"],
-            img_stats["head_proj"]["bn"])
-        _linear(sd, "img_enc.head_proj.fc2", head["fc2"])
+        _mlp_head(sd, "img_enc.head_proj", img["head_proj"],
+                  img_stats["head_proj"])
     txt = params["txt_enc"]
     sd.update({f"txt_enc.bert.{k}": v
                for k, v in flax_bert_to_torch(txt["bert"]).items()})

@@ -11,12 +11,23 @@ Three computations hammer a 50 000 x d "gallery" of public-set features:
 
 The streamed versions never hold more than ``rows x col_block`` logits.
 All reductions accumulate in float32 whatever the input dtype.
+
+Beside them, the kernels' own steps in plain PyTorch, for the CPU tests:
+the per-split partials of the lse and matvec passes over the kernels'
+split plan, the merges (K3's CE mode and dfeats mode among them), and
+the 3xTF32 product of the "tc" route (``tf32_split``,
+``tf32x3_matmul``). The main path never calls these when a card is
+present.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional, Tuple
+
 import torch
 import torch.utils.checkpoint
+
+Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -104,3 +115,116 @@ def gallery_cross_entropy(feats: torch.Tensor, gallery: torch.Tensor,
         streaming_logsumexp, feats, gallery, tau, col_block,
         use_reentrant=False)
     return torch.mean(lse - label_logit)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' steps, plain
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
+    dropped bits' range to the magnitude and clear them. Inf and NaN pass
+    through."""
+    x = x.to(torch.float32).contiguous()
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 toward zero (the 13 low bits cleared): what the tensor
+    core reads of an fp32 operand."""
+    x = x.to(torch.float32).contiguous()
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) as the tensor core sees them: big = tf32(x) to
+    nearest, small = x - big (exact) read toward zero."""
+    big = tf32_round(x)
+    return big, tf32_trunc(x.to(torch.float32) - big)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the "tc" kernels take it: each operand split into TF32
+    halves, three products (small * big + big * small + big * big, the
+    small terms first) summed in fp32; small * small is dropped."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _split_ranges(n: int, splits: int, per_split: int, block_cols: int):
+    for s in range(splits):
+        yield s, s * per_split * block_cols, min(
+            n, (s + 1) * per_split * block_cols)
+
+
+def lse_partials(v: torch.Tensor, gallery: torch.Tensor, tau: float,
+                 splits: int, per_split: int, block_cols: int,
+                 matmul: Matmul = torch.matmul
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lse partial pass: per split of ``per_split`` column tiles of
+    ``block_cols`` gallery rows, each row's (max, sum of exp(logit - max))
+    -> part_max, part_sum [splits, M]; an empty split holds (-inf, 0)."""
+    v32, g32 = _f32(v), _f32(gallery)
+    part_max = torch.full((splits, v.shape[0]), float("-inf"),
+                          device=v.device)
+    part_sum = torch.zeros_like(part_max)
+    for s, lo, hi in _split_ranges(g32.shape[0], splits, per_split,
+                                   block_cols):
+        if lo >= hi:
+            continue
+        logits = matmul(v32, g32[lo:hi].T) * (1.0 / tau)
+        part_max[s] = logits.max(dim=1).values
+        part_sum[s] = torch.exp(logits - part_max[s][:, None]).sum(dim=1)
+    return part_max, part_sum
+
+
+def lse_merge(part_max: torch.Tensor, part_sum: torch.Tensor
+              ) -> torch.Tensor:
+    """lse = max + log(sum) over the splits."""
+    m = part_max.max(dim=0).values
+    scale = torch.where(part_max == float("-inf"), 0.0,
+                        torch.exp(part_max - m))
+    return m + torch.log((part_sum * scale).sum(dim=0))
+
+
+def ce_merge(part_max: torch.Tensor, part_sum: torch.Tensor,
+             v: torch.Tensor, gallery: torch.Tensor, labels: torch.Tensor,
+             tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's forward merge: (loss [1] = mean of lse - <v_i, g_{label_i}> /
+    tau, lse [M])."""
+    lse = lse_merge(part_max, part_sum)
+    label_vecs = _f32(gallery).index_select(0, labels.long())
+    label_logit = torch.sum(_f32(v) * label_vecs, dim=1) * (1.0 / tau)
+    return torch.mean(lse - label_logit).reshape(1), lse
+
+
+def matvec_partials(v: torch.Tensor, gallery: torch.Tensor,
+                    lse: torch.Tensor, tau: float, splits: int,
+                    per_split: int, block_cols: int,
+                    matmul: Matmul = torch.matmul) -> torch.Tensor:
+    """The matvec partial pass: per split, exp(logit - lse) @ g_split ->
+    part [splits, M, D]."""
+    v32, g32 = _f32(v), _f32(gallery)
+    part = torch.zeros(splits, v.shape[0], g32.shape[1], device=v.device)
+    for s, lo, hi in _split_ranges(g32.shape[0], splits, per_split,
+                                   block_cols):
+        if lo < hi:
+            probs = torch.exp(matmul(v32, g32[lo:hi].T) * (1.0 / tau)
+                              - lse[:, None])
+            part[s] = matmul(probs, g32[lo:hi])
+    return part
+
+
+def dfeats_merge(part: torch.Tensor, gallery: torch.Tensor,
+                 labels: torch.Tensor, gbar: torch.Tensor, tau: float,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K3's backward merge: (sum of the splits - g_{label_i}) * gbar /
+    (tau * M), in ``dtype`` (default float32)."""
+    m = part.shape[1]
+    label_vecs = _f32(gallery).index_select(0, labels.long())
+    scale = gbar.to(torch.float32).reshape(()) / (tau * m)
+    return ((part.sum(dim=0) - label_vecs) * scale).to(
+        dtype or torch.float32)

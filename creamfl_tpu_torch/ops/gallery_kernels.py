@@ -1,20 +1,38 @@
 """Hand-written CUDA kernels for the gallery hot loops, and their wrappers.
 
-The kernels live in ``csrc/gallery.cu`` (sm_90a, fp32) and replace the
-Pallas TPU kernels of the JAX package (``ops/pallas_gallery.py``):
+The kernels live in ``csrc/gallery.cu`` (sm_90a, fp32 in, fp32
+accumulation; the tensor-core tile core in ``csrc/gallery_core.cuh``) and
+replace the Pallas TPU kernels of the JAX package
+(``ops/pallas_gallery.py``):
 
 * ``row_logsumexp`` (K1): row logsumexp of ``v @ g.T / tau``.
 * ``softmax_matvec`` (K2): ``softmax(v @ g.T / tau) @ g`` given the lse.
 * ``fused_gallery_ce`` (K3): mean CE of ``f @ g.T / tau`` vs labels, a
-  ``torch.autograd.Function`` whose forward runs K1 and backward K2.
+  ``torch.autograd.Function``: forward K1's partial pass + a merge that
+  also takes the label logits and the mean (writing the loss and the lse),
+  backward K2's partial pass + a merge that writes dfeats in the
+  features' dtype. Two launches each way, no torch op between them.
 * ``conw_diag`` (K4): ``diag(log_softmax(v @ g.T))``, K1 with the
   diagonal dot folded into its merge pass.
+
+Each partial pass runs on one of two routes, chosen per call by
+``plan_gallery_route`` and counted in ``<wrapper>.launches_by_route``:
+
+- ``"tc"`` (fp32 contiguous, D % 8 == 0, D <= 512, 16-byte aligned
+  bases): 3xTF32 ``mma.sync`` tile kernels fed by a ``cp.async`` ring;
+- ``"simt"`` (anything else): the fp32 FMA kernels of the first slice.
+
+``route=`` forces one (``"simt"`` takes every input the kernels take;
+``"tc"`` raises where the planner would not take it), so both can be timed
+on the same inputs. A failed build or launch raises on either route.
 
 The library is compiled by ``nvcc`` at first use from the repository's
 source, into ``creamfl_tpu_torch/_build/<source hash>/``, and bound with
 ctypes. A wrapper given CPU tensors runs the plain version from
 ``ops.gallery``; given CUDA tensors it launches the kernel or raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches`` (K3 in its
+forward); K3 also counts its forward pass on K1 and its backward pass on
+K2, whose partial kernels it runs.
 """
 
 from __future__ import annotations
@@ -22,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,13 +49,26 @@ from creamfl_tpu_torch.ops import gallery as plain
 
 SOURCE = builder.CSRC / "gallery.cu"
 
-# Tile sizes of the kernels (must match csrc/gallery.cu).
+ROUTES = ("tc", "simt")
+_ROUTE_ID = {"simt": 0, "tc": 1}
+# Tile sizes of the kernels (must match csrc/gallery.cu). simt: K1 128 x
+# 128, K2 32 rows x 64 gallery rows. tc: K1 64 x 128 in 32-float depth
+# chunks through a 3-stage ring; K2 see ``mv_tc_tile``.
 LSE_BLOCK_ROWS, LSE_BLOCK_COLS = 128, 128
 MV_BLOCK_ROWS, MV_BLOCK_COLS = 32, 64
+TC_DEPTH = 32
+LSE_TC_ROWS, LSE_TC_COLS, LSE_TC_STAGES = 64, 128, 3
 MV_MAX_DIM = 512
-# Resident blocks per SM the split heuristic aims to fill (both kernels
-# run two blocks of 256 threads per SM).
+# Resident blocks per SM the simt split heuristic aims to fill (both
+# kernels run two blocks of 256 threads per SM), and an SM's shared memory
+# (228 KB, 1 KB of it reserved per block). On the CPU, plans use the
+# H100's 132 SMs.
 _BLOCKS_PER_SM = 2
+_SM_SHARED_BYTES, _BLOCK_RESERVED_BYTES = 233_472, 1024
+_BLOCK_SHARED_MAX = 232_448
+_H100_SMS = 132
+# K3's merge modes (csrc/gallery.cu LseMode).
+_LSE, _DIAG, _CE = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -55,11 +86,14 @@ def _lib() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gallery_row_lse.argtypes = [p, p, i, i, i, f, i, i, p, p, i, p, p]
-    lib.gallery_row_lse.restype = i
-    lib.gallery_softmax_matvec.argtypes = [p, p, p, i, i, i, f, i, i, p, p,
-                                           p]
-    lib.gallery_softmax_matvec.restype = i
+    lib.gallery_lse.argtypes = [i, p, p, i, i, i, f, i, i, p, p, i, p, p, p,
+                                p]
+    lib.gallery_lse.restype = i
+    lib.gallery_matvec.argtypes = [i, p, p, p, i, i, i, f, i, i, p, i, p, p,
+                                   f, i, p, p]
+    lib.gallery_matvec.restype = i
+    lib.gallery_tc_peak.argtypes = [i, i, p, p]
+    lib.gallery_tc_peak.restype = i
     return lib
 
 
@@ -73,25 +107,101 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 # ---------------------------------------------------------------------------
 # launch planning (host side; unit-tested on the CPU)
 # ---------------------------------------------------------------------------
 
+def padded_dim(d: int) -> int:
+    """D rounded up to the tc tiles' row pitch (32 floats)."""
+    return -(-d // TC_DEPTH) * TC_DEPTH
+
+
+def mv_tc_tile(d: int) -> Tuple[int, int, int]:
+    """(v rows per block, gallery rows per tile, ring stages) of the tc
+    matvec kernel at D: 64 x 64 up to a padded D of 256, else 32 x 32."""
+    return (64, 64, 2) if padded_dim(d) <= 256 else (32, 32, 2)
+
+
+def tc_smem_bytes(kernel: str, d: int) -> int:
+    """Dynamic shared memory of a tc kernel ("lse" or "matvec") at D
+    (csrc/gallery.cu: lse_tc_smem, matvec_tc_smem)."""
+    dp = padded_dim(d)
+    if kernel == "lse":
+        return 4 * (LSE_TC_ROWS * dp + LSE_TC_STAGES * LSE_TC_COLS * TC_DEPTH)
+    rows, cols, stages = mv_tc_tile(d)
+    return 4 * ((rows + stages * cols) * dp + 2 * rows * (cols + 4))
+
+
+def tc_blocks_per_sm(kernel: str, d: int) -> int:
+    """Resident tc blocks per SM by shared memory (the lse kernel's launch
+    bounds allow two, the matvec kernel's one)."""
+    fit = _SM_SHARED_BYTES // (tc_smem_bytes(kernel, d)
+                               + _BLOCK_RESERVED_BYTES)
+    return min(fit, 2 if kernel == "lse" else 1)
+
+
 def plan_splits(m: int, n: int, block_rows: int, block_cols: int,
-                sm_count: int) -> Tuple[int, int]:
+                sm_count: int, blocks: Optional[int] = None
+                ) -> Tuple[int, int]:
     """(splits, tiles_per_split) of the gallery's column tiles.
 
     Row blocks alone fill the card only when M is large (con_w: 391 row
-    blocks of 128 at M = 50 000); at M = 128 there is one row block, so
-    the column range is split across blocks until about two waves of
-    resident blocks are in flight. Every split gets at least one tile.
+    blocks of 128 at M = 50 000); at M = 128 there are one or two, so the
+    column range is split across blocks until about ``blocks`` are in
+    flight (default: two waves of the simt kernels' resident blocks).
+    Every split gets at least one tile.
     """
+    if blocks is None:
+        blocks = 2 * _BLOCKS_PER_SM * sm_count
     n_tiles = -(-n // block_cols)
     row_blocks = -(-m // block_rows)
-    target = 2 * _BLOCKS_PER_SM * sm_count
-    splits = max(1, min(n_tiles, -(-target // row_blocks)))
+    splits = max(1, min(n_tiles, -(-blocks // row_blocks)))
     per_split = -(-n_tiles // splits)
     return -(-n_tiles // per_split), per_split
+
+
+def plan_for(kernel: str, route: str, m: int, n: int, d: int,
+             sm_count: int) -> Tuple[int, int]:
+    """(splits, tiles_per_split) of ``kernel`` ("lse" or "matvec") on
+    ``route``. tc aims at one wave of resident blocks, so that each block
+    walks many gallery tiles."""
+    if route == "simt":
+        rows, cols = ((LSE_BLOCK_ROWS, LSE_BLOCK_COLS) if kernel == "lse"
+                      else (MV_BLOCK_ROWS, MV_BLOCK_COLS))
+        return plan_splits(m, n, rows, cols, sm_count)
+    rows, cols = ((LSE_TC_ROWS, LSE_TC_COLS) if kernel == "lse"
+                  else mv_tc_tile(d)[:2])
+    return plan_splits(m, n, rows, cols, sm_count,
+                       blocks=tc_blocks_per_sm(kernel, d) * sm_count)
+
+
+def plan_gallery_route(*tensors: torch.Tensor) -> str:
+    """``"tc"`` for fp32 contiguous operands with D = the last dim of the
+    first, D % 8 == 0, D <= 512 and 16-byte aligned bases; else
+    ``"simt"``. A plan by shape: neither route gives way to the other."""
+    d = tensors[0].shape[-1]
+    if d % 8 or d > MV_MAX_DIM:
+        return "simt"
+    for t in tensors:
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            return "simt"
+    return "tc"
+
+
+def resolve_route(name: str, asked: Optional[str], planned: str) -> str:
+    """The planner's route unless one is asked for; ``"tc"`` asked for
+    where the planner would not take it raises."""
+    if asked is None:
+        return planned
+    if asked not in ROUTES or (asked == "tc" and planned != "tc"):
+        raise ValueError(f"{name}: route {asked!r} does not take these "
+                         f"inputs (planned: {planned!r})")
+    return asked
 
 
 def _check_inputs(name: str, *tensors: torch.Tensor) -> None:
@@ -106,27 +216,80 @@ def _check_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
+def _check_shapes(name: str, v: torch.Tensor, g: torch.Tensor) -> None:
+    if v.dim() != 2 or g.dim() != 2 or g.shape[1] != v.shape[1] or (
+            0 in (*v.shape, g.shape[0])):
+        raise ValueError(f"{name}: shapes {tuple(v.shape)} and "
+                         f"{tuple(g.shape)}")
+
+
 def _sm_count(t: torch.Tensor) -> int:
+    if t.device.type != "cuda":
+        return _H100_SMS
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
-def _launch_lse(v: torch.Tensor, g: torch.Tensor, tau: float,
-                with_diag: bool) -> torch.Tensor:
-    _check_inputs("gallery_row_lse", v, g)
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+
+
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+def _lse_launch(v: torch.Tensor, g: torch.Tensor, tau: float, mode: int,
+                route: str, labels: Optional[torch.Tensor] = None):
+    """The lse partial pass on ``route`` + the merge in ``mode``: returns
+    out [M] (lse, or diag - lse), and for ``_CE`` (loss [1], lse)."""
     (m, d), n = v.shape, g.shape[0]
-    if g.shape[1] != d or 0 in (m, n, d):
-        raise ValueError(f"gallery_row_lse: shapes {tuple(v.shape)} and "
-                         f"{tuple(g.shape)}")
-    splits, per_split = plan_splits(m, n, LSE_BLOCK_ROWS, LSE_BLOCK_COLS,
-                                    _sm_count(v))
-    part_max = torch.empty(splits, m, dtype=torch.float32, device=v.device)
+    splits, per_split = plan_for("lse", route, m, n, d, _sm_count(v))
+    part_max = torch.empty(m, splits, dtype=torch.float32, device=v.device)
     part_sum = torch.empty_like(part_max)
     out = torch.empty(m, dtype=torch.float32, device=v.device)
+    loss = (torch.empty(1, dtype=torch.float32, device=v.device)
+            if mode == _CE else None)
     with torch.cuda.device(v.device):
-        _check(_lib().gallery_row_lse(
-            v.data_ptr(), g.data_ptr(), m, n, d, 1.0 / tau, splits,
-            per_split, part_max.data_ptr(), part_sum.data_ptr(),
-            int(with_diag), out.data_ptr(), _stream(v)), "gallery_row_lse")
+        _check(_lib().gallery_lse(
+            _ROUTE_ID[route], v.data_ptr(), g.data_ptr(), m, n, d, 1.0 / tau,
+            splits, per_split, part_max.data_ptr(), part_sum.data_ptr(),
+            mode, _ptr(labels), out.data_ptr(), _ptr(loss), _stream(v)),
+            f"gallery_lse ({route})")
+    return out if loss is None else (loss, out)
+
+
+def _matvec_launch(v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor,
+                   tau: float, route: str,
+                   labels: Optional[torch.Tensor] = None,
+                   gbar: Optional[torch.Tensor] = None,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The matvec partial pass on ``route`` + the merge: the [M, D] sum,
+    or with ``labels`` and ``gbar`` K3's dfeats in ``out_dtype``."""
+    (m, d), n = v.shape, g.shape[0]
+    if d > MV_MAX_DIM:
+        raise ValueError(f"gallery_matvec: D = {d} > {MV_MAX_DIM}")
+    splits, per_split = plan_for("matvec", route, m, n, d, _sm_count(v))
+    part = torch.empty(splits, m, d, dtype=torch.float32, device=v.device)
+    out = torch.empty(m, d, dtype=out_dtype, device=v.device)
+    with torch.cuda.device(v.device):
+        _check(_lib().gallery_matvec(
+            _ROUTE_ID[route], v.data_ptr(), g.data_ptr(), lse.data_ptr(), m,
+            n, d, 1.0 / tau, splits, per_split, part.data_ptr(),
+            int(labels is not None), _ptr(labels), _ptr(gbar),
+            float(tau * m), int(out_dtype == torch.bfloat16), out.data_ptr(),
+            _stream(v)), f"gallery_matvec ({route})")
+    return out
+
+
+def tc_peak(blocks: int, iters: int, device) -> torch.Tensor:
+    """Launch the mma.sync TF32 rate probe (``tc_peak_kernel``): blocks x 8
+    warps x iters x 8 m16n8k8 products, 2 * 16 * 8 * 8 operations each.
+    A measurement of the card, used by ``chip_smoke.py``; returns the
+    per-thread sums."""
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        _check(_lib().gallery_tc_peak(blocks, iters, out.data_ptr(),
+                                      _stream(out)), "gallery_tc_peak")
     return out
 
 
@@ -134,89 +297,122 @@ def _launch_lse(v: torch.Tensor, g: torch.Tensor, tau: float,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def row_logsumexp(v: torch.Tensor, gallery: torch.Tensor,
-                  tau: float = 1.0) -> torch.Tensor:
+def row_logsumexp(v: torch.Tensor, gallery: torch.Tensor, tau: float = 1.0,
+                  route: Optional[str] = None) -> torch.Tensor:
     """[M, D] x [N, D] -> [M] float32 logsumexp rows of v @ g.T / tau (K1)."""
+    route = resolve_route("row_logsumexp", route,
+                          plan_gallery_route(v, gallery))
     if v.device.type == "cpu":
         return plain.streaming_logsumexp(v, gallery, tau)
-    out = _launch_lse(v, gallery, tau, with_diag=False)
-    row_logsumexp.launches += 1
+    _check_inputs("row_logsumexp", v, gallery)
+    _check_shapes("row_logsumexp", v, gallery)
+    out = _lse_launch(v, gallery, tau, _LSE, route)
+    _count(row_logsumexp, route)
     return out
 
 
-def conw_diag(v: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
+def conw_diag(v: torch.Tensor, gallery: torch.Tensor,
+              route: Optional[str] = None) -> torch.Tensor:
     """diag(log_softmax(v @ g.T)) -> [N] float32 (K4)."""
-    if v.device.type == "cpu":
-        return plain.gallery_log_softmax_diag(v, gallery)
     if v.shape != gallery.shape:
         raise ValueError(f"conw_diag: shapes {tuple(v.shape)} and "
                          f"{tuple(gallery.shape)} differ")
-    out = _launch_lse(v.contiguous(), gallery.contiguous(), 1.0,
-                      with_diag=True)
-    conw_diag.launches += 1
+    v, gallery = v.contiguous(), gallery.contiguous()
+    route = resolve_route("conw_diag", route, plan_gallery_route(v, gallery))
+    if v.device.type == "cpu":
+        return plain.gallery_log_softmax_diag(v, gallery)
+    _check_inputs("conw_diag", v, gallery)
+    _check_shapes("conw_diag", v, gallery)
+    out = _lse_launch(v, gallery, 1.0, _DIAG, route)
+    _count(conw_diag, route)
     return out
 
 
 def softmax_matvec(v: torch.Tensor, gallery: torch.Tensor,
-                   lse: torch.Tensor, tau: float = 1.0) -> torch.Tensor:
+                   lse: torch.Tensor, tau: float = 1.0,
+                   route: Optional[str] = None) -> torch.Tensor:
     """softmax(v @ g.T / tau) @ g -> [M, D] float32 given the row lse (K2)."""
+    route = resolve_route("softmax_matvec", route,
+                          plan_gallery_route(v, gallery))
     if v.device.type == "cpu":
         return plain.softmax_matvec(v, gallery, lse, tau)
-    _check_inputs("gallery_softmax_matvec", v, gallery, lse)
-    (m, d), n = v.shape, gallery.shape[0]
-    if gallery.shape[1] != d or lse.shape != (m,) or 0 in (m, n, d):
-        raise ValueError("gallery_softmax_matvec: shapes "
-                         f"{tuple(v.shape)}, {tuple(gallery.shape)}, "
-                         f"{tuple(lse.shape)}")
-    if d > MV_MAX_DIM:
-        raise ValueError(f"gallery_softmax_matvec: D = {d} > {MV_MAX_DIM}")
-    splits, per_split = plan_splits(m, n, MV_BLOCK_ROWS, MV_BLOCK_COLS,
-                                    _sm_count(v))
-    part = torch.empty(splits, m, d, dtype=torch.float32, device=v.device)
-    out = torch.empty(m, d, dtype=torch.float32, device=v.device)
-    with torch.cuda.device(v.device):
-        _check(_lib().gallery_softmax_matvec(
-            v.data_ptr(), gallery.data_ptr(), lse.data_ptr(), m, n, d,
-            1.0 / tau, splits, per_split, part.data_ptr(), out.data_ptr(),
-            _stream(v)), "gallery_softmax_matvec")
-    softmax_matvec.launches += 1
+    _check_inputs("softmax_matvec", v, gallery, lse)
+    _check_shapes("softmax_matvec", v, gallery)
+    if lse.shape != (v.shape[0],):
+        raise ValueError(f"softmax_matvec: lse shape {tuple(lse.shape)}")
+    out = _matvec_launch(v, gallery, lse, tau, route)
+    _count(softmax_matvec, route)
     return out
 
 
 class FusedGalleryCE(torch.autograd.Function):
-    """Mean CE of ``feats @ gallery.T / tau`` vs ``labels``: K1 forward,
-    K2 backward, no gradient to the gallery or the labels. On CPU tensors
-    the K1/K2 wrappers run their plain versions, so the backward formula
-    can be checked without a card."""
+    """Mean CE of ``feats @ gallery.T / tau`` vs ``labels``, no gradient to
+    the gallery or the labels. Forward: K1's partial pass and the CE-mode
+    merge (loss and lse); backward: K2's partial pass and the dfeats-mode
+    merge, with gbar read from the device. On CPU tensors both run their
+    plain steps (``ops.gallery``: partials over the same split plan, then
+    the merges), so the formulas are checked without a card."""
 
     @staticmethod
-    def forward(ctx, feats, gallery, labels, tau):
+    def forward(ctx, feats, gallery, labels, tau, route=None):
         f32 = feats.to(torch.float32).contiguous()
         g32 = gallery.to(torch.float32).contiguous()
-        lse = row_logsumexp(f32, g32, tau)
-        label_vecs = g32.index_select(0, labels.long())
-        label_logit = torch.sum(f32 * label_vecs, dim=1) / tau
-        ctx.save_for_backward(f32, g32, lse, label_vecs)
-        ctx.tau = tau
-        ctx.feats_dtype = feats.dtype
-        return torch.mean(lse - label_logit)
+        labels = labels.to(torch.int64).contiguous()
+        route = resolve_route("fused_gallery_ce", route,
+                              plan_gallery_route(f32, g32))
+        (m, d), n = f32.shape, g32.shape[0]
+        if f32.device.type == "cpu":
+            splits, per_split = plan_for("lse", route, m, n, d,
+                                         _sm_count(f32))
+            cols = LSE_TC_COLS if route == "tc" else LSE_BLOCK_COLS
+            loss, lse = plain.ce_merge(
+                *plain.lse_partials(f32, g32, tau, splits, per_split, cols),
+                f32, g32, labels, tau)
+        else:
+            _check_inputs("fused_gallery_ce", f32, g32)
+            _check_shapes("fused_gallery_ce", f32, g32)
+            loss, lse = _lse_launch(f32, g32, tau, _CE, route, labels)
+            _count(row_logsumexp, route)
+            _count(fused_gallery_ce, route)
+        ctx.save_for_backward(f32, g32, lse, labels)
+        ctx.tau, ctx.route, ctx.feats_dtype = tau, route, feats.dtype
+        return loss.reshape(())
 
     @staticmethod
     def backward(ctx, gbar):
-        f32, g32, lse, label_vecs = ctx.saved_tensors
-        soft = softmax_matvec(f32, g32, lse, ctx.tau)
-        dfeats = (soft - label_vecs) * (gbar / (ctx.tau * f32.shape[0]))
-        return dfeats.to(ctx.feats_dtype), None, None, None
+        f32, g32, lse, labels = ctx.saved_tensors
+        gbar = gbar.to(torch.float32).reshape(1)
+        if f32.device.type == "cpu":
+            (m, d), n = f32.shape, g32.shape[0]
+            splits, per_split = plan_for("matvec", ctx.route, m, n, d,
+                                         _sm_count(f32))
+            cols = mv_tc_tile(d)[1] if ctx.route == "tc" else MV_BLOCK_COLS
+            dfeats = plain.dfeats_merge(
+                plain.matvec_partials(f32, g32, lse, ctx.tau, splits,
+                                      per_split, cols),
+                g32, labels, gbar, ctx.tau, ctx.feats_dtype)
+        else:
+            if ctx.feats_dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError("fused_gallery_ce: dfeats in float32 or "
+                                f"bfloat16, not {ctx.feats_dtype}")
+            dfeats = _matvec_launch(f32, g32, lse, ctx.tau, ctx.route,
+                                    labels, gbar.contiguous(),
+                                    ctx.feats_dtype)
+            _count(softmax_matvec, ctx.route)
+        return dfeats, None, None, None, None
 
 
 def fused_gallery_ce(feats: torch.Tensor, gallery: torch.Tensor,
-                     labels: torch.Tensor, tau: float = 0.5) -> torch.Tensor:
-    """Mean CE of ``feats @ gallery.T / tau`` vs integer ``labels`` (K3)."""
+                     labels: torch.Tensor, tau: float = 0.5,
+                     route: Optional[str] = None) -> torch.Tensor:
+    """Mean CE of ``feats @ gallery.T / tau`` vs integer ``labels`` (K3).
+    Labels must lie in [0, N) (the kernels give NaN otherwise)."""
     if feats.device.type == "cpu":
+        if route is not None:
+            resolve_route("fused_gallery_ce", route, plan_gallery_route(
+                feats.to(torch.float32).contiguous(), gallery))
         return plain.gallery_cross_entropy(feats, gallery, labels, tau=tau)
-    out = FusedGalleryCE.apply(feats, gallery.detach(), labels, tau)
-    fused_gallery_ce.launches += 1
-    return out
+    return FusedGalleryCE.apply(feats, gallery.detach(), labels, tau, route)
 
 
 _WRAPPERS = (row_logsumexp, softmax_matvec, fused_gallery_ce, conw_diag)
@@ -225,6 +421,7 @@ _WRAPPERS = (row_logsumexp, softmax_matvec, fused_gallery_ce, conw_diag)
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def launch_counts() -> Dict[str, int]:

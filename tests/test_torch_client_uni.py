@@ -204,3 +204,86 @@ def test_round_schedule_matches_jax():
     t_sched, js = two_step_decay_schedule(1e-4, 30), j_sched(1e-4, 30)
     for r in range(31):
         assert t_sched(r) == pytest.approx(float(js(r)), rel=1e-6), r
+
+
+MLP_ARGS = types.SimpleNamespace(img_model_local="resnet10", feature_dim=E,
+                                 mlp_local=True, interintra_weight=0.5,
+                                 loss_scale=False)
+MLP_WIDTH = 512  # MLPHead's width: the features and globals with mlp_local
+
+
+@pytest.fixture(scope="module")
+def mlp_trajectories():
+    """--mlp_local: one task step (head_proj untouched) and one contrast
+    step (through head_proj, 512-wide features against 512-wide globals)
+    on both engines from the same scaled start."""
+    rng = np.random.default_rng(11)
+    images = rng.normal(size=(B, IMG, IMG, 3)).astype(np.float32)
+    labels = (np.arange(B) % C).astype(np.int32)
+    pub = rng.normal(size=(B, IMG, IMG, 3)).astype(np.float32)
+    g_img = _unit(rng, N_PUB, MLP_WIDTH)
+    g_txt = _unit(rng, N_PUB, MLP_WIDTH)
+    idx = np.arange(B, dtype=np.int32)
+
+    jeng = JEngine("img", num_class=C, args=MLP_ARGS)
+    js = jeng.init_state(jax.random.PRNGKey(3),
+                         {"images": images, "labels": labels})
+    params = _np_tree(js.params)
+    params["linear"]["kernel"] = params["linear"]["kernel"] * 0.1
+    params["class_fc"]["kernel"] = params["class_fc"]["kernel"] * 0.01
+    js = jeng.set_round_lr(js.replace(params=jax.tree.map(jnp.asarray,
+                                                          params)), 0)
+    start = flax_image_client_to_torch(params, _np_tree(js.batch_stats))
+    old_p, old_bs = js.params, js.batch_stats
+    js, _ = jeng.task_step(js, {"images": jnp.asarray(images),
+                                "labels": jnp.asarray(labels)})
+    after_task = flax_image_client_to_torch(_np_tree(js.params),
+                                            _np_tree(js.batch_stats))
+    js, jloss = jeng.contrast_step(
+        js, old_p, old_bs, {"images": jnp.asarray(pub)},
+        {"same": jnp.asarray(g_img), "other": jnp.asarray(g_txt),
+         "index": jnp.asarray(idx)}, True, True)
+    jfinal = flax_image_client_to_torch(_np_tree(js.params),
+                                        _np_tree(js.batch_stats))
+
+    teng = UniClientEngine("img", num_class=C, args=MLP_ARGS, device="cpu")
+    ts = teng.set_round_lr(teng.init_state(state_dict=start), 0)
+    old = teng.snapshot(ts)
+    ts, _ = teng.task_step(ts, {"images": images, "labels": labels})
+    t_after_task = {k: v.clone() for k, v in ts.model.state_dict().items()}
+    ts, tloss = teng.contrast_step(
+        ts, old, {"images": pub},
+        {"same": torch.tensor(g_img), "other": torch.tensor(g_txt),
+         "index": torch.tensor(idx)}, True, True)
+    tfinal = {k: v.clone() for k, v in ts.model.state_dict().items()}
+    feats = teng.features_step(ts, {"images": pub})[0]
+    return dict(start=start, after_task=after_task, jfinal=jfinal,
+                jloss=float(jloss), t_after_task=t_after_task,
+                tfinal=tfinal, tloss=float(tloss), feats=feats)
+
+
+def test_mlp_local_contrast_step_matches_jax(mlp_trajectories):
+    t = mlp_trajectories
+    np.testing.assert_allclose(t["tloss"], t["jloss"], **TOL)
+    assert t["feats"].shape == (B, MLP_WIDTH)
+    moved = 0
+    for key, want in t["jfinal"].items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_allclose(t["tfinal"][key].numpy(), want.numpy(),
+                                   err_msg=key, **TOL)
+        moved += not np.allclose(want.numpy(), t["start"][key].numpy())
+    assert moved > 0
+
+
+def test_mlp_local_task_step_leaves_head_proj(mlp_trajectories):
+    """The task step's graph has no head_proj: its params stay as they
+    started in both engines, and the contrast step then moves them."""
+    t = mlp_trajectories
+    head = [k for k in t["start"] if k.startswith("head_proj.")
+            and "running_" not in k and "num_batches" not in k]
+    assert len(head) == 6
+    for key in head:
+        assert torch.equal(t["after_task"][key], t["start"][key]), key
+        assert torch.equal(t["t_after_task"][key], t["start"][key]), key
+        assert not torch.equal(t["tfinal"][key], t["start"][key]), key

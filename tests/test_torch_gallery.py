@@ -192,3 +192,223 @@ def test_kernel_inputs_are_checked():
         tk._check_inputs("k", torch.zeros(2, 2, dtype=torch.float64))
     with pytest.raises(ValueError):
         tk._check_inputs("k", torch.zeros(4, 4).T)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' plain steps, routes and plans
+# ---------------------------------------------------------------------------
+
+def _unit(rng, *shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to the nearest TF32 value (10 mantissa bits), ties away from
+    zero; inf and nan pass through."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 0.75 * ulp, 3.0 * 2 ** 100, float("inf"),
+                      float("-inf")])
+    want = torch.tensor([1.0, 1 + ulp, -(1 + ulp), 1.0, 1 + ulp,
+                         3.0 * 2 ** 100, float("inf"), float("-inf")])
+    assert torch.equal(tgal.tf32_round(x), want)
+    assert torch.isnan(tgal.tf32_round(torch.tensor([float("nan")]))).all()
+    big, small = tgal.tf32_split(torch.tensor([1 + 2 ** -15 + 2 ** -20]))
+    assert float(big) == 1.0 and float(small) == 2 ** -15 + 2 ** -20
+    assert (tgal.tf32_round(x[:6]).view(torch.int32) & 0x1FFF == 0).all()
+
+
+@pytest.mark.parametrize("d", [48, 256, 512])
+def test_tf32x3_matmul_within_chip_tolerance(rng, d):
+    """The tc route's arithmetic (3xTF32 products, fp32 sums) against fp32
+    for the lse and matvec passes, at the card's tolerances
+    (``chip_smoke.TOL``); one TF32 product alone would not hold them."""
+    from chip_smoke import TOL
+
+    m, n, tau = 24, 700, 0.5
+    v, g = torch.tensor(_unit(rng, m, d)), torch.tensor(_unit(rng, n, d))
+    splits, per_split = tk.plan_for("lse", "tc", m, n, d, 132)
+    lse3 = tgal.lse_merge(*tgal.lse_partials(
+        v, g, tau, splits, per_split, tk.LSE_TC_COLS,
+        matmul=tgal.tf32x3_matmul))
+    lse = tgal.streaming_logsumexp(v, g, tau)
+    np.testing.assert_allclose(lse3, lse, **TOL["row_logsumexp"])
+    splits, per_split = tk.plan_for("matvec", "tc", m, n, d, 132)
+    mv3 = tgal.matvec_partials(v, g, lse, tau, splits, per_split,
+                               tk.mv_tc_tile(d)[1],
+                               matmul=tgal.tf32x3_matmul).sum(0)
+    np.testing.assert_allclose(mv3, tgal.softmax_matvec(v, g, lse, tau),
+                               **TOL["softmax_matvec"])
+    prod = v.double() @ g.double().T
+    err3 = (tgal.tf32x3_matmul(v, g.T).double() - prod).abs().max()
+    err32 = ((v @ g.T).double() - prod).abs().max()
+    err1 = ((tgal.tf32_round(v) @ tgal.tf32_round(g).T).double()
+            - prod).abs().max()
+    assert err3 < 4 * err32 + 1e-7 and err1 > 100 * err3
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_and_dfeats_merges_vs_jax(rng, interpret_mode, route, dtype):
+    """K3's two kernel passes in plain steps, over the route's split plan
+    at ragged M and N: the CE-mode merge against the JAX
+    ``fused_gallery_ce`` value, the dfeats-mode merge against its
+    ``jax.grad`` (Pallas in interpret mode), fp32 and bf16 features."""
+    m, n, d, tau = 10, 300, 48, 0.5
+    f = torch.tensor(rng.normal(size=(m, d)).astype(np.float32)).to(dtype)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    labels = rng.integers(0, n, size=(m,)).astype(np.int32)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jf = jnp.asarray(f.float().numpy()).astype(jdtype)
+    jl = jnp.asarray(labels)
+    val, dwant = jax.value_and_grad(
+        lambda x: jpl.fused_gallery_ce(x, jnp.asarray(g), jl, tau))(jf)
+
+    f32, g32 = f.float(), torch.tensor(g)
+    tl = torch.tensor(labels).long()
+    splits, per_split = tk.plan_for("lse", route, m, n, d, 132)
+    assert splits > 1
+    cols = tk.LSE_TC_COLS if route == "tc" else tk.LSE_BLOCK_COLS
+    loss, lse = tgal.ce_merge(
+        *tgal.lse_partials(f32, g32, tau, splits, per_split, cols), f32,
+        g32, tl, tau)
+    np.testing.assert_allclose(float(loss), float(val), **VAL)
+    np.testing.assert_allclose(lse, tgal.streaming_logsumexp(f32, g32, tau),
+                               **VAL)
+    splits, per_split = tk.plan_for("matvec", route, m, n, d, 132)
+    cols = tk.mv_tc_tile(d)[1] if route == "tc" else tk.MV_BLOCK_COLS
+    gbar = torch.tensor(1.0)
+    dfeats = tgal.dfeats_merge(
+        tgal.matvec_partials(f32, g32, lse, tau, splits, per_split, cols),
+        g32, tl, gbar, tau, dtype)
+    assert dfeats.dtype == dtype
+    np.testing.assert_allclose(dfeats.float(),
+                               np.asarray(dwant.astype(jnp.float32)),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_fused_gallery_ce_function_on_either_route(ce_inputs, route):
+    """The autograd Function's CPU steps on a forced route: loss and
+    dfeats as the dense plain CE; gbar scales dfeats."""
+    f, g, labels = ce_inputs
+    tf = torch.tensor(f, requires_grad=True)
+    loss = tk.FusedGalleryCE.apply(tf, torch.tensor(g), torch.tensor(labels),
+                                   0.5, route)
+    (3.0 * loss).backward()
+    pf = torch.tensor(f, requires_grad=True)
+    want = tgal.gallery_cross_entropy(pf, torch.tensor(g),
+                                      torch.tensor(labels), 0.5)
+    (3.0 * want).backward()
+    np.testing.assert_allclose(float(loss), float(want), **VAL)
+    np.testing.assert_allclose(tf.grad, pf.grad, **GRAD)
+
+
+def test_plan_gallery_route():
+    v, g = torch.zeros(8, 256), torch.zeros(40, 256)
+    assert tk.plan_gallery_route(v, g) == "tc"
+    assert tk.plan_gallery_route(torch.zeros(3, 48), torch.zeros(5, 48)) \
+        == "tc"
+    assert tk.plan_gallery_route(torch.zeros(3, 512),
+                                 torch.zeros(5, 512)) == "tc"
+    # D not a multiple of 8, D above 512, bf16, a strided view, a base
+    # off 16 bytes: simt.
+    assert tk.plan_gallery_route(torch.zeros(3, 12), torch.zeros(5, 12)) \
+        == "simt"
+    assert tk.plan_gallery_route(torch.zeros(3, 520),
+                                 torch.zeros(5, 520)) == "simt"
+    assert tk.plan_gallery_route(v.bfloat16(), g) == "simt"
+    assert tk.plan_gallery_route(torch.zeros(256, 8).T, g) == "simt"
+    off = torch.zeros(8 * 256 + 1)[1:].view(8, 256)
+    assert off.data_ptr() % 16 and tk.plan_gallery_route(off, g) == "simt"
+
+
+def test_route_argument_is_checked():
+    v, g = torch.randn(3, 12), torch.randn(5, 12)
+    lse = tgal.streaming_logsumexp(v, g)
+    for call in (lambda r: tk.row_logsumexp(v, g, route=r),
+                 lambda r: tk.softmax_matvec(v, g, lse, route=r),
+                 lambda r: tk.conw_diag(v, g[:3], route=r),
+                 lambda r: tk.fused_gallery_ce(v, g, torch.tensor([0, 1, 4]),
+                                               route=r)):
+        call("simt")
+        for bad in ("tc", "wgmma"):
+            with pytest.raises(ValueError, match="route"):
+                call(bad)
+    # tc takes a D that is a multiple of 8, on either device.
+    tk.row_logsumexp(torch.randn(3, 16), torch.randn(5, 16), route="tc")
+    assert tk.launch_counts()["row_logsumexp"] == 0
+
+
+@pytest.mark.parametrize("kernel", ["lse", "matvec"])
+@pytest.mark.parametrize("m,n,d", [
+    (128, 50_000, 256), (80, 50_000, 256), (128, 50_000, 512),
+    (50_000, 50_000, 256), (77, 1001, 48), (1, 1, 8)])
+def test_tc_split_plan_one_wave(kernel, m, n, d):
+    """Every gallery tile in exactly one split, no split empty, and about
+    one wave of resident blocks: at most one, and at least half of one
+    where the tiles allow, so each block walks many tiles."""
+    rows, cols = ((tk.LSE_TC_ROWS, tk.LSE_TC_COLS) if kernel == "lse"
+                  else tk.mv_tc_tile(d)[:2])
+    splits, per_split = tk.plan_for(kernel, "tc", m, n, d, 132)
+    n_tiles, row_blocks = -(-n // cols), -(-m // rows)
+    assert (splits - 1) * per_split < n_tiles <= splits * per_split
+    wave = tk.tc_blocks_per_sm(kernel, d) * 132
+    if row_blocks >= wave:
+        assert splits == 1
+    else:
+        assert row_blocks * splits <= wave
+        assert row_blocks * splits >= min(n_tiles * row_blocks, wave) // 2
+    if (m, n) == (128, 50_000):
+        assert per_split >= 3
+
+
+def test_tc_shared_memory_fits():
+    for d in range(8, 513, 8):
+        for kernel in ("lse", "matvec"):
+            assert tk.tc_smem_bytes(kernel, d) <= tk._BLOCK_SHARED_MAX
+            assert tk.tc_blocks_per_sm(kernel, d) >= 1
+    # Two lse blocks per SM up to D 256; the matvec kernel holds 64 v rows
+    # up to D 256 and 32 beyond, so its [rows, D] accumulators stay at 64
+    # registers a thread.
+    assert tk.tc_blocks_per_sm("lse", 256) == 2
+    assert tk.tc_blocks_per_sm("lse", 512) == 1
+    assert tk.tc_blocks_per_sm("matvec", 256) == 1
+    assert tk.mv_tc_tile(256) == (64, 64, 2)
+    assert tk.mv_tc_tile(264) == (32, 32, 2)
+    for d in (256, 512):
+        assert tk.mv_tc_tile(d)[0] * tk.padded_dim(d) // 256 == 64
+
+
+def test_launch_counts_by_route_reset():
+    tk.reset_launch_counts()
+    for fn in (tk.row_logsumexp, tk.softmax_matvec, tk.fused_gallery_ce,
+               tk.conw_diag):
+        assert fn.launches == 0
+        assert fn.launches_by_route == {"tc": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("unit", [True, False])
+def test_matvec_tolerance_premise(rng, unit):
+    """``chip_smoke.TOL`` for K2 assumes the main path's unit rows (logits
+    of at most 1/tau): there the plain fp32 K2 holds it against float64;
+    at randn scale (logits ~40 at D 48) fp32 itself does not, so the card
+    checks every shape on unit rows."""
+    from chip_smoke import TOL
+
+    m, n, d, tau = 77, 1001, 48, 0.5
+    v = _unit(rng, m, d) if unit else rng.normal(size=(m, d)).astype(
+        np.float32)
+    g = _unit(rng, n, d) if unit else rng.normal(size=(n, d)).astype(
+        np.float32)
+    logits = v.astype(np.float64) @ g.T.astype(np.float64) / tau
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    want = (p / p.sum(1, keepdims=True)) @ g.astype(np.float64)
+    tv, tg = torch.tensor(v), torch.tensor(g)
+    got = tgal.softmax_matvec(tv, tg, tgal.streaming_logsumexp(tv, tg, tau),
+                              tau).double().numpy()
+    tol = TOL["softmax_matvec"]
+    held = np.all(np.abs(got - want) <= tol["atol"] + tol["rtol"]
+                  * np.abs(want))
+    assert held == unit

@@ -126,9 +126,88 @@ def test_backbone_tree_matches_jax(cnn_type):
 
 def test_bottleneck_trunks_not_ported_yet():
     # The Bottleneck trunks (resnet50/101/152) came with the server slice
-    # (tests/test_torch_bottleneck.py); a trunk the JAX package lacks and
-    # the clients' --mlp_local head still raise.
+    # (tests/test_torch_bottleneck.py); a trunk the JAX package lacks still
+    # raises. The clients' --mlp_local head is ported (tests below).
     with pytest.raises(NotImplementedError):
         ResNetBackbone("resnet200")
-    with pytest.raises(NotImplementedError):
-        ImageClientNet("resnet18", mlp_local=True)
+    assert ImageClientNet("resnet6", mlp_local=True).head_proj is not None
+    assert ImageClientNet("resnet6").head_proj is None
+
+
+@pytest.fixture(scope="module")
+def mlp_twins():
+    """A JAX ImageClientNet with --mlp_local, its params from both phases'
+    inits merged as the JAX client engine does (the features phase alone
+    creates head_proj), with non-trivial running stats."""
+    rng = np.random.default_rng(5)
+    images = rng.normal(size=(B, IMG, IMG, 3)).astype(np.float32)
+    jnet = JNet(cnn_type="resnet10", num_class=C, embed_dim=E,
+                mlp_local=True)
+    key = jax.random.PRNGKey(2)
+    train = jnet.init(key, jnp.asarray(images), False, "train")
+    feats = jnet.init(key, jnp.asarray(images), False, "features")
+    assert "head_proj" not in train["params"]
+    assert "class_fc" not in feats["params"]
+    params = _tree_np({**train["params"], **feats["params"]})
+    stats = jax.tree.map(
+        lambda x: (x * rng.uniform(0.8, 1.25, x.shape)
+                   + rng.normal(0.0, 0.1, x.shape)).astype(np.float32),
+        _tree_np({**train["batch_stats"], **feats["batch_stats"]}))
+    return jnet, params, stats, images
+
+
+def _port_mlp(params, stats):
+    tnet = ImageClientNet("resnet10", num_class=C, embed_dim=E,
+                          mlp_local=True)
+    tnet.load_state_dict(flax_image_client_to_torch(params, stats))
+    return tnet
+
+
+def test_mlp_local_state_dict_matches_jax_tree(mlp_twins):
+    """The port has exactly the JAX engine's parameters and BN stats:
+    head_proj's fc1, bn (with running stats) and fc2, 512 wide, beside
+    the train phase's heads."""
+    _, params, stats, _ = mlp_twins
+    want = flax_image_client_to_torch(params, stats)
+    got = ImageClientNet("resnet10", num_class=C, embed_dim=E,
+                         mlp_local=True).state_dict()
+    assert set(got) == set(want)
+    for key, val in want.items():
+        assert tuple(got[key].shape) == tuple(val.shape), key
+    assert tuple(got["head_proj.fc2.weight"].shape) == (512, 512)
+    assert "head_proj.bn.running_var" in got
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_mlp_local_features_phase(mlp_twins, train):
+    """Features phase with head_proj: train mode (batch stats, running
+    stats moved as flax moves them, head_proj's BN included) and eval
+    mode (running stats); unit rows 512 wide."""
+    jnet, params, stats, images = mlp_twins
+    tnet = _port_mlp(params, stats)
+    variables = {"params": params, "batch_stats": stats}
+    if train:
+        jfeat, mut = jnet.apply(variables, jnp.asarray(images), True,
+                                "features", mutable=["batch_stats"])
+    else:
+        jfeat = jnet.apply(variables, jnp.asarray(images), False, "features")
+    tnet.train(train)
+    with torch.no_grad():
+        feat = tnet(torch.tensor(images), phase="features")
+    assert feat.shape == (B, 512)
+    np.testing.assert_allclose(feat.numpy(), np.asarray(jfeat), **TOL)
+    np.testing.assert_allclose(np.linalg.norm(feat.numpy(), axis=1), 1.0,
+                               rtol=1e-6)
+    if train:
+        want = flax_image_client_to_torch(params,
+                                          _tree_np(mut["batch_stats"]))
+        got = tnet.state_dict()
+        moved = [k for k in want if "running_" in k]
+        assert "head_proj.bn.running_mean" in moved
+        # head_proj's BN sees the x128-scaled features through fc1 (entries
+        # ~10): atol 1e-5 of the largest entry, as for the logits above.
+        for key in moved:
+            w = want[key].numpy()
+            np.testing.assert_allclose(
+                got[key].numpy(), w, err_msg=key, rtol=TOL["rtol"],
+                atol=TOL["atol"] * max(1.0, np.abs(w).max()))
