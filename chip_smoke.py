@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check its kernels.
 
-    python3 chip_smoke.py [--seed 0] [--probe]
+    python3 chip_smoke.py [--seed 0] [--probe | --round]
 
 Phases (any failure exits non-zero):
 
@@ -37,6 +37,16 @@ Phases (any failure exits non-zero):
    on the fused trunk (70 K5 and 70 K6 launches per train step, every one
    on the wgmma route), then the
    same on the standard trunk from the same weights, compared at step 0.
+6. One federated round through the CLI's ``run``
+   (``python -m creamfl_tpu_torch.main`` with the paper's flags and
+   sequential clients, ``--round`` runs this step alone): server epoch,
+   global features, an image, a text and an mm client, con_w, distillation,
+   retrieval eval, at the JAX package's default synthetic scale (2048-row
+   public set at 224², R101 + BERT-base server). Every K3 and K4 launch of
+   the round on the tc route, as many as the round's steps make; its con_w
+   against the plain version from the uploaded reps; unit-norm global
+   features; scores in [0, 100]; the StepTimer phases, the round's wall
+   time, host loader time, the card's utilization and peak memory.
 
 Each path runs with the launch counts zeroed just before it and read just
 after. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -49,6 +59,7 @@ import argparse
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -63,6 +74,9 @@ PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 N_PUB, DIM, N_CLASS = 50_000, 256, 100
+# The round's public set (the JAX package's default synthetic scale): its
+# contrast steps run K3 at M PUB_BS against a ROUND_PUB x DIM gallery.
+ROUND_PUB = 2048
 PUB_BS, TASK_BS, TAIL_BS = 128, 64, 80
 # Depth of the slice run: per client, task steps and full-size contrast
 # steps (one ragged contrast step at TAIL_BS follows).
@@ -393,8 +407,9 @@ def tc_peak_phase(iters: int = 4096) -> float:
 
 def kernel_phase(seed: int):
     """K1-K4 on both routes against their plain versions at the main
-    path's shapes (con_w 50 000² x 256; contrast M 128 and the ragged 80
-    against 50 000 x 256), an odd shape (77 x 1001 x 48), the mlp_local
+    paths' shapes (con_w 50 000² x 256; contrast M 128 and the ragged 80
+    against 50 000 x 256; the round's contrast, M 128 against 2048 x 256),
+    an odd shape (77 x 1001 x 48), the mlp_local
     width (128 x 50 000 x 512) and bf16 features (K3), each call's route
     asserted; then each timed on both routes. Returns per-kernel records
     (without launch counts) for the JSON line."""
@@ -432,6 +447,7 @@ def kernel_phase(seed: int):
     g = unit_rows(N_PUB, DIM, gen, dev)
     g512 = unit_rows(N_PUB, 512, gen, dev)
     cases = [(PUB_BS, g, "main"), (TAIL_BS, g, "ragged"),
+             (PUB_BS, unit_rows(ROUND_PUB, DIM, gen, dev), "round"),
              (77, unit_rows(1001, 48, gen, dev), "odd"),
              (PUB_BS, g512, "mlp_local D512"), (PUB_BS, g, "bf16")]
     tau = 0.5
@@ -1092,6 +1108,170 @@ def server_phase(seed: int, dev=torch.device("cuda")):
     return results["fused_counts"]
 
 
+# ---------------------------------------------------------------------------
+# phase 5: one federated round through the CLI's run()
+# ---------------------------------------------------------------------------
+
+# The round: the paper's flags, sequential clients, one of each kind, at the
+# JAX package's default synthetic scale (2048-row public set at 224²,
+# max_len 32, public batch 128 and extraction batch 256, clients of 512
+# samples at batch 64, a 500-caption retrieval test; R101 + BERT-base
+# server, standard trunk).
+ROUND_ARGS = ("--synthetic", "--comm_rounds", "1", "--local_epochs", "1",
+              "--num_img_clients", "1", "--num_txt_clients", "1",
+              "--num_mm_clients", "1", "--client_num_per_round", "3",
+              "--no_client_parallel", "--img_model_local", "resnet18",
+              "--agg_method", "con_w", "--contrast_local_inter",
+              "--contrast_local_intra")
+ROUND_PHASES = ("server_train", "global_features", "aggregate_distill",
+                "eval")
+
+
+class _HostLoaderTime:
+    """Seconds the host spends producing loader batches (rendering and
+    stacking samples), summed over every ``ArrayLoader`` iteration while
+    active."""
+
+    def __init__(self):
+        from creamfl_tpu_torch.data import loaders
+
+        self.cls, self.seconds = loaders.ArrayLoader, 0.0
+        self.orig = self.cls.__iter__
+
+    def __enter__(self):
+        import time
+
+        timer, orig = self, self.orig
+
+        def timed(loader):
+            it = orig(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    timer.seconds += time.perf_counter() - t0
+                yield batch
+
+        self.cls.__iter__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__iter__ = self.orig
+
+
+class _Utilization:
+    """The card's utilization.gpu (the share of time a kernel ran), sampled
+    by ``nvidia-smi`` every ``ms`` milliseconds in a child process that is
+    stopped on exit."""
+
+    def __init__(self, ms: int = 200):
+        self.ms, self.samples = ms, []
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", f"-lms={self.ms}", "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.samples = [float(x) for x in out.split() if x.strip().isdigit()]
+
+
+def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda")):
+    """One round of ``python -m creamfl_tpu_torch.main`` in this process
+    (``main.run``), then its checks: the round's con_w against the plain
+    version from the uploaded reps, unit-norm global features, scores in
+    [0, 100]. Prints the StepTimer phases, the clients' time, the round's
+    wall time, host loader time, the card's utilization and peak memory.
+    Returns the MMFL it drove."""
+    import tempfile
+
+    from creamfl_tpu_torch import main as port_main
+    from creamfl_tpu_torch.ops.gallery import gallery_log_softmax_diag
+
+    with tempfile.TemporaryDirectory() as exp:
+        args = port_main.parse_args(list(ROUND_ARGS) + list(cli_extra) + [
+            "--seed", str(seed), "--exp_dir", exp, "--name", "chip_round"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        util = _Utilization() if dev.type == "cuda" else None
+        with _HostLoaderTime() as host:
+            if util is None:
+                algo = port_main.run(args)
+            else:
+                with util:
+                    algo = port_main.run(args)
+        saved = sorted(os.listdir(exp))
+    timing = algo.last_timing
+    round_s = timing["round_s"]
+    phases = {k: timing.get(f"{k}_s", 0.0) for k in ROUND_PHASES}
+    for name, sec in phases.items():
+        log(f"[round] phase {name}: {sec:.3f} s")
+    log(f"[round] clients (the round minus those phases): "
+        f"{round_s - sum(phases.values()):.3f} s")
+    log(f"[round] round wall time: {round_s:.3f} s")
+    log(f"[round] host loader time (set-up included): {host.seconds:.3f} s")
+    if util is not None:
+        mean = statistics.mean(util.samples) if util.samples else None
+        log(f"[round] card utilization over the run (nvidia-smi, "
+            f"{len(util.samples)} samples at {util.ms} ms): "
+            + (f"mean {mean:.1f} %" if mean is not None else "not measured"))
+    if dev.type == "cuda":
+        log(f"[round] peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[round] clients trained {algo.sampled}; saved {saved}")
+
+    n_pub = len(algo.datasets["pub_eval"].dataset)
+    dim = args.feature_dim
+    for name, f in (("image", algo.global_img_feature),
+                    ("text", algo.global_txt_feature)):
+        if f.shape != (n_pub, dim) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"round: bad global {name} features "
+                                 f"{tuple(f.shape)}")
+        if not bool(((f.norm(dim=1) - 1).abs() < 1e-4).all()):
+            raise AssertionError(f"round: global {name} features are not "
+                                 f"unit rows")
+    # con_w from the uploaded reps by the plain diagonal.
+    for tag, reps, other, agg in (
+            ("img", algo.img_reps, algo.global_txt_feature, algo.img_vec),
+            ("txt", algo.txt_reps, algo.global_img_feature, algo.txt_vec)):
+        if reps is None or agg is None or reps.shape[1:] != (n_pub, dim):
+            raise AssertionError(f"round: no {tag} uploads or aggregate")
+        alpha = torch.softmax(torch.stack([
+            gallery_log_softmax_diag(r, other) for r in reps]), dim=0)
+        check(f"round con_w {tag} aggregate ({reps.shape[0]} uploads) vs "
+              f"plain", agg, torch.einsum("kn,knd->nd", alpha, reps),
+              dict(rtol=0.0, atol=1e-5))
+    scores = algo.last_scores
+    recalls = [scores[t][k] for t in ("i2t", "t2i")
+               for k in ("recall_1", "recall_5", "recall_10")]
+    recalls += [v for t in ("i2t", "t2i")
+                for k, v in scores.get("n_fold", {}).get(t, {}).items()
+                if k.startswith("recall_")]
+    if not all(0.0 <= r <= 100.0 for r in recalls):
+        raise AssertionError(f"round: recalls outside [0, 100]: {recalls}")
+    log(f"[round] scores i2t R@1 {scores['i2t']['recall_1']:.2f} t2i R@1 "
+        f"{scores['t2i']['recall_1']:.2f} rsum {scores['rsum']:.2f}")
+    # The best model is saved when the round's R@1 sum beats 0.
+    want = ["chip_round-last_model.ckpt", "chip_round.log"]
+    if algo.best_scores is not None:
+        want.insert(0, "chip_round-best_model.ckpt")
+    if saved != want:
+        raise AssertionError(f"round: saved {saved}, not {want}")
+    return algo
+
+
 def run_probe(seed: int) -> None:
     """``probe_phase`` in a subprocess under PROBE_TIMEOUT seconds, so that
     a kernel that hangs shows as a timeout and stops the run."""
@@ -1109,12 +1289,62 @@ def run_probe(seed: int) -> None:
         raise AssertionError(f"the tc probe failed ({proc.returncode})")
 
 
+def run_round(seed: int):
+    """``round_phase`` with the launch counts zeroed just before it and read
+    just after: K3 (with the K1 and K2 launches inside it) once per client
+    contrast step, two per mm step; K4 once per upload and modality; every
+    launch on the tc route; no K5/K6 (the standard trunk). Then, outside
+    the counted run, K1-K3 on the tc route against their plain versions on
+    the round's own global features (a public batch of caption rows against
+    the image gallery, each caption's own image its label). Returns the
+    round's launch counts."""
+    from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    K.reset_launch_counts()
+    FK.reset_launch_counts()
+    algo = round_phase(seed)
+    torch.cuda.synchronize()
+    counts = dict(K.launch_counts(), **FK.launch_counts())
+    log(f"[round] kernels {json.dumps(counts)} by route "
+        f"{json.dumps(gallery_route_counts())}")
+    steps = len(algo.datasets["pub_train"])  # contrast steps per client
+    per_step = {"img": 1, "txt": 1, "mm": 2}
+    k3 = steps * sum(per_step[c.kind] for c in algo.clients
+                     if c.client_idx in algo.sampled)
+    k4 = algo.img_reps.shape[0] + algo.txt_reps.shape[0]
+    want = {"fused_gallery_ce": k3, "row_logsumexp": k3,
+            "softmax_matvec": k3, "conw_diag": k4,
+            "mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}
+    if counts != want:
+        raise AssertionError(f"round: launches {counts}, not {want}")
+    for name in GALLERY_KERNELS:
+        by_route = getattr(K, name).launches_by_route
+        if by_route != {"tc": counts[name], "simt": 0}:
+            raise AssertionError(f"round: {name} took routes {by_route}, "
+                                 f"not all {counts[name]} on tc")
+    errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
+    gal = algo.global_img_feature.float()
+    check_gallery_case(
+        f"round globals {PUB_BS}x{gal.shape[0]}x{gal.shape[1]} tc",
+        algo.global_txt_feature[:PUB_BS].float(), gal,
+        torch.arange(PUB_BS, device=gal.device), 0.5, "tc", errs)
+    log(f"[round] K1-K3 on the round's global features, worst errors "
+        f"{json.dumps(errs)}")
+    del algo
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--probe", action="store_true",
                         help="build and run the tc probe in this process, "
                         "then stop without the result line")
+    parser.add_argument("--round", action="store_true",
+                        help="build and run the round phase alone, then "
+                        "stop without the result line")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1129,26 +1359,35 @@ def main() -> int:
     if opts.probe:
         probe_phase(opts.seed)
         return 0
+    if opts.round:
+        run_round(opts.seed)
+        return 0
     run_probe(opts.seed)
     rec = kernel_phase(opts.seed)
     rec.update(fused_kernel_phase(opts.seed))
-    counts = {}
     # Each path runs with the launch counts zeroed just before it and read
     # just after: the image-client slice (K1-K4, every launch on the tc
-    # route), then the server (K5/K6).
+    # route), the server (K5/K6), the round (K1-K4).
+    paths = {}
     K.reset_launch_counts()
     slice_phase(opts.seed)
     torch.cuda.synchronize()
-    counts.update(K.launch_counts())
-    log(f"[slice] kernels {json.dumps(K.launch_counts())} by route "
+    paths["slice"] = K.launch_counts()
+    log(f"[slice] kernels {json.dumps(paths['slice'])} by route "
         f"{json.dumps(gallery_route_counts())}")
     for name in GALLERY_KERNELS:
         by_route = getattr(K, name).launches_by_route
-        if by_route != {"tc": counts[name], "simt": 0}:
+        if by_route != {"tc": paths["slice"][name], "simt": 0}:
             raise AssertionError(f"slice: {name} took routes {by_route}, "
-                                 f"not all {counts[name]} on tc")
-    counts.update(server_phase(opts.seed))
-    log(f"[server] kernels {json.dumps(counts)}")
+                                 f"not all {paths['slice'][name]} on tc")
+    paths["server"] = server_phase(opts.seed)
+    log(f"[server] kernels {json.dumps(paths['server'])}")
+    paths["round"] = run_round(opts.seed)
+    # Per kernel, its launches on each path that runs it, and their sum.
+    by_path = {k: {p: c[k] for p, c in paths.items() if c.get(k, 0)}
+               for k in KERNELS}
+    counts = {k: sum(v.values()) for k, v in by_path.items()}
+    log(f"[kernels] launches over the main paths {json.dumps(by_path)}")
     missing = [k for k in KERNELS if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
@@ -1157,7 +1396,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=counts[name], **rec[name])
+                    replaces=replaces, launches=counts[name],
+                    launches_by_path=by_path[name], **rec[name])
                for name, (source, replaces) in KERNELS.items()]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-"""Unimodal client engine, image modality (CIFAR image clients).
+"""Unimodal client engine (CIFAR image clients, AG_NEWS text clients).
 
-Reference: `src/algorithms/ClientTrainer.py:136-674`. Per federated round
+Port of the JAX package's ``engine/client_uni.py`` (reference
+`src/algorithms/ClientTrainer.py:136-674`). Per federated round
 a selected client runs:
   1. task epochs: margin-softmax CE + 0.5 x weight-orthogonality loss,
      SGD(momentum 0.9, wd 5e-5), with the head-weight ReLU clamp
@@ -12,28 +13,30 @@ a selected client runs:
 
 BatchNorm follows the reference's modes: task, contrast and feature
 steps run train-mode BN whose running-stat updates persist; the MOON old
-model and the local test run eval-mode BN. Steps update the state's
-model and optimizer in place and return the state.
-
-Text clients (GRU) come with a later slice.
+model and the local test run eval-mode BN (the text client has BN only
+in ``--mlp_local``'s head). Steps update the state's model and optimizer in
+place and return the state. Batches carry ``images`` (img) or ``captions``
+and ``lengths`` (txt), with ``labels`` and ``valid`` for the task and test
+steps.
 """
 
 from __future__ import annotations
 
-import copy
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from creamfl_tpu_torch.engine.state import EngineState
+from creamfl_tpu_torch.engine.state import EngineState, frozen_copy
 from creamfl_tpu_torch.losses.classification import (margin_softmax_loss,
                                                      weight_orthogonality_loss)
 from creamfl_tpu_torch.losses.contrast import (combine_inter_intra,
                                                inter_modal_loss,
                                                intra_modal_moon_loss)
 from creamfl_tpu_torch.models.clients import (ImageClientNet,
-                                              clamp_head_weights)
+                                              TextClientNet,
+                                              clamp_head_weights,
+                                              init_text_client)
 from creamfl_tpu_torch.models.resnet import init_parameters
 from creamfl_tpu_torch.optim.factory import (make_client_sgd,
                                              set_learning_rate,
@@ -48,11 +51,11 @@ class UniClientEngine:
     EngineState."""
 
     def __init__(self, modality: str, num_class: int, args,
-                 device="cuda"):
-        if modality != "img":
-            raise NotImplementedError(
-                f"{modality!r} clients are not ported yet; only 'img'")
+                 vocab_size: int = 0, device="cuda"):
+        if modality not in ("img", "txt"):
+            raise ValueError(f"unknown client modality {modality!r}")
         self.modality = modality
+        self.vocab_size = vocab_size
         self.args = args
         self.device = resolve_device(device)
         # The reference builds resnet18_client whatever --img_model_local
@@ -76,14 +79,22 @@ class UniClientEngine:
                    ) -> EngineState:
         """A fresh client: weights drawn from ``seed`` (or loaded from
         ``state_dict``), and SGD at the first round's learning rate."""
-        model = ImageClientNet(self.cnn_type, num_class=self.num_class,
-                               embed_dim=self.args.feature_dim, scale=128.0,
-                               mlp_local=self.args.mlp_local)
-        init_parameters(model, torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        if self.modality == "img":
+            model = ImageClientNet(self.cnn_type, num_class=self.num_class,
+                                   embed_dim=self.args.feature_dim,
+                                   scale=128.0,
+                                   mlp_local=self.args.mlp_local)
+            init_parameters(model, gen)
+        else:
+            model = TextClientNet(self.vocab_size, num_class=self.num_class,
+                                  embed_dim=self.args.feature_dim,
+                                  scale=128.0, mlp_local=self.args.mlp_local)
+            init_text_client(model, gen)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         model = model.to(self.device)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.modality == "img":
             model = model.to(memory_format=torch.channels_last)
         return EngineState(model=model, step=0, optimizer=make_client_sgd(
             model.parameters(), self.init_lr))
@@ -94,11 +105,17 @@ class UniClientEngine:
 
     @staticmethod
     def snapshot(state: EngineState) -> torch.nn.Module:
-        """The frozen pre-round copy for MOON (the reference deep-copies
-        the model at round start, ClientTrainer.py:195); eval mode."""
-        old = copy.deepcopy(state.model).eval()
-        old.requires_grad_(False)
-        return old
+        """The frozen pre-round model for the intra term, in eval mode."""
+        return frozen_copy(state.model)
+
+    def _inputs(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
+        """The model's positional inputs from a batch: (images,) or
+        (captions, lengths); the lengths stay where they are, since the
+        GRU packs on the host."""
+        if self.modality == "img":
+            return (self._tensor(batch["images"], torch.float32),)
+        return (self._tensor(batch["captions"], torch.long),
+                torch.as_tensor(batch["lengths"]))
 
     # -- steps ---------------------------------------------------------
     def task_step(self, state: EngineState, batch: Batch
@@ -106,14 +123,14 @@ class UniClientEngine:
         """Margin CE + 0.5 * orthogonality, with the persistent head clamp
         applied before the forward."""
         model, opt = state.model, state.optimizer
-        images = self._tensor(batch["images"], torch.float32)
+        inputs = self._inputs(batch)
         labels = self._tensor(batch["labels"], torch.long)
         valid = batch.get("valid")
         valid = None if valid is None else self._tensor(valid)
         model.train()
         clamp_head_weights(model)
         opt.zero_grad(set_to_none=True)
-        x1, _x2, w1, _w2 = model(images, phase="train")
+        x1, _x2, w1, _w2 = model(*inputs, phase="train")
         task = margin_softmax_loss(x1, labels, self.margin, valid=valid)
         # The center loss flows through relu(W) (ClientTrainer.py:350), so
         # its gradient is masked where the clamped weight is 0.
@@ -151,11 +168,11 @@ class UniClientEngine:
         if not (do_inter or do_intra):
             raise ValueError("contrast_step needs do_inter or do_intra")
         model, opt = state.model, state.optimizer
-        images = self._tensor(batch["images"], torch.float32)
+        inputs = self._inputs(batch)
         d_idx = self._tensor(globals_["index"], torch.long)
         model.train()
         opt.zero_grad(set_to_none=True)
-        feats = model(images, phase="features")
+        feats = model(*inputs, phase="features")
         losses = {}
         if do_inter:
             losses["inter"] = inter_modal_loss(feats, globals_["other"],
@@ -163,7 +180,7 @@ class UniClientEngine:
         if do_intra:
             target = globals_["same"].index_select(0, d_idx)
             with torch.no_grad():
-                old_feats = old_model(images, phase="features")
+                old_feats = old_model(*inputs, phase="features")
             losses["intra"] = intra_modal_moon_loss(feats, target,
                                                     old_feats, self.tau)
         if do_inter and do_intra:
@@ -188,8 +205,7 @@ class UniClientEngine:
         model in place, and the returned dict holds those buffers."""
         model = state.model
         model.train()
-        feats = model(self._tensor(batch["images"], torch.float32),
-                      phase="features")
+        feats = model(*self._inputs(batch), phase="features")
         return feats, {k: v for k, v in model.named_buffers()
                        if "running_" in k}
 
@@ -203,8 +219,7 @@ class UniClientEngine:
         model.eval()
         clamped = {f"{h}.weight": F.relu(getattr(model, h).weight)
                    for h in ("class_fc", "class_fc_2")}
-        images = self._tensor(batch["images"], torch.float32)
-        x1 = torch.func.functional_call(model, clamped, (images,),
+        x1 = torch.func.functional_call(model, clamped, self._inputs(batch),
                                         {"phase": "train"})[0]
         labels = self._tensor(batch["labels"], torch.long)
         topk = x1.topk(min(5, x1.shape[-1]), dim=-1).indices

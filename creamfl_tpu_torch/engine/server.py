@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from creamfl_tpu_torch.engine.state import EngineState
@@ -131,6 +132,15 @@ class ServerEngine:
         set_learning_rate(state.optimizer, self.lr_schedule(round_n))
         return state
 
+    def text_inputs(self, batch: Dict[str, Any]):
+        """(captions, lengths, bert_mask) of a loader batch: the GRU
+        branch reads the caption ids (mask None), the BERT branch the
+        WordPiece ids and their mask."""
+        if self.model.not_bert:
+            return batch["captions"], batch["lengths"], None
+        mask = np.asarray(batch["bert_mask"])
+        return batch["bert_ids"], mask.sum(-1, dtype=np.int32), mask
+
     def report_scores(self, step: int, scores: Dict, metadata=None,
                       prefix: str = "", logger=None) -> Dict:
         """Flattened metric report (reference retrieval_trainer.py:216-237
@@ -152,11 +162,13 @@ class ServerEngine:
     # -- steps ---------------------------------------------------------
     def _forward(self, state: EngineState, images, captions, lengths,
                  bert_mask) -> Dict[str, torch.Tensor]:
+        """``lengths`` stay where they are: the GRU branch packs on the
+        host, the BERT branch reads the mask."""
         dev = self.device
         return state.model(
             torch.as_tensor(images, dtype=torch.float32, device=dev),
             torch.as_tensor(captions, dtype=torch.long, device=dev),
-            torch.as_tensor(lengths, device=dev),
+            torch.as_tensor(lengths),
             None if bert_mask is None else torch.as_tensor(bert_mask,
                                                            device=dev))
 
@@ -204,16 +216,19 @@ class ServerEngine:
                      bert_mask, aggregated: Dict[str, torch.Tensor],
                      rows, use_img: bool, use_txt: bool, use_mm: bool,
                      kd_weight: float) -> Tuple[EngineState, torch.Tensor]:
-        """``aggregated``: {'img': [N, d], 'txt': [N, d]} con_w ensembles;
-        ``rows`` [B] indexes this batch's targets."""
+        """``aggregated``: {'img': [N, d], 'txt': [N, d]} con_w ensembles
+        (a modality no term reads may be None); ``rows`` [B] indexes this
+        batch's targets."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         out = self._forward(state, images, captions, lengths, bert_mask)
         img_f = out["image_features"].float()
         txt_f = out["caption_features"].float()
         rows = torch.as_tensor(rows, dtype=torch.long, device=self.device)
-        t_img = aggregated["img"].index_select(0, rows)
-        t_txt = aggregated["txt"].index_select(0, rows)
+        t_img = (aggregated["img"].index_select(0, rows)
+                 if use_img or use_mm else None)
+        t_txt = (aggregated["txt"].index_select(0, rows)
+                 if use_txt or use_mm else None)
         terms = []
         if use_img:
             terms.append((img_f, t_img))

@@ -3,6 +3,7 @@ learnable criterion, that criterion."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -20,3 +21,16 @@ class EngineState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     criterion: Optional[torch.nn.Module] = None
+
+
+def frozen_copy(model: torch.nn.Module) -> torch.nn.Module:
+    """A frozen copy of ``model`` in eval mode: the pre-round model of the
+    clients' intra term (the reference deep-copies the model at round
+    start, ClientTrainer.py:195). RNN weights are re-packed into one buffer
+    after the copy, as cuDNN wants them."""
+    old = copy.deepcopy(model).eval()
+    old.requires_grad_(False)
+    for m in old.modules():
+        if isinstance(m, torch.nn.RNNBase):
+            m.flatten_parameters()
+    return old

@@ -1,0 +1,261 @@
+"""CLI entry of the PyTorch/CUDA port (reference `src/main.py`).
+
+Port of the JAX package's ``main.py``: the same flag surface
+(``add_args``), ``build_configs``, ``build_datasets`` and ``run``. Runs on
+the card (``--device N`` picks it) unless ``--no-cuda`` asks for the CPU;
+without a card and without ``--no-cuda`` it raises. Only the synthetic
+datasets are ported (``--synthetic``, at the default scale or ``--smoke``);
+the real-data readers and ``--paper_scale`` raise, as do the options
+``federation.rounds.MMFL`` does not have yet.
+
+One round on the card, the paper's flags, sequential clients:
+  python -m creamfl_tpu_torch.main --synthetic --comm_rounds 1 \
+      --local_epochs 1 --num_img_clients 1 --num_txt_clients 1 \
+      --num_mm_clients 1 --client_num_per_round 3 --no_client_parallel \
+      --img_model_local resnet18 --agg_method con_w \
+      --contrast_local_inter --contrast_local_intra
+
+The same on the CPU at small shapes: add ``--no-cuda --smoke``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+
+
+def add_args(parser: argparse.ArgumentParser) -> None:
+    # -- reference flag surface (src/main.py:38-106) -------------------
+    parser.add_argument('--name', type=str, default='Test',
+                        help='The name for different experimental runs.')
+    parser.add_argument('--exp_dir', type=str, default='./experiments/',
+                        help='Locations to save different experimental runs.')
+    parser.add_argument('--local_epochs', type=int, default=5)
+    parser.add_argument('--comm_rounds', type=int, default=30)
+    parser.add_argument('--model', type=str, default='resnet34',
+                        help='Target model name')
+    parser.add_argument('--img_model_local', type=str, default='resnet10')
+    parser.add_argument('--pretrained', type=int, default=0)
+    parser.add_argument('--no-cuda', action='store_true', default=False,
+                        help='run on the CPU instead of the card')
+    parser.add_argument('--seed', type=int,
+                        default=random.randint(0, 100000))
+    parser.add_argument('--device', type=int, default=0,
+                        help='CUDA ordinal of the card to run on')
+    parser.add_argument('--num_img_clients', type=int, default=10)
+    parser.add_argument('--num_txt_clients', type=int, default=10)
+    parser.add_argument('--num_mm_clients', type=int, default=15)
+    parser.add_argument('--client_num_per_round', type=int, default=10)
+    parser.add_argument('--dataset', type=str, default='cifar100',
+                        choices=['svhn', 'cifar10', 'cifar100'])
+    parser.add_argument('--data_root', type=str,
+                        default=os.environ.get('HOME', '.') + "/data/")
+    parser.add_argument('--batch_size', type=int, default=64)
+    parser.add_argument('--alpha', type=float, default=0.5)
+    parser.add_argument('--server_lr', type=float, default=0.0002)
+    parser.add_argument('--lr', type=float, default=0.1)
+    parser.add_argument('--loss', type=str, default='l1',
+                        choices=['l1', 'kl', 'l1softmax'])
+    parser.add_argument('--scheduler', type=str, default='multistep',
+                        choices=['multistep', 'cosine', 'exponential',
+                                 'none'])
+    parser.add_argument('--steps', nargs='+',
+                        default=[0.05, 0.15, 0.3, 0.5, 0.75], type=float)
+    parser.add_argument('--scale', type=float, default=0.1)
+    parser.add_argument('--weight_decay', type=float, default=5e-4)
+    parser.add_argument('--momentum', type=float, default=0.9)
+    parser.add_argument('--log_interval', type=int, default=10)
+    parser.add_argument('--save_interval', type=int, default=10)
+    parser.add_argument('--disable_distill', action="store_true",
+                        default=False)
+    parser.add_argument('--agg_method', type=str, default='con_w')
+    parser.add_argument('--contrast_local_intra', action="store_true",
+                        default=False)
+    parser.add_argument('--contrast_local_inter', action="store_true",
+                        default=False)
+    parser.add_argument('--mlp_local', action="store_true", default=False)
+    parser.add_argument('--kd_weight', type=float, default=0.3)
+    parser.add_argument('--interintra_weight', type=float, default=0.5)
+    parser.add_argument('--loss_scale', action='store_true', default=False)
+    parser.add_argument('--save_client', action='store_true',
+                        default=False)
+    parser.add_argument('--data_local', action='store_true', default=False)
+    parser.add_argument('--pub_data_num', type=int, default=50000)
+    parser.add_argument('--feature_dim', type=int, default=256)
+    parser.add_argument('--not_bert', action='store_true', default=False)
+
+    # -- the JAX package's extensions (same names and defaults) -------
+    parser.add_argument('--synthetic', action='store_true', default=False,
+                        help='use synthetic datasets (no real data needed)')
+    parser.add_argument('--smoke', action='store_true', default=False,
+                        help='tiny shapes: small models/images/public set')
+    parser.add_argument('--paper_scale', action='store_true',
+                        default=False,
+                        help='full paper geometry on synthetic data: '
+                             '50k public set @224px, R101+BERT, 25k-'
+                             'caption retrieval eval (pre-rendered '
+                             'into RAM)')
+    parser.add_argument('--coco_root', type=str, default=None)
+    parser.add_argument('--cifar_root', type=str, default=None)
+    parser.add_argument('--agnews_root', type=str, default=None)
+    parser.add_argument('--f30k_root', type=str, default=None)
+    parser.add_argument('--vocab_path', type=str, default=None)
+    parser.add_argument('--bert_vocab', type=str, default=None)
+    parser.add_argument('--wandb', action='store_true', default=False)
+    parser.add_argument('--ckpt_dir', type=str, default=None,
+                        help='round-checkpoint directory (enables resume)')
+    parser.add_argument('--no_client_parallel', dest='client_parallel',
+                        action='store_false', default=True,
+                        help='disable stacked client-parallel execution')
+    parser.add_argument('--no_mesh', dest='use_mesh',
+                        action='store_false', default=True,
+                        help='disable the multi-device mesh (single-'
+                             'device execution even on a slice)')
+    parser.add_argument('--mesh_devices', type=int, default=0,
+                        help='cap the mesh to the first N devices '
+                             '(0 = all)')
+    parser.add_argument('--stack_bucket', type=str, default='even',
+                        choices=['none', 'even', 'pow2'],
+                        help='single-device family-stack padding policy:'
+                             ' bucket sampled family sizes to stable '
+                             'shapes so rounds reuse compiled programs '
+                             '(pad slots are masked)')
+    parser.add_argument('--coco_subset_idx', type=str, default=None,
+                        help='frozen public-subset index file (default: '
+                             'the packaged reference artifact)')
+    parser.add_argument('--resnet_ckpt', type=str, default=None,
+                        help='torchvision ResNet state_dict (.pth) for the '
+                             'server image trunk')
+    parser.add_argument('--bert_ckpt', type=str, default=None,
+                        help='HF bert-base-uncased state_dict (.pth/.bin)')
+    parser.add_argument('--glove_path', type=str, default=None,
+                        help='GloVe text vectors for GRU text encoders')
+    parser.add_argument('--client_resnet_ckpt', type=str, default=None,
+                        help='torchvision resnet state_dict for image '
+                             'client trunks')
+    parser.add_argument('--data_backend', type=str, default='array',
+                        choices=['array', 'grain'],
+                        help='host input pipeline backend')
+    parser.add_argument('--num_workers', type=int, default=0,
+                        help='grain worker processes for the input '
+                             'pipeline')
+    parser.add_argument('--client_bf16', action='store_true',
+                        default=False,
+                        help='bf16 conv compute for image client trunks')
+    parser.add_argument('--coco_client', type=int, default=-1,
+                        help='per-client COCO shard index '
+                             '(load_datasets.py client>-1 path)')
+    parser.add_argument('--resume', action='store_true', default=False,
+                        help='resume from the latest round checkpoint')
+    parser.add_argument('--cosine_t_max', type=int, default=0,
+                        help='override the cosine schedule T_max '
+                             '(0 = yaml value, 30, like the reference)')
+
+
+def build_configs(args):
+    """Server and mm-client configs with the reference's runtime overrides
+    (MMFL.py:81-88,157-163), and the server's BERT config."""
+    from creamfl_tpu_torch.config import default_config_path, parse_config
+    from creamfl_tpu_torch.models.bert import BertConfig
+
+    server = parse_config(default_config_path("coco.json"),
+                          strict_cast=False)
+    server.model.embed_dim = args.feature_dim
+    server.model.not_bert = bool(args.not_bert)
+    server.model.cnn_type = ('resnet50' if args.not_bert else 'resnet101')
+    server.optimizer.learning_rate = args.server_lr
+    # Reference parity: the config's T_max (30) is kept whatever
+    # --comm_rounds says; --cosine_t_max overrides it.
+    if getattr(args, 'cosine_t_max', 0):
+        server.lr_scheduler.T_max = args.cosine_t_max
+
+    mm = parse_config(default_config_path("f30k.json"), strict_cast=False)
+    mm.model.embed_dim = args.feature_dim
+    mm.model.not_bert = True
+    if getattr(args, 'cosine_t_max', 0):
+        mm.lr_scheduler.T_max = args.cosine_t_max
+
+    bert_config = BertConfig()
+    if args.smoke:
+        server.model.cnn_type = 'resnet10'
+        mm.model.cnn_type = 'resnet10'
+        server.model.word_dim = 32
+        mm.model.word_dim = 32
+        bert_config = BertConfig.tiny()
+    return server, mm, bert_config
+
+
+def build_datasets(args):
+    """The synthetic bundle at ``--smoke`` or the default scale (the JAX
+    package's scales, `creamfl_tpu/main.py:205-230`)."""
+    from creamfl_tpu_torch.data import pipelines
+    from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
+
+    if not args.synthetic:
+        raise NotImplementedError(
+            "the real-data readers are not ported yet (ROADMAP queue 1, "
+            "real-data readers); pass --synthetic")
+    if getattr(args, "paper_scale", False):
+        raise NotImplementedError(
+            "--paper_scale (on-device image synthesis) is not ported yet "
+            "(ROADMAP queue 1 item 3)")
+    bert_tok = (None if args.not_bert
+                else BertWordPieceTokenizer.synthetic())
+    if args.smoke:
+        scale = dict(pub_size=128, image_size=64, max_len=12,
+                     client_data_size=64, test_size=32,
+                     retrieval_test_size=60)
+    else:
+        scale = dict(pub_size=min(args.pub_data_num, 2048),
+                     image_size=224, max_len=32, client_data_size=512,
+                     test_size=256, retrieval_test_size=500,
+                     pub_batch_size=128, pub_eval_batch_size=256)
+    return pipelines.build_synthetic_datasets(args,
+                                              bert_tokenizer=bert_tok,
+                                              **scale)
+
+
+def run(args):
+    """One federated run; returns the ``MMFL`` it drove."""
+    from creamfl_tpu_torch.federation.rounds import MMFL
+    from creamfl_tpu_torch.utils.device import resolve_device
+    from creamfl_tpu_torch.utils.helper import set_seed
+    from creamfl_tpu_torch.utils.logging import PythonLogger, get_tracker
+
+    device = resolve_device("cpu" if args.no_cuda else f"cuda:{args.device}")
+    # Seed the global python/numpy/torch generators like the reference
+    # (main.py:122 -> helper.set_seed).
+    set_seed(args.seed)
+    os.makedirs(args.exp_dir, exist_ok=True)
+    logger = PythonLogger(output_file=os.path.join(args.exp_dir,
+                                                   f"{args.name}.log"))
+    tracker = get_tracker(args.name, enabled=args.wandb)
+    server_cfg, mm_cfg, bert_cfg = build_configs(args)
+    datasets = build_datasets(args)
+
+    algo = MMFL(args, datasets, server_cfg, mm_cfg, tracker=tracker,
+                logger=logger, bert_config=bert_cfg, device=device)
+    for round_n in range(args.comm_rounds):
+        algo.train(round_n)
+    logger.log("Best:")
+    if algo.best_scores is not None:
+        logger.log_dict({
+            "best_epoch": algo.best_metadata["best_epoch"],
+            "best_rsum_r1": algo.best_metadata["best_score"],
+        })
+    return algo
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description='Federated Learning')
+    add_args(parser)
+    return parser.parse_args(argv)
+
+
+def cli() -> None:
+    run(parse_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -6,7 +6,8 @@ tensors under torchvision's key names. Conv kernels HWIO -> OIHW, Dense
 kernels [in, out] -> Linear weights [out, in], BatchNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var, LayerNorm
 scale/bias -> weight/bias, Embed tables as they are. BERT takes
-HuggingFace's names (the inverse of the JAX package's ``hf_bert_to_flax``).
+HuggingFace's names (the inverse of the JAX package's ``hf_bert_to_flax``),
+the BiGRU ``torch.nn.GRU``'s (``weight_ih_l0``, ``*_l0_reverse``).
 """
 
 from __future__ import annotations
@@ -150,11 +151,49 @@ def flax_bert_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def flax_bigru_to_torch(params: Mapping, prefix: str = ""
+                        ) -> Dict[str, torch.Tensor]:
+    """BiGRU (Flax: ``{fwd,bwd}_{wi,bi,wh,bh}``, kernels [in, 3H]) ->
+    ``models.gru.BiGRU`` (``torch.nn.GRU``) keys under ``prefix``. Both
+    keep the gates in torch's (r, z, n) order."""
+    sd: Dict[str, torch.Tensor] = {}
+    for flax_dir, suffix in (("fwd", "l0"), ("bwd", "l0_reverse")):
+        for flax_w, torch_w in (("wi", "ih"), ("wh", "hh")):
+            sd[f"{prefix}weight_{torch_w}_{suffix}"] = _t(
+                np.asarray(params[f"{flax_dir}_{flax_w}"]).T)
+        for flax_b, torch_b in (("bi", "ih"), ("bh", "hh")):
+            sd[f"{prefix}bias_{torch_b}_{suffix}"] = _t(
+                params[f"{flax_dir}_{flax_b}"])
+    return sd
+
+
+def _text_gru_branch(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """embed + rnn + pie_net, shared by TextEncoderGRU and TextClientNet."""
+    sd = {f"{prefix}embed.weight": _t(params["embed"]["embedding"])}
+    sd.update(flax_bigru_to_torch(params["rnn"], f"{prefix}rnn."))
+    sd.update(flax_pie_to_torch(params["pie_net"], f"{prefix}pie_net."))
+    return sd
+
+
+def flax_text_client_to_torch(params: Mapping, batch_stats: Mapping
+                              ) -> Dict[str, torch.Tensor]:
+    """TextClientNet (Flax) -> ``state_dict`` of the port's
+    ``models.clients.TextClientNet``, with ``head_proj`` (--mlp_local)
+    where the tree has it."""
+    sd = _text_gru_branch(params, "")
+    for head in ("class_fc", "class_fc_2"):
+        _linear(sd, head, params[head])
+    if "head_proj" in params:
+        _mlp_head(sd, "head_proj", params["head_proj"],
+                  batch_stats["head_proj"])
+    return sd
+
+
 def flax_pcme_to_torch(params: Mapping, batch_stats: Mapping
                        ) -> Dict[str, torch.Tensor]:
-    """PCME (Flax, BERT text branch) params + batch_stats -> ``state_dict``
-    of the port's ``models.pcme.PCME``. Standard and fused trunks share
-    their trees, so this serves both."""
+    """PCME (Flax, BERT or GRU text branch) params + batch_stats ->
+    ``state_dict`` of the port's ``models.pcme.PCME``. Standard and fused
+    trunks share their trees, so this serves both."""
     img, img_stats = params["img_enc"], batch_stats.get("img_enc", {})
     sd = {f"img_enc.cnn.{k}": v for k, v in flax_resnet_to_torch(
         img["cnn"], img_stats["cnn"]).items()}
@@ -164,6 +203,12 @@ def flax_pcme_to_torch(params: Mapping, batch_stats: Mapping
         _mlp_head(sd, "img_enc.head_proj", img["head_proj"],
                   img_stats["head_proj"])
     txt = params["txt_enc"]
+    if "bert" not in txt:
+        sd.update(_text_gru_branch(txt, "txt_enc."))
+        if "head_proj" in txt:
+            _mlp_head(sd, "txt_enc.head_proj", txt["head_proj"],
+                      batch_stats["txt_enc"]["head_proj"])
+        return sd
     sd.update({f"txt_enc.bert.{k}": v
                for k, v in flax_bert_to_torch(txt["bert"]).items()})
     _linear(sd, "txt_enc.linear", txt["linear"])
@@ -172,10 +217,10 @@ def flax_pcme_to_torch(params: Mapping, batch_stats: Mapping
 
 def flax_server_state_to_torch(params: Mapping, batch_stats: Mapping
                                ) -> Dict[str, torch.Tensor]:
-    """The JAX server engine's ``{'model', 'criterion'}`` params and its
-    batch_stats -> the ``model.*`` / ``criterion.*`` state dict that the
-    port's ``ServerEngine.init_state`` takes (criterion: ``shift`` and
-    ``negative_scale``, [1] each)."""
+    """The JAX server's (or mm client's) ``{'model', 'criterion'}`` params
+    and its batch_stats -> the ``model.*`` / ``criterion.*`` state dict that
+    the port's ``ServerEngine.init_state`` and ``MMClientEngine.init_state``
+    take (criterion: ``shift`` and ``negative_scale``, [1] each)."""
     sd = {f"model.{k}": v for k, v in flax_pcme_to_torch(
         params["model"], batch_stats).items()}
     for name, val in params["criterion"].items():

@@ -6,12 +6,15 @@ Port of the JAX package's ``models/pcme.py`` (reference
 * image branch: ResNet trunk -> NHWC grid, cast to fp32; global average
   pool -> fc (xavier) -> PIENet over the grid tokens -> optional MLPHead
   -> L2 norm;
-* text branch: BERT CLS -> fp32 -> linear -> L2 norm.
+* text branch: BERT CLS -> fp32 -> linear -> L2 norm (the server), or
+  (``not_bert=True``: the mm clients, and the server under ``--not_bert``)
+  word embedding -> masked BiGRU -> PIENet over the word embeddings -> L2
+  norm, with ``--mlp_local``'s head after the norm.
 
 ``dtype=torch.bfloat16`` runs the trunk and BERT under ``torch.autocast``
-(bf16 matmuls and convolutions, fp32 params); heads, PIE and everything
-after them stay fp32, as in the JAX package. ``fused_bn`` is passed to the
-trunk. The GRU text branch (``not_bert=True``) is not ported yet.
+(bf16 matmuls and convolutions, fp32 params); heads, PIE, the GRU branch
+and everything after them stay fp32, as in the JAX package. ``fused_bn``
+is passed to the trunk.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from creamfl_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
+from creamfl_tpu_torch.models.gru import BiGRU, init_gru
 from creamfl_tpu_torch.models.pie import PIENet, init_pie
 from creamfl_tpu_torch.models.resnet import (BatchNorm, ResNetBackbone,
                                              global_avg_pool, init_parameters,
@@ -79,6 +83,41 @@ class ImageEncoder(nn.Module):
                 "residual": residual}
 
 
+def gru_pie_forward(module: nn.Module, captions: torch.Tensor,
+                    lengths: torch.Tensor):
+    """The GRU text branch shared by ``TextEncoderGRU`` and the text
+    client: ``module.embed`` -> ``module.rnn`` (BiGRU) -> ``module.pie_net``
+    over the word embeddings with the pads masked. Returns PIENet's (out,
+    attention, residual)."""
+    wemb = module.embed(captions)
+    _, final = module.rnn(wemb, lengths)
+    steps = torch.arange(captions.shape[1], device=captions.device)
+    pad_mask = steps[None, :] >= lengths.to(captions.device)[:, None]
+    return module.pie_net(final, wemb, pad_mask)
+
+
+class TextEncoderGRU(nn.Module):
+    """Word embedding + masked BiGRU + PIE over the word embeddings (the
+    JAX package's ``TextEncoderGRU``). The reference applies ``mlp_local``'s
+    head after the L2 norm (caption_encoder.py:109-113); so does this."""
+
+    def __init__(self, vocab_size: int, embed_dim: int = 256,
+                 word_dim: int = 300, mlp_local: bool = False):
+        super().__init__()
+        self.embed = nn.Embedding(vocab_size, word_dim)
+        self.rnn = BiGRU(word_dim, embed_dim // 2)
+        self.pie_net = PIENet(1, word_dim, embed_dim, word_dim // 2)
+        self.head_proj = MLPHead(embed_dim) if mlp_local else None
+
+    def forward(self, captions: torch.Tensor, lengths: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        out, attn, residual = gru_pie_forward(self, captions, lengths)
+        out = l2_normalize(out)
+        if self.head_proj is not None:
+            out = self.head_proj(out)
+        return {"embedding": out, "attention": attn, "residual": residual}
+
+
 class TextEncoderBert(nn.Module):
     """BERT CLS -> linear -> L2 norm (server text branch)."""
 
@@ -101,9 +140,8 @@ class TextEncoderBert(nn.Module):
 class PCME(nn.Module):
     """Joint embedding model; forward returns the reference's output dict.
 
-    Fields mirror the JAX package's ``PCME``. ``not_bert=True`` (the GRU
-    text branch of the mm clients) raises until that slice is ported.
-    """
+    Fields mirror the JAX package's ``PCME``; ``not_bert=True`` takes the
+    GRU text branch (``word_dim`` wide embeddings)."""
 
     def __init__(self, embed_dim: int = 256, cnn_type: str = "resnet18",
                  vocab_size: int = 11755, word_dim: int = 300,
@@ -111,52 +149,70 @@ class PCME(nn.Module):
                  bert_config: BertConfig = BertConfig(),
                  dtype: torch.dtype = torch.float32, fused_bn: bool = False):
         super().__init__()
-        if not_bert:
-            raise NotImplementedError(
-                "PCME(not_bert=True): the GRU text branch is not ported yet")
         self.not_bert = not_bert
         self.bert_config = bert_config
         self.img_enc = ImageEncoder(cnn_type, embed_dim, mlp_local,
                                     dtype=dtype, fused_bn=fused_bn)
-        self.txt_enc = TextEncoderBert(embed_dim, bert_config, dtype=dtype)
+        if not_bert:
+            self.txt_enc = TextEncoderGRU(vocab_size, embed_dim, word_dim,
+                                          mlp_local)
+        else:
+            self.txt_enc = TextEncoderBert(embed_dim, bert_config,
+                                           dtype=dtype)
 
     def forward(self, images: torch.Tensor, captions: torch.Tensor,
                 lengths: torch.Tensor,
                 bert_mask: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         image_output = self.img_enc(images)
-        if bert_mask is None:
-            bert_mask = _length_mask(captions, lengths)
-        caption_output = self.txt_enc(captions, bert_mask)
+        caption_output = self.text_forward(captions, lengths, bert_mask)
         return {
             "image_features": image_output["embedding"],
             "image_attentions": image_output["attention"],
             "image_residuals": image_output["residual"],
             "caption_features": caption_output["embedding"],
-            "caption_attentions": None,
-            "caption_residuals": None,
+            "caption_attentions": caption_output.get("attention"),
+            "caption_residuals": caption_output.get("residual"),
         }
 
     def image_forward(self, images: torch.Tensor):
         return self.img_enc(images)
 
-    def text_forward(self, captions: torch.Tensor, lengths: torch.Tensor):
-        return self.txt_enc(captions, _length_mask(captions, lengths))
+    def text_forward(self, captions: torch.Tensor, lengths: torch.Tensor,
+                     bert_mask: Optional[torch.Tensor] = None):
+        if self.not_bert:
+            return self.txt_enc(captions, lengths)
+        if bert_mask is None:
+            bert_mask = _length_mask(captions, lengths)
+        return self.txt_enc(captions, bert_mask)
 
 
 def _length_mask(captions: torch.Tensor, lengths: torch.Tensor
                  ) -> torch.Tensor:
     steps = torch.arange(captions.shape[1], device=captions.device)
-    return (steps[None, :] < lengths[:, None]).to(torch.int32)
+    return (steps[None, :] < lengths.to(captions.device)[:, None]).to(
+        torch.int32)
 
 
 def init_pcme(model: PCME, generator: torch.Generator) -> None:
     """Seeded init: torchvision's for the trunk, xavier-uniform for the
-    image fc and PIE (zero biases), HF BERT's for the text encoder, torch's
-    default for the remaining linear heads."""
+    image fc and PIE (zero biases), HF BERT's for the BERT text encoder;
+    xavier-uniform embeddings and torch's GRU init for the GRU branch;
+    torch's default for the remaining linear heads."""
     init_parameters(model, generator)
     img = model.img_enc
     nn.init.xavier_uniform_(img.fc.weight, generator=generator)
     nn.init.zeros_(img.fc.bias)
     init_pie(img.pie_net, generator)
-    init_bert(model.txt_enc.bert, generator)
+    if model.not_bert:
+        init_text_gru(model.txt_enc, generator)
+    else:
+        init_bert(model.txt_enc.bert, generator)
+
+
+def init_text_gru(module: nn.Module, generator: torch.Generator) -> None:
+    """The GRU text branch's own init (the JAX package's initializers):
+    xavier-uniform embedding, U(-1/sqrt(H), 1/sqrt(H)) GRU, PIE's."""
+    nn.init.xavier_uniform_(module.embed.weight, generator=generator)
+    init_gru(module.rnn, generator)
+    init_pie(module.pie_net, generator)

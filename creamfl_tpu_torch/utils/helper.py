@@ -1,0 +1,54 @@
+"""Experiment helpers (reference `src/utils/helper.py`).
+
+Port of the JAX package's ``utils/helper.py`` (``set_seed``,
+``get_save_dirs``), with the server checkpoint that ``MMFL._save`` writes.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def set_seed(seed: int) -> None:
+    """Seed Python's, NumPy's and torch's global generators (the reference's
+    Helper.set_seed); torch's seeds every device's default generator."""
+    random.seed(seed)
+    np.random.seed(seed % (2 ** 32))
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def get_save_dirs(exp_dir: str, name: str) -> Dict[str, str]:
+    """Experiment directory tree (reference helper.py:96-109)."""
+    base = os.path.join(exp_dir, name)
+    dirs = {
+        "base": base,
+        "logs": os.path.join(base, "logs"),
+        "checkpoints": os.path.join(base, "checkpoints"),
+        "results": os.path.join(base, "results"),
+    }
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    return dirs
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> str:
+    """``torch.save`` of ``payload`` (state dicts and plain values) with
+    every tensor copied to the host; returns ``path``. The JAX package's
+    pickle format and round checkpoints come with ``--resume``."""
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(host(payload), path)
+    return path

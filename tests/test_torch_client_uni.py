@@ -193,8 +193,12 @@ def test_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             UniClientEngine("img", num_class=C, args=ARGS)
-    with pytest.raises(NotImplementedError):
-        UniClientEngine("txt", num_class=C, args=ARGS, device="cpu")
+    # Text clients are ported (tests/test_torch_client_text.py); a modality
+    # the JAX engine does not have is refused.
+    assert UniClientEngine("txt", num_class=C, args=ARGS, vocab_size=20,
+                           device="cpu").modality == "txt"
+    with pytest.raises(ValueError):
+        UniClientEngine("audio", num_class=C, args=ARGS, device="cpu")
 
 
 def test_round_schedule_matches_jax():

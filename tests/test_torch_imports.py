@@ -3,14 +3,22 @@
 A fresh interpreter imports every module of ``creamfl_tpu_torch`` (and
 ``chip_smoke``) and lists what got loaded. ``creamfl_tpu_torch`` itself
 starts with ``creamfl_tpu``, so the check matches the JAX package by its
-exact name or its ``creamfl_tpu.`` prefix, not by a plain prefix. PyYAML
-and ``transformers`` are not loaded either: the GPU machine lacks both.
+exact name or its ``creamfl_tpu.`` prefix, not by a plain prefix. PyYAML,
+``transformers``, ``grain`` and PIL are not loaded either: the GPU machine
+lacks them. The walk finds new modules by itself.
+
+The port's entry points run on the card unless the caller asks for the
+CPU: without a card, ``MMFL``, the text and mm client engines and the
+CLI's ``run`` raise unless given ``device="cpu"`` / ``--no-cuda``.
 """
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,7 +37,7 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
 def _is_forbidden(name: str) -> bool:
     root = name.split(".")[0]
     return (root in ("jax", "jaxlib", "flax", "optax", "chex", "yaml",
-                     "transformers")
+                     "transformers", "grain", "PIL")
             or root.startswith("jax_") or root == "creamfl_tpu")
 
 
@@ -39,7 +47,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout
     result = json.loads(out.strip().splitlines()[-1])
-    assert len(result["imported"]) >= 20, result["imported"]
+    assert len(result["imported"]) >= 45, result["imported"]
+    for name in ("creamfl_tpu_torch.main", "creamfl_tpu_torch.data.pipelines",
+                 "creamfl_tpu_torch.federation.rounds",
+                 "creamfl_tpu_torch.engine.evaluator"):
+        assert name in result["imported"], name
     bad = [m for m in result["loaded"] if _is_forbidden(m)]
     assert not bad, bad
 
@@ -49,5 +61,64 @@ def test_forbidden_name_check():
     assert _is_forbidden("creamfl_tpu.ops.gallery")
     assert _is_forbidden("jax.numpy") and _is_forbidden("flax.linen")
     assert _is_forbidden("yaml") and _is_forbidden("transformers.models")
+    assert _is_forbidden("grain.python") and _is_forbidden("PIL.Image")
     assert not _is_forbidden("creamfl_tpu_torch")
     assert not _is_forbidden("creamfl_tpu_torch.ops.gallery")
+
+
+def _no_card_args():
+    import types
+
+    return types.SimpleNamespace(
+        feature_dim=8, mlp_local=False, img_model_local="resnet6",
+        interintra_weight=0.5, loss_scale=False, client_parallel=False,
+        kd_weight=0.3, num_img_clients=0, num_txt_clients=0,
+        num_mm_clients=0, seed=0)
+
+
+def test_round_entry_points_need_a_card_or_the_cpu_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    from creamfl_tpu_torch import main
+    from creamfl_tpu_torch.config import default_config_path, parse_config
+    from creamfl_tpu_torch.engine.client_mm import MMClientEngine
+    from creamfl_tpu_torch.engine.client_uni import UniClientEngine
+    from creamfl_tpu_torch.federation.rounds import MMFL
+    from creamfl_tpu_torch.models.bert import BertConfig
+
+    args = _no_card_args()
+    f30k = parse_config(default_config_path("f30k.json"),
+                        model__embed_dim=8, model__cnn_type="resnet6")
+    coco = parse_config(default_config_path("coco.json"),
+                        model__embed_dim=8, model__cnn_type="resnet6",
+                        model__not_bert=True)
+    datasets = {"vocab": list(range(20))}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UniClientEngine("txt", 4, args, vocab_size=20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MMClientEngine(f30k, 20, args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MMFL(args, datasets, coco, f30k, bert_config=BertConfig.tiny())
+    cli = main.parse_args(["--synthetic", "--smoke", "--no_client_parallel",
+                           "--exp_dir", "unused"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main.run(cli)
+    # Asked for the CPU, they build.
+    assert UniClientEngine("txt", 4, args, vocab_size=20,
+                           device="cpu").device.type == "cpu"
+    assert MMClientEngine(f30k, 20, args, device="cpu").device.type == "cpu"
+    algo = MMFL(args, datasets, coco, f30k, bert_config=BertConfig.tiny(),
+                device="cpu")
+    assert algo.device.type == "cpu" and algo.clients == []
+    assert not os.path.exists(os.path.join(REPO, "unused"))
+
+
+def test_cli_without_synthetic_raises():
+    from creamfl_tpu_torch import main
+
+    args = main.parse_args(["--no-cuda", "--no_client_parallel"])
+    with pytest.raises(NotImplementedError, match="--synthetic"):
+        main.build_datasets(args)
+    args = main.parse_args(["--no-cuda", "--synthetic", "--paper_scale"])
+    with pytest.raises(NotImplementedError, match="paper_scale"):
+        main.build_datasets(args)

@@ -159,5 +159,12 @@ def test_pcme_gradients(data, fused):
 
 
 def test_gru_text_branch_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        PCME(embed_dim=E, cnn_type=TRUNK, not_bert=True)
+    # The GRU text branch came with the round slice (its parity with the
+    # JAX module is in tests/test_torch_gru.py): not_bert=True now builds
+    # it instead of raising, and the BERT branch is unchanged.
+    from creamfl_tpu_torch.models.pcme import TextEncoderGRU
+
+    model = PCME(embed_dim=E, cnn_type=TRUNK, not_bert=True, vocab_size=50,
+                 word_dim=12)
+    assert isinstance(model.txt_enc, TextEncoderGRU)
+    assert not hasattr(model.txt_enc, "bert")
