@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check its kernels.
 
-    python3 chip_smoke.py [--seed 0] [--probe | --round]
+    python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked]
 
 Phases (any failure exits non-zero):
 
@@ -14,7 +14,10 @@ Phases (any failure exits non-zero):
    card at the main path's shapes, an odd shape, the mlp_local width (D
    512) and bf16 features (K3), each call's route asserted, and time both
    routes, the plain version and one PyTorch call computing the same
-   function.
+   function. K3 also batched over a stacked client family (``segments``:
+   2 x 128 rows against 2048 and 3 x 128 against 50 000 gallery rows),
+   per segment against the plain version, and timed against one launch
+   per member.
 3. Hold K5 (fused BN-normalise + 1x1 conv + stats, forward) and K6 (its
    backward) against their plain versions at a ragged-M bf16 shape (the
    first call of either wgmma route, so that a hang shows at once), at
@@ -47,6 +50,14 @@ Phases (any failure exits non-zero):
    against the plain version from the uploaded reps; unit-norm global
    features; scores in [0, 100]; the StepTimer phases, the round's wall
    time, host loader time, the card's utilization and peak memory.
+7. The same round on the default, stacked client branch (``--stacked`` runs
+   the build and this step alone): two clients of each kind, all six
+   sampled, with a round checkpoint (``--ckpt_dir``). One K3 launch per
+   family and public batch (two for mm), each over 2 x 128 rows in 2
+   segments, every launch on tc; con_w against the plain version; then a
+   fresh ``MMFL`` over the same checkpoint directory resumes at round 1
+   with every restored server and client state dict equal, bit for bit,
+   to the round's.
 
 Each path runs with the launch counts zeroed just before it and read just
 after. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -310,6 +321,86 @@ def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
     errs["fused_gallery_ce"] = max(errs["fused_gallery_ce"], e_loss, e_grad)
 
 
+def check_segmented_case(tag, f, gal, labels, tau, route, segments,
+                         errs) -> None:
+    """K3 over ``segments`` equal segments of the rows of ``f`` (a stacked
+    family's members on one public batch: ``labels`` repeats each
+    segment's), one launch each way on ``route``: each segment's loss and
+    the dfeats of a weighted sum of the losses (a different gbar per
+    segment) against the plain segmented CE."""
+    from creamfl_tpu_torch.ops import gallery as P
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    weights = torch.arange(1, segments + 1, dtype=torch.float32,
+                           device=f.device) / segments
+    before = gallery_route_counts()
+    fk = f.clone().requires_grad_(True)
+    fp = f.detach().clone().requires_grad_(True)
+    loss_k = K.fused_gallery_ce(fk, gal, labels, tau, route=route,
+                                segments=segments)
+    (weights * loss_k).sum().backward()
+    loss_p = P.gallery_cross_entropy(fp, gal, labels, tau, segments=segments)
+    (weights * loss_p).sum().backward()
+    expect_routes(f"{tag} K3 x{segments}", before, {
+        "fused_gallery_ce": (route, 1), "row_logsumexp": (route, 1),
+        "softmax_matvec": (route, 1)})
+    if loss_k.shape != (segments,):
+        raise AssertionError(f"{tag}: loss shape {tuple(loss_k.shape)}")
+    errs["fused_gallery_ce"] = max(
+        errs["fused_gallery_ce"],
+        check(f"{tag} segmented loss", loss_k.detach(), loss_p.detach(),
+              TOL["ce_loss"]),
+        check(f"{tag} segmented dfeats", fk.grad, fp.grad, TOL["dfeats"]))
+
+
+def time_segmented(tag, f, gal, labels, tau, segments) -> None:
+    """K3 over ``segments`` members in one launch each way against one
+    launch per member (tc), the plain segmented CE and one library call
+    (cross_entropy per row, then the segment means), forward + backward;
+    device time of the segmented call by kernel."""
+    from creamfl_tpu_torch.ops import gallery as P
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    rows = f.shape[0] // segments
+
+    def run(fn):
+        def go():
+            x = f.detach().requires_grad_(True)
+            fn(x).sum().backward()
+        return go
+
+    one = run(lambda x: K.fused_gallery_ce(x, gal, labels, tau, route="tc",
+                                           segments=segments))
+    apart = run(lambda x: torch.stack([
+        K.fused_gallery_ce(x[i * rows:(i + 1) * rows], gal,
+                           labels[i * rows:(i + 1) * rows], tau, route="tc")
+        for i in range(segments)]))
+    plain = run(lambda x: P.gallery_cross_entropy(x, gal, labels, tau,
+                                                  segments=segments))
+    library = run(lambda x: F.cross_entropy(
+        x @ gal.T / tau, labels, reduction="none").reshape(
+            segments, -1).mean(dim=1))
+    # Both sides timed alike, in turns (one, apart, apart, one), the
+    # lesser median of each kept.
+    ms_one = cuda_time_ms(one)
+    ms_apart = cuda_time_ms(apart)
+    ms_apart = min(ms_apart, cuda_time_ms(apart))
+    ms_one = min(ms_one, cuda_time_ms(one))
+    device = device_ms_by_kernel(one)
+    device_apart = sum(device_ms_by_kernel(apart).values())
+    (m, d), n = f.shape, gal.shape[0]
+    (b32, by32), (b_tc, by_tc) = gallery_bounds(
+        4.0 * m * n * d, 4.0 * (2 * m * d + n * d) + 8.0 * m)
+    log(f"  time {tag}: K3 x{segments} one launch {ms_one:.3f} ms, "
+        f"{segments} launches {ms_apart:.3f} ms (device {device_apart:.4f} "
+        f"ms), plain "
+        f"{cuda_time_ms(plain):.3f} ms, library {cuda_time_ms(library):.3f} "
+        f"ms (device {sum(device_ms_by_kernel(library).values()):.3f} ms), "
+        f"bound 3xTF32 {b_tc:.4f} ms ({by_tc}), fp32 {b32:.4f} ms ({by32}); "
+        f"device time per call {sum(device.values()):.4f} ms "
+        + json.dumps({k: round(v, 4) for k, v in device.items()}))
+
+
 def check_conw_case(tag, v, g, route, errs) -> None:
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
@@ -327,8 +418,8 @@ def check_conw_case(tag, v, g, route, errs) -> None:
 
 def probe_phase(seed: int) -> None:
     """The tc route's first calls, small and ragged, on both routes: K4 at
-    300 x 300 x 256, K1-K3 at 77 x 1001 x 48 and 70 x 333 x 512 (unit rows,
-    see ``kernel_phase``). Run in a subprocess under a time limit by
+    300 x 300 x 256, K1-K3 at 77 x 1001 x 48 and 70 x 333 x 512, K3 over 3
+    segments of 25 rows at D 48 (unit rows, see ``kernel_phase``). Run in a subprocess under a time limit by
     ``main``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
@@ -342,6 +433,12 @@ def probe_phase(seed: int) -> None:
             labels = torch.randint(0, n, (m,), generator=gen, device=dev)
             check_gallery_case(f"probe {route} {m}x{n}x{d}", f, gal, labels,
                                0.5, route, errs)
+        # K3 over 3 segments of 25 rows (a ragged row count per block).
+        gal = unit_rows(1001, 48, gen, dev)
+        labels = torch.randint(0, 1001, (25,), generator=gen, device=dev)
+        check_segmented_case(f"probe {route} 3x25x1001x48",
+                             unit_rows(75, 48, gen, dev), gal,
+                             labels.repeat(3), 0.5, route, 3, errs)
     torch.cuda.synchronize()
     log(f"[probe] ok, worst errors {json.dumps(errs)}")
 
@@ -501,6 +598,21 @@ def kernel_phase(seed: int):
                 route=route))
             log(f"  time fused_gallery_ce kernels alone (K1 + K2), {route}: "
                 f"{alone:.3f} ms")
+
+    # K3 over a stacked family: the stacked round's shape (2 members, the
+    # round's 2048-row gallery) and three members at the paper's gallery.
+    for segments, gal in ((2, unit_rows(ROUND_PUB, DIM, gen, dev)), (3, g)):
+        n, d = gal.shape
+        m = segments * PUB_BS
+        tag = f"segmented {segments}x{PUB_BS}x{n}x{d}"
+        log(f"[kernels] {tag}: M={m} in {segments} segments, tau={tau}")
+        f = unit_rows(m, d, gen, dev)
+        labels = torch.randint(0, n, (PUB_BS,), generator=gen,
+                               device=dev).repeat(segments)
+        for route in K.ROUTES:
+            check_segmented_case(f"{tag} {route}", f, gal, labels, tau, route,
+                                 segments, errs)
+        time_segmented(tag, f, gal, labels, tau, segments)
     for name in rec:
         rec[name]["max_abs_err"] = errs[name]
     log(f"[kernels] records {json.dumps(rec)}")
@@ -1123,6 +1235,15 @@ ROUND_ARGS = ("--synthetic", "--comm_rounds", "1", "--local_epochs", "1",
               "--no_client_parallel", "--img_model_local", "resnet18",
               "--agg_method", "con_w", "--contrast_local_inter",
               "--contrast_local_intra")
+# The stacked round: the same, on the default (stacked) client branch with
+# two clients of each kind, all six sampled; every family's contrast step
+# runs K3 once over 2 x PUB_BS rows in 2 segments.
+STACKED_ROUND_ARGS = ("--synthetic", "--comm_rounds", "1", "--local_epochs",
+                      "1", "--num_img_clients", "2", "--num_txt_clients", "2",
+                      "--num_mm_clients", "2", "--client_num_per_round", "6",
+                      "--img_model_local", "resnet18", "--agg_method",
+                      "con_w", "--contrast_local_inter",
+                      "--contrast_local_intra")
 ROUND_PHASES = ("server_train", "global_features", "aggregate_distill",
                 "eval")
 
@@ -1187,20 +1308,24 @@ class _Utilization:
         self.samples = [float(x) for x in out.split() if x.strip().isdigit()]
 
 
-def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda")):
+def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda"),
+                round_args=ROUND_ARGS, tag="round"):
     """One round of ``python -m creamfl_tpu_torch.main`` in this process
     (``main.run``), then its checks: the round's con_w against the plain
     version from the uploaded reps, unit-norm global features, scores in
-    [0, 100]. Prints the StepTimer phases, the clients' time, the round's
-    wall time, host loader time, the card's utilization and peak memory.
-    Returns the MMFL it drove."""
+    [0, 100]. Prints the StepTimer phases (each client family's among
+    them), the clients' time, the round's wall time, host loader time, the
+    card's utilization and peak memory. Returns the MMFL it drove."""
     import tempfile
 
     from creamfl_tpu_torch import main as port_main
     from creamfl_tpu_torch.ops.gallery import gallery_log_softmax_diag
 
+    def log(*parts):
+        print(f"[{tag}]", *parts, flush=True)
+
     with tempfile.TemporaryDirectory() as exp:
-        args = port_main.parse_args(list(ROUND_ARGS) + list(cli_extra) + [
+        args = port_main.parse_args(list(round_args) + list(cli_extra) + [
             "--seed", str(seed), "--exp_dir", exp, "--name", "chip_round"])
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1216,41 +1341,43 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda")):
     timing = algo.last_timing
     round_s = timing["round_s"]
     phases = {k: timing.get(f"{k}_s", 0.0) for k in ROUND_PHASES}
+    phases.update({k[:-2]: v for k, v in timing.items()
+                   if k.startswith("clients_") and k.endswith("_s")})
     for name, sec in phases.items():
-        log(f"[round] phase {name}: {sec:.3f} s")
-    log(f"[round] clients (the round minus those phases): "
-        f"{round_s - sum(phases.values()):.3f} s")
-    log(f"[round] round wall time: {round_s:.3f} s")
-    log(f"[round] host loader time (set-up included): {host.seconds:.3f} s")
+        log(f"phase {name}: {sec:.3f} s")
+    log(f"clients (the round minus the other phases): "
+        f"{round_s - sum(phases[k] for k in ROUND_PHASES):.3f} s")
+    log(f"round wall time: {round_s:.3f} s")
+    log(f"host loader time (set-up included): {host.seconds:.3f} s")
     if util is not None:
         mean = statistics.mean(util.samples) if util.samples else None
-        log(f"[round] card utilization over the run (nvidia-smi, "
+        log(f"card utilization over the run (nvidia-smi, "
             f"{len(util.samples)} samples at {util.ms} ms): "
             + (f"mean {mean:.1f} %" if mean is not None else "not measured"))
     if dev.type == "cuda":
-        log(f"[round] peak memory "
+        log(f"peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[round] clients trained {algo.sampled}; saved {saved}")
+    log(f"clients trained {algo.sampled}; saved {saved}")
 
     n_pub = len(algo.datasets["pub_eval"].dataset)
     dim = args.feature_dim
     for name, f in (("image", algo.global_img_feature),
                     ("text", algo.global_txt_feature)):
         if f.shape != (n_pub, dim) or not bool(torch.isfinite(f).all()):
-            raise AssertionError(f"round: bad global {name} features "
+            raise AssertionError(f"{tag}: bad global {name} features "
                                  f"{tuple(f.shape)}")
         if not bool(((f.norm(dim=1) - 1).abs() < 1e-4).all()):
-            raise AssertionError(f"round: global {name} features are not "
+            raise AssertionError(f"{tag}: global {name} features are not "
                                  f"unit rows")
     # con_w from the uploaded reps by the plain diagonal.
-    for tag, reps, other, agg in (
+    for mod, reps, other, agg in (
             ("img", algo.img_reps, algo.global_txt_feature, algo.img_vec),
             ("txt", algo.txt_reps, algo.global_img_feature, algo.txt_vec)):
         if reps is None or agg is None or reps.shape[1:] != (n_pub, dim):
-            raise AssertionError(f"round: no {tag} uploads or aggregate")
+            raise AssertionError(f"{tag}: no {mod} uploads or aggregate")
         alpha = torch.softmax(torch.stack([
             gallery_log_softmax_diag(r, other) for r in reps]), dim=0)
-        check(f"round con_w {tag} aggregate ({reps.shape[0]} uploads) vs "
+        check(f"{tag} con_w {mod} aggregate ({reps.shape[0]} uploads) vs "
               f"plain", agg, torch.einsum("kn,knd->nd", alpha, reps),
               dict(rtol=0.0, atol=1e-5))
     scores = algo.last_scores
@@ -1260,15 +1387,15 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda")):
                 for k, v in scores.get("n_fold", {}).get(t, {}).items()
                 if k.startswith("recall_")]
     if not all(0.0 <= r <= 100.0 for r in recalls):
-        raise AssertionError(f"round: recalls outside [0, 100]: {recalls}")
-    log(f"[round] scores i2t R@1 {scores['i2t']['recall_1']:.2f} t2i R@1 "
+        raise AssertionError(f"{tag}: recalls outside [0, 100]: {recalls}")
+    log(f"scores i2t R@1 {scores['i2t']['recall_1']:.2f} t2i R@1 "
         f"{scores['t2i']['recall_1']:.2f} rsum {scores['rsum']:.2f}")
     # The best model is saved when the round's R@1 sum beats 0.
     want = ["chip_round-last_model.ckpt", "chip_round.log"]
     if algo.best_scores is not None:
         want.insert(0, "chip_round-best_model.ckpt")
     if saved != want:
-        raise AssertionError(f"round: saved {saved}, not {want}")
+        raise AssertionError(f"{tag}: saved {saved}, not {want}")
     return algo
 
 
@@ -1289,48 +1416,126 @@ def run_probe(seed: int) -> None:
         raise AssertionError(f"the tc probe failed ({proc.returncode})")
 
 
-def run_round(seed: int):
+def _equal_state(a, b, name: str) -> None:
+    """Nested state dicts (tensors, numbers, lists) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b.to(a.device))):
+            raise AssertionError(f"resume: {name} differs")
+    elif isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"resume: {name} keys differ")
+        for k in a:
+            _equal_state(a[k], b[k], f"{name}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"resume: {name} lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_state(x, y, f"{name}[{i}]")
+    elif a != b:
+        raise AssertionError(f"resume: {name} {a!r} != {b!r}")
+
+
+def resume_check(algo, dev=torch.device("cuda")) -> None:
+    """A fresh ``MMFL`` over the round's arguments and checkpoint directory
+    resumes at round 1, its server and every client state dict (model,
+    criterion, optimizer, step) equal bit for bit to the round's: the
+    round's last act was to save them. Construction only, no round."""
+    from creamfl_tpu_torch import main as port_main
+    from creamfl_tpu_torch.federation.rounds import MMFL
+
+    args = algo.args
+    server_cfg, mm_cfg, bert_cfg = port_main.build_configs(args)
+    fresh = MMFL(args, port_main.build_datasets(args), server_cfg, mm_cfg,
+                 bert_config=bert_cfg, device=dev)
+    next_round = fresh.resume()
+    if next_round != 1:
+        raise AssertionError(f"resume: next round {next_round}, not 1")
+    _equal_state(algo.server_state.state_dict(),
+                 fresh.server_state.state_dict(), "server")
+    for old, new in zip(algo.clients, fresh.clients):
+        _equal_state(old.state.state_dict(), new.state.state_dict(),
+                     f"client {old.client_idx}")
+    log(f"[stacked] resume: round {next_round}, the server and "
+        f"{len(fresh.clients)} clients restored bit for bit from "
+        f"{args.ckpt_dir}")
+    del fresh
+    torch.cuda.empty_cache()
+
+
+def run_round(seed: int, stacked: bool = False):
     """``round_phase`` with the launch counts zeroed just before it and read
-    just after: K3 (with the K1 and K2 launches inside it) once per client
-    contrast step, two per mm step; K4 once per upload and modality; every
-    launch on the tc route; no K5/K6 (the standard trunk). Then, outside
-    the counted run, K1-K3 on the tc route against their plain versions on
-    the round's own global features (a public batch of caption rows against
-    the image gallery, each caption's own image its label). Returns the
-    round's launch counts."""
+    just after: K3 (with the K1 and K2 launches inside it) once per public
+    batch and client (sequential) or client family (stacked, over all its
+    members' rows in one segment each), two for mm; K4 once per upload and
+    modality; every launch on the tc route; no K5/K6 (the standard trunk).
+    Then, outside the counted run, K1-K3 on the tc route against their
+    plain versions on the round's own global features (a public batch of
+    caption rows against the image gallery, each caption's own image its
+    label; stacked: K3 over two such batches in two segments), and for the
+    stacked round the resume check. Returns the round's launch counts."""
+    import tempfile
+
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    K.reset_launch_counts()
-    FK.reset_launch_counts()
-    algo = round_phase(seed)
-    torch.cuda.synchronize()
-    counts = dict(K.launch_counts(), **FK.launch_counts())
-    log(f"[round] kernels {json.dumps(counts)} by route "
-        f"{json.dumps(gallery_route_counts())}")
-    steps = len(algo.datasets["pub_train"])  # contrast steps per client
-    per_step = {"img": 1, "txt": 1, "mm": 2}
-    k3 = steps * sum(per_step[c.kind] for c in algo.clients
-                     if c.client_idx in algo.sampled)
-    k4 = algo.img_reps.shape[0] + algo.txt_reps.shape[0]
-    want = {"fused_gallery_ce": k3, "row_logsumexp": k3,
-            "softmax_matvec": k3, "conw_diag": k4,
-            "mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}
-    if counts != want:
-        raise AssertionError(f"round: launches {counts}, not {want}")
-    for name in GALLERY_KERNELS:
-        by_route = getattr(K, name).launches_by_route
-        if by_route != {"tc": counts[name], "simt": 0}:
-            raise AssertionError(f"round: {name} took routes {by_route}, "
-                                 f"not all {counts[name]} on tc")
-    errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
-    gal = algo.global_img_feature.float()
-    check_gallery_case(
-        f"round globals {PUB_BS}x{gal.shape[0]}x{gal.shape[1]} tc",
-        algo.global_txt_feature[:PUB_BS].float(), gal,
-        torch.arange(PUB_BS, device=gal.device), 0.5, "tc", errs)
-    log(f"[round] K1-K3 on the round's global features, worst errors "
-        f"{json.dumps(errs)}")
+    tag = "stacked" if stacked else "round"
+    with tempfile.TemporaryDirectory() as ckpt:
+        K.reset_launch_counts()
+        FK.reset_launch_counts()
+        if stacked:
+            algo = round_phase(seed, ("--ckpt_dir", ckpt),
+                               round_args=STACKED_ROUND_ARGS, tag=tag)
+        else:
+            algo = round_phase(seed)
+        torch.cuda.synchronize()
+        counts = dict(K.launch_counts(), **FK.launch_counts())
+        by_rows = dict(K.fused_gallery_ce.launches_by_rows)
+        log(f"[{tag}] kernels {json.dumps(counts)} by route "
+            f"{json.dumps(gallery_route_counts())}; K3 by (rows, segments) "
+            f"{json.dumps({f'{m}x{s}': n for (m, s), n in by_rows.items()})}")
+        steps = len(algo.datasets["pub_train"])  # contrast steps per client
+        per_step = {"img": 1, "txt": 1, "mm": 2}
+        kinds = [c.kind for c in algo.clients if c.client_idx in algo.sampled]
+        families = {k: kinds.count(k) for k in kinds}
+        if stacked:
+            k3 = steps * sum(per_step[k] for k in families)
+            rows = {}
+            for k, n in families.items():
+                rows[(n * PUB_BS, n)] = (rows.get((n * PUB_BS, n), 0)
+                                         + steps * per_step[k])
+        else:
+            k3 = steps * sum(per_step[k] for k in kinds)
+            rows = {(PUB_BS, 1): k3}
+        k4 = algo.img_reps.shape[0] + algo.txt_reps.shape[0]
+        want = {"fused_gallery_ce": k3, "row_logsumexp": k3,
+                "softmax_matvec": k3, "conw_diag": k4,
+                "mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}
+        if counts != want or by_rows != rows:
+            raise AssertionError(f"{tag}: launches {counts} by rows "
+                                 f"{by_rows}, not {want} by rows {rows}")
+        for name in GALLERY_KERNELS:
+            by_route = getattr(K, name).launches_by_route
+            if by_route != {"tc": counts[name], "simt": 0}:
+                raise AssertionError(f"{tag}: {name} took routes {by_route}, "
+                                     f"not all {counts[name]} on tc")
+        errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
+        gal = algo.global_img_feature.float()
+        shape = f"{PUB_BS}x{gal.shape[0]}x{gal.shape[1]}"
+        check_gallery_case(f"{tag} globals {shape} tc",
+                           algo.global_txt_feature[:PUB_BS].float(), gal,
+                           torch.arange(PUB_BS, device=gal.device), 0.5,
+                           "tc", errs)
+        if stacked:
+            check_segmented_case(
+                f"{tag} globals 2x{shape} tc",
+                algo.global_txt_feature[:2 * PUB_BS].float(), gal,
+                torch.arange(PUB_BS, device=gal.device).repeat(2), 0.5,
+                "tc", 2, errs)
+        log(f"[{tag}] K1-K3 on the round's global features, worst errors "
+            f"{json.dumps(errs)}")
+        if stacked:
+            resume_check(algo)
     del algo
     torch.cuda.empty_cache()
     return counts
@@ -1345,6 +1550,9 @@ def main() -> int:
     parser.add_argument("--round", action="store_true",
                         help="build and run the round phase alone, then "
                         "stop without the result line")
+    parser.add_argument("--stacked", action="store_true",
+                        help="build and run the stacked round phase alone, "
+                        "then stop without the result line")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1362,12 +1570,15 @@ def main() -> int:
     if opts.round:
         run_round(opts.seed)
         return 0
+    if opts.stacked:
+        run_round(opts.seed, stacked=True)
+        return 0
     run_probe(opts.seed)
     rec = kernel_phase(opts.seed)
     rec.update(fused_kernel_phase(opts.seed))
     # Each path runs with the launch counts zeroed just before it and read
     # just after: the image-client slice (K1-K4, every launch on the tc
-    # route), the server (K5/K6), the round (K1-K4).
+    # route), the server (K5/K6), the round on each client branch (K1-K4).
     paths = {}
     K.reset_launch_counts()
     slice_phase(opts.seed)
@@ -1383,6 +1594,7 @@ def main() -> int:
     paths["server"] = server_phase(opts.seed)
     log(f"[server] kernels {json.dumps(paths['server'])}")
     paths["round"] = run_round(opts.seed)
+    paths["stacked"] = run_round(opts.seed, stacked=True)
     # Per kernel, its launches on each path that runs it, and their sum.
     by_path = {k: {p: c[k] for p, c in paths.items() if c.get(k, 0)}
                for k in KERNELS}

@@ -3,12 +3,18 @@
 // Replace the Pallas TPU kernels of creamfl_tpu/ops/pallas_gallery.py:
 //   * an lse partial pass + lse_merge_kernel <- row_logsumexp / _lse_kernel
 //     (K1); with the diagonal dot in the merge, conw_diag_pallas (K4); with
-//     the label logit and the mean in the merge (one block), the forward of
-//     fused_gallery_ce (K3);
+//     the label logit and the mean in the merge (one block per segment),
+//     the forward of fused_gallery_ce (K3);
 //   * a matvec partial pass + merge_splits_kernel <- _softmax_matvec /
 //     _softmax_matvec_kernel (K2); with the label row, gbar and 1/(tau M)
 //     in the merge, the backward of fused_gallery_ce (K3).
 // K3 is thus two launches forward and two backward, nothing between them.
+// Batched over a stacked client family (the JAX package's K3 under
+// jax.vmap over the client axis), K3's M rows are S equal segments, one per
+// member: the partial passes do not see them (a row's lse and softmax.G do
+// not depend on its segment), the CE merge writes one mean per segment and
+// the dfeats merge scales each row by its segment's gbar / (tau M / S). The
+// gallery is then read once per family batch, not once per member.
 //
 // Each partial pass has two routes, chosen per call by the host wrapper
 // (ops/gallery_kernels.py:plan_gallery_route):
@@ -753,24 +759,28 @@ __device__ __forceinline__ float warp_dot(const float* __restrict__ a,
 
 // One warp per row (rows strided over the grid): lse = max + log(sum) over
 // the splits in order. kLse: out = lse. kDiag (M == N): out = <v_i, g_i> -
-// lse (con_w's diag(log_softmax(V G^T))). kCe (one block): out = lse, and
-// loss[0] = mean over rows of lse_i - <v_i, g_{labels_i}> * inv_tau, summed
-// per warp in row order and then over the warps in order; a label outside
-// [0, N) gives NaN.
+// lse (con_w's diag(log_softmax(V G^T))). kCe (one block per segment of
+// seg_rows rows, the members of a stacked client family; one segment of M
+// rows for a single client): out = lse, and loss[b] = mean over segment
+// b's rows of lse_i - <v_i, g_{labels_i}> * inv_tau, summed per warp in row
+// order and then over the warps in order; a label outside [0, N) gives NaN.
 __global__ void lse_merge_kernel(const float* __restrict__ part_max,
                                  const float* __restrict__ part_sum, int M,
                                  int S, const float* __restrict__ v,
                                  const float* __restrict__ g, int N, int D,
                                  float inv_tau, int mode,
                                  const long long* __restrict__ labels,
-                                 float* __restrict__ out,
+                                 int seg_rows, float* __restrict__ out,
                                  float* __restrict__ loss) {
   __shared__ float warp_total[32];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool ce = mode == kCe;
+  const int row_end = ce ? (blockIdx.x + 1) * seg_rows : M;
+  const int stride = ce ? warps : gridDim.x * warps;
   float total = 0.f;
-  for (int row = blockIdx.x * warps + warp; row < M;
-       row += gridDim.x * warps) {  // uniform across the warp
+  for (int row = blockIdx.x * (ce ? seg_rows : warps) + warp; row < row_end;
+       row += stride) {  // uniform across the warp
     // The row's S partials are contiguous: each lane merges its share in
     // order, then the lanes merge in a fixed butterfly.
     const float* pm = part_max + static_cast<size_t>(row) * S;
@@ -804,21 +814,22 @@ __global__ void lse_merge_kernel(const float* __restrict__ part_max,
     if (threadIdx.x == 0) {
       float s = 0.f;
       for (int w = 0; w < warps; ++w) s += warp_total[w];
-      loss[0] = s / static_cast<float>(M);
+      loss[blockIdx.x] = s / static_cast<float>(seg_rows);
     }
   }
 }
 
 // out[i] = sum over the splits, in order, of part[k, i] (i over M x D).
 // With dfeats != 0 (K3's backward): out[row, d] = (sum - g[labels_row, d])
-// * (gbar[0] / tau_m), tau_m = tau * M, gbar read from device memory; a
-// label outside [0, N) gives NaN. out is bf16 when out_bf16, else fp32.
+// * (gbar[row / seg_rows] / tau_m), tau_m = tau * seg_rows, gbar (one per
+// segment of seg_rows rows) read from device memory; a label outside
+// [0, N) gives NaN. out is bf16 when out_bf16, else fp32.
 __global__ void merge_splits_kernel(const float* __restrict__ part, int S,
                                     int M, int D, int dfeats,
                                     const long long* __restrict__ labels,
                                     const float* __restrict__ g, int N,
                                     const float* __restrict__ gbar,
-                                    float tau_m, int out_bf16,
+                                    int seg_rows, float tau_m, int out_bf16,
                                     void* __restrict__ out) {
   const size_t n = static_cast<size_t>(M) * D;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -830,7 +841,7 @@ __global__ void merge_splits_kernel(const float* __restrict__ part, int S,
     const float gv = (label >= 0 && label < N)
                          ? g[static_cast<size_t>(label) * D + i % D]
                          : NAN;
-    s = (s - gv) * (gbar[0] / tau_m);
+    s = (s - gv) * (gbar[i / D / seg_rows] / tau_m);
   }
   if (out_bf16)
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(s);
@@ -873,12 +884,12 @@ extern "C" {
 // through [M, splits] partials part_max / part_sum, whose splits *
 // tiles_per_split must cover the route's column tiles (simt 128, tc 128
 // gallery rows), then one merge in `mode` (see lse_merge_kernel): kLse and
-// kDiag write out[M]; kCe writes out[M] = lse and loss[1], labels [M]
-// int64.
+// kDiag write out[M]; kCe writes out[M] = lse and loss[M / seg_rows], one
+// mean per segment of seg_rows rows (seg_rows divides M), labels [M] int64.
 int gallery_lse(int route, const void* v, const void* g, int M, int N, int D,
                 float inv_tau, int splits, int tiles_per_split,
                 void* part_max, void* part_sum, int mode, const void* labels,
-                void* out, void* loss, void* stream) {
+                int seg_rows, void* out, void* loss, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* vf = static_cast<const float*>(v);
   const float* gf = static_cast<const float*>(g);
@@ -915,35 +926,40 @@ int gallery_lse(int route, const void* v, const void* g, int M, int N, int D,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // kCe: one block of 32 warps (the loss sums in a fixed order).
+  // kCe: one block of 32 warps per segment (its loss sums in a fixed
+  // order).
+  if (mode == kCe && (seg_rows <= 0 || M % seg_rows != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int warps_per_block = mode == kCe ? 32 : 8;
   const int blocks =
-      mode == kCe ? 1 : (M + warps_per_block - 1) / warps_per_block;
+      mode == kCe ? M / seg_rows : (M + warps_per_block - 1) / warps_per_block;
   lse_merge_kernel<<<blocks, 32 * warps_per_block, 0, s>>>(
       pm, ps, M, splits, vf, gf, N, D, inv_tau, mode,
-      static_cast<const long long*>(labels), static_cast<float*>(out),
-      static_cast<float*>(loss));
+      static_cast<const long long*>(labels), seg_rows,
+      static_cast<float*>(out), static_cast<float*>(loss));
   return static_cast<int>(cudaGetLastError());
 }
 
 // softmax((v @ g^T) * inv_tau - lse) @ g through [splits, M, D] partials
 // `part` (splits * tiles_per_split must cover the route's tiles: simt 64,
 // tc 64 gallery rows up to D 256, else 32), then one merge: out[M, D] fp32 = the sum, or with
-// dfeats != 0 K3's dfeats (see merge_splits_kernel), bf16 when out_bf16.
+// dfeats != 0 K3's dfeats (see merge_splits_kernel; gbar one per segment
+// of seg_rows rows, tau_m = tau * seg_rows), bf16 when out_bf16.
 // Requires D <= 512; route 1 ("tc") also D % 8 == 0 and 16-byte aligned
 // v and g.
 int gallery_matvec(int route, const void* v, const void* g, const void* lse,
                    int M, int N, int D, float inv_tau, int splits,
                    int tiles_per_split, void* part, int dfeats,
-                   const void* labels, const void* gbar, float tau_m,
-                   int out_bf16, void* out, void* stream) {
+                   const void* labels, const void* gbar, int seg_rows,
+                   float tau_m, int out_bf16, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* vf = static_cast<const float*>(v);
   const float* gf = static_cast<const float*>(g);
   const float* lf = static_cast<const float*>(lse);
   float* pf = static_cast<float*>(part);
   cudaError_t err;
-  if (D > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 512 || (dfeats && (seg_rows <= 0 || M % seg_rows != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
     const int Dpad = round_up(D, gcore::kDepth);
@@ -974,7 +990,7 @@ int gallery_matvec(int route, const void* v, const void* g, const void* lse,
   merge_splits_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
                         threads, 0, s>>>(
       pf, splits, M, D, dfeats, static_cast<const long long*>(labels), gf, N,
-      static_cast<const float*>(gbar), tau_m, out_bf16, out);
+      static_cast<const float*>(gbar), seg_rows, tau_m, out_bf16, out);
   return static_cast<int>(cudaGetLastError());
 }
 

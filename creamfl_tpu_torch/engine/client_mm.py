@@ -25,9 +25,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from creamfl_tpu_torch.engine.state import EngineState, frozen_copy
+from creamfl_tpu_torch.federation.stacked import contrast_batch
 from creamfl_tpu_torch.losses.classification import cross_entropy
-from creamfl_tpu_torch.losses.contrast import (combine_inter_intra,
-                                               inter_modal_loss)
+from creamfl_tpu_torch.losses.contrast import ContrastTerms, contrast_loss
 from creamfl_tpu_torch.losses.mcsoft import (MCSoftContrastiveConfig,
                                              MCSoftCriterion)
 from creamfl_tpu_torch.models.pcme import PCME, init_pcme
@@ -136,7 +136,19 @@ class MMClientEngine:
                       do_inter: bool, do_intra: bool
                       ) -> Tuple[EngineState, torch.Tensor]:
         """globals_: {'img': [N, d], 'txt': [N, d] global features,
-        'index': [B] rows of this batch in the public set}."""
+        'index': [B] rows of this batch in the public set}.
+        ``federation.stacked.contrast_batch`` of one member, as
+        ``UniClientEngine.contrast_step``."""
+        (loss,) = contrast_batch(self, [state], [old_model], batch, globals_,
+                                 do_inter, do_intra)
+        return state, loss
+
+    def contrast_terms(self, state: EngineState, old_model: torch.nn.Module,
+                       batch: Batch, globals_: Dict[str, torch.Tensor],
+                       do_inter: bool, do_intra: bool) -> ContrastTerms:
+        """The contrast step's forward with the gradients cleared: two
+        gallery CEs (image rows against the text gallery, caption rows
+        against the image gallery) and the intra term."""
         if not (do_inter or do_intra):
             raise ValueError("contrast_step needs do_inter or do_intra")
         d_idx = torch.as_tensor(globals_["index"], dtype=torch.long,
@@ -146,7 +158,9 @@ class MMClientEngine:
         out = self._forward(state.model, batch)
         f_img = out["image_features"].float()
         f_txt = out["caption_features"].float()
-        losses = {}
+        terms = ContrastTerms(
+            inter=([(f_img, globals_["txt"]), (f_txt, globals_["img"])]
+                   if do_inter else []), index=d_idx)
         if do_intra:
             with torch.no_grad():
                 old = self._forward(old_model, batch)
@@ -158,21 +172,19 @@ class MMClientEngine:
                              (f_txt * old["caption_features"].float()
                               ).sum(-1)])
             logits = torch.stack([pos, neg], dim=1) / self.tau
-            losses["intra"] = cross_entropy(logits, torch.zeros(
+            terms.intra = cross_entropy(logits, torch.zeros(
                 logits.shape[0], dtype=torch.long, device=self.device))
-        if do_inter:
-            losses["inter"] = (
-                inter_modal_loss(f_img, globals_["txt"], d_idx, self.tau)
-                + inter_modal_loss(f_txt, globals_["img"], d_idx, self.tau))
-        if do_inter and do_intra:
-            loss = combine_inter_intra(losses["intra"], losses["inter"],
-                                       self.args.interintra_weight,
-                                       self.args.loss_scale)
-        else:
-            loss = sum(losses.values())
-        loss.backward()
+        return terms
+
+    def contrast_loss(self, terms: ContrastTerms, inter_losses
+                      ) -> torch.Tensor:
+        return contrast_loss(inter_losses, terms.intra,
+                             self.args.interintra_weight,
+                             self.args.loss_scale)
+
+    def contrast_update(self, state: EngineState) -> None:
+        """The clipped AdamP step after the contrast loss's backward."""
         self._update(state)
-        return state, loss.detach()
 
     @torch.no_grad()
     def features_step(self, state: EngineState, batch: Batch

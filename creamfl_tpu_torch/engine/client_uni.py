@@ -28,10 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from creamfl_tpu_torch.engine.state import EngineState, frozen_copy
+from creamfl_tpu_torch.federation.stacked import contrast_batch
 from creamfl_tpu_torch.losses.classification import (margin_softmax_loss,
                                                      weight_orthogonality_loss)
-from creamfl_tpu_torch.losses.contrast import (combine_inter_intra,
-                                               inter_modal_loss,
+from creamfl_tpu_torch.losses.contrast import (ContrastTerms,
+                                               contrast_loss,
                                                intra_modal_moon_loss)
 from creamfl_tpu_torch.models.clients import (ImageClientNet,
                                               TextClientNet,
@@ -164,7 +165,20 @@ class UniClientEngine:
                    'index': [B] rows of this batch in the public set}.
         The heads are not in the features-phase graph, so their grads
         stay None and SGD leaves them and their momentum untouched.
+        ``federation.stacked.contrast_batch`` of one member: the round runs
+        the same function over a whole family.
         """
+        (loss,) = contrast_batch(self, [state], [old_model], batch, globals_,
+                                 do_inter, do_intra)
+        return state, loss
+
+    def contrast_terms(self, state: EngineState, old_model: torch.nn.Module,
+                       batch: Batch, globals_: Dict[str, torch.Tensor],
+                       do_inter: bool, do_intra: bool) -> ContrastTerms:
+        """The contrast step's forward with the gradients cleared: the
+        features and the other modality's gallery for the inter CE, and
+        the intra term's operands (the frozen pre-round model's
+        features)."""
         if not (do_inter or do_intra):
             raise ValueError("contrast_step needs do_inter or do_intra")
         model, opt = state.model, state.optimizer
@@ -173,26 +187,32 @@ class UniClientEngine:
         model.train()
         opt.zero_grad(set_to_none=True)
         feats = model(*inputs, phase="features")
-        losses = {}
-        if do_inter:
-            losses["inter"] = inter_modal_loss(feats, globals_["other"],
-                                               d_idx, self.tau)
+        terms = ContrastTerms(
+            inter=[(feats, globals_["other"])] if do_inter else [],
+            index=d_idx)
         if do_intra:
             target = globals_["same"].index_select(0, d_idx)
             with torch.no_grad():
                 old_feats = old_model(*inputs, phase="features")
-            losses["intra"] = intra_modal_moon_loss(feats, target,
-                                                    old_feats, self.tau)
-        if do_inter and do_intra:
-            loss = combine_inter_intra(losses["intra"], losses["inter"],
-                                       self.args.interintra_weight,
-                                       self.args.loss_scale)
-        else:
-            loss = sum(losses.values())
-        loss.backward()
-        opt.step()
+            terms.moon = (feats, target, old_feats)
+        return terms
+
+    def contrast_loss(self, terms: ContrastTerms, inter_losses
+                      ) -> torch.Tensor:
+        """The MOON term, formed after the gallery CE as the step always
+        formed it (the features' gradient then sums its parts in the same
+        order, bit for bit), combined with the CE."""
+        intra = (None if terms.moon is None
+                 else intra_modal_moon_loss(*terms.moon, self.tau))
+        return contrast_loss(inter_losses, intra,
+                             self.args.interintra_weight,
+                             self.args.loss_scale)
+
+    @staticmethod
+    def contrast_update(state: EngineState) -> None:
+        """The SGD step after the contrast loss's backward."""
+        state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
 
     @torch.no_grad()
     def features_step(self, state: EngineState, batch: Batch

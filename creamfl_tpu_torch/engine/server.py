@@ -40,21 +40,9 @@ from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
                                              make_server_optimizer,
                                              set_learning_rate)
 from creamfl_tpu_torch.utils.device import resolve_device
+from creamfl_tpu_torch.utils.serialize import flatten_dict
 
 StateDict = Dict[str, torch.Tensor]
-
-
-def flatten_dict(d: Dict[str, Any], sep: str = "_",
-                 _parent: str = "") -> Dict[str, Any]:
-    """Flatten nested dicts: {'a': {'b': 1}} -> {'a_b': 1}."""
-    out: Dict[str, Any] = {}
-    for key, val in d.items():
-        flat_key = f"{_parent}{sep}{key}" if _parent else str(key)
-        if isinstance(val, dict):
-            out.update(flatten_dict(val, sep=sep, _parent=flat_key))
-        else:
-            out[flat_key] = val
-    return out
 
 
 class ServerEngine:

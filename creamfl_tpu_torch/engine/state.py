@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -21,6 +21,24 @@ class EngineState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     criterion: Optional[torch.nn.Module] = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The model's, criterion's (where there is one) and optimizer's
+        state dicts and the step: what a round checkpoint keeps."""
+        out = {"model": self.model.state_dict(),
+               "optimizer": self.optimizer.state_dict(), "step": self.step}
+        if self.criterion is not None:
+            out["criterion"] = self.criterion.state_dict()
+        return out
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load what ``state_dict`` gave, in place: the optimizer keeps
+        its parameters and takes the saved moments and learning rates."""
+        self.model.load_state_dict(state["model"])
+        if self.criterion is not None:
+            self.criterion.load_state_dict(state["criterion"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
 
 
 def frozen_copy(model: torch.nn.Module) -> torch.nn.Module:

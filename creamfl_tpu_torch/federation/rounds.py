@@ -1,8 +1,7 @@
-"""Federated orchestration: the CreamFL round loop, sequential clients.
+"""Federated orchestration: the CreamFL round loop.
 
 Port of the JAX package's ``federation/rounds.py`` (``MMFL``; reference
-`src/algorithms/MMFL.py`), its sequential client branch
-(``--no_client_parallel``). Per round (``MMFL.train``):
+`src/algorithms/MMFL.py`) on one device. Per round (``MMFL.train``):
 
   1. the server trains one epoch on the public set;
   2. global image/text features are extracted over the public eval loader
@@ -13,18 +12,25 @@ Port of the JAX package's ``federation/rounds.py`` (``MMFL``; reference
      public-set representations;
   4. con_w weighs the uploads (the con_w diagonal kernel);
   5. the server distils (MSE) against the aggregates;
-  6. retrieval eval, the best and last server models saved.
+  6. retrieval eval, the best and last server models saved, and with
+     ``--ckpt_dir`` a round checkpoint (``save_round``; ``resume`` restores
+     the latest).
+
+Step 3 takes the stacked branch by default (``client_parallel``, as in the
+JAX package): the sampled clients go by family, and each family walks the
+public set once per contrast epoch and once for its uploads, its gallery
+CEs one segmented kernel launch per batch (``federation/stacked.py``).
+``--no_client_parallel`` runs the clients one by one, each a family of
+one.
 
 Features, uploads and aggregates stay on the device between phases.
-Randomness per round is a function of (seed, round): client sampling and
-loader order as in the JAX package (``_seed_round``), dropout from torch's
-generators re-seeded there. Weights are drawn from ``args.seed``;
-``load_state_dicts`` replaces them (e.g. by a JAX ``MMFL``'s, converted).
+Randomness per round is a function of (seed, round) (``_seed_round``), so
+a resumed run continues a straight one. Weights are drawn from
+``args.seed``; ``load_state_dicts`` replaces them (e.g. by a JAX
+``MMFL``'s, converted).
 
-Not ported yet, and refused rather than ignored: the stacked client branch
-(``client_parallel``), a multi-GPU mesh, round checkpoints and
-``--resume`` (``ckpt_dir``), ``--save_client``, ``--client_bf16`` and the
-pretrained-weight loaders (ROADMAP queue 1 items 2-3).
+Not ported yet, and refused rather than ignored: a multi-GPU mesh,
+``--client_bf16`` and the pretrained-weight loaders (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from creamfl_tpu_torch.engine.client_mm import MMClientEngine
 from creamfl_tpu_torch.engine.client_uni import UniClientEngine
 from creamfl_tpu_torch.engine.evaluator import RetrievalEvaluator
 from creamfl_tpu_torch.engine.server import ServerEngine
+from creamfl_tpu_torch.federation import stacked
 from creamfl_tpu_torch.federation.aggregation import aggregate_modalities
+from creamfl_tpu_torch.utils.checkpoint import RoundCheckpointer
 from creamfl_tpu_torch.utils.device import resolve_device
 from creamfl_tpu_torch.utils.helper import save_checkpoint
 from creamfl_tpu_torch.utils.logging import NoOpTracker, PythonLogger
@@ -50,11 +58,6 @@ from creamfl_tpu_torch.utils.profiling import StepTimer
 # Options of the JAX MMFL that the port does not have yet, with the
 # ROADMAP item that brings each.
 _UNPORTED = (
-    ("client_parallel", "the stacked client branch (client_parallel; pass "
-     "--no_client_parallel)", "queue 1 item 2"),
-    ("ckpt_dir", "round checkpoints (--ckpt_dir)", "queue 1 item 2"),
-    ("resume", "--resume", "queue 1 item 2"),
-    ("save_client", "--save_client", "queue 1 item 2"),
     ("client_bf16", "--client_bf16", "queue 1 item 3"),
     ("resnet_ckpt", "--resnet_ckpt", "queue 1 item 3 (load_pretrained)"),
     ("bert_ckpt", "--bert_ckpt", "queue 1 item 3 (load_pretrained)"),
@@ -97,7 +100,7 @@ class MMFL:
         if n_mesh > 1 and getattr(args, "use_mesh", True):
             raise NotImplementedError(
                 f"a mesh of {n_mesh} devices is not ported yet (ROADMAP "
-                "queue 1 item 2); pass --no_mesh or --mesh_devices 1")
+                "queue 1, multi-GPU); pass --no_mesh or --mesh_devices 1")
         self.args = args
         self.datasets = datasets
         self.logger = logger or PythonLogger()
@@ -134,6 +137,10 @@ class MMFL:
         self.timer = StepTimer(device=self.device)
         self.last_timing: Dict[str, float] = {}
         self.last_scores: Optional[Dict] = None
+        ckpt_dir = getattr(args, "ckpt_dir", None)
+        self.checkpointer = (RoundCheckpointer(ckpt_dir,
+                                               map_location=self.device)
+                             if ckpt_dir else None)
 
     def _init_seed(self, k: int) -> int:
         """Weight seed of the server (k = 0) and of client k (its global
@@ -235,83 +242,64 @@ class MMFL:
         return self._pub_views[key]
 
     # -- client execution ---------------------------------------------
-    def _run_uni_client(self, client: ClientHandle, round_n: int) -> None:
-        engine: UniClientEngine = client.engine
+    def _run_group(self, kind: str, members: List[ClientHandle],
+                   round_n: int, img_vecs: List, txt_vecs: List) -> None:
+        """One family's local training and uploads (the JAX package's
+        ``_run_group``): per local epoch each member's task epoch, then one
+        contrast epoch of the whole family; the local test (img/txt) before
+        the reps sweep, which advances BN running stats that the test must
+        not see; reps appended in member order."""
         args = self.args
-        old_model = engine.snapshot(client.state)
-        engine.set_round_lr(client.state, round_n)
+        engine = members[0].engine
+        policy = getattr(args, "stack_bucket", "even")
+        pad = stacked.stack_pad(len(members), policy)
+        if pad:
+            self.logger.log(
+                f"{kind} family: client axis {len(members)}+{pad} pad slots "
+                f"(stack bucket {policy}); the port runs no pad slot")
+        old_models = [engine.snapshot(c.state) for c in members]
+        for c in members:
+            engine.set_round_lr(c.state, round_n)
         do_inter = args.contrast_local_inter
         do_intra = args.contrast_local_intra
-        same = (self.global_img_feature if client.kind == "img"
-                else self.global_txt_feature)
-        other = (self.global_txt_feature if client.kind == "img"
-                 else self.global_img_feature)
+        img, txt = self.global_img_feature, self.global_txt_feature
+        globals_ = {"img": {"same": img, "other": txt},
+                    "txt": {"same": txt, "other": img},
+                    "mm": {"img": img, "txt": txt}}[kind]
         for _ in range(args.local_epochs):
-            for batch in client.train_loader:
-                engine.task_step(client.state, batch)
+            stacked.task_epoch(engine, members, mm=kind == "mm")
             if do_inter or do_intra:
-                for batch in self._pub("pub_train", client.kind):
-                    globals_ = {"same": same, "other": other,
-                                "index": self._batch_rows(batch)}
-                    engine.contrast_step(client.state, old_model, batch,
-                                         globals_, do_inter, do_intra)
-        # Local test (top-1/top-k): counts stay on the device, one fetch
-        # per client.
-        test_loader = self.datasets.get(f"{client.kind}_test")
-        if test_loader is not None:
+                stacked.contrast_epoch(
+                    engine, members, old_models, self._pub("pub_train", kind),
+                    globals_, self._batch_rows, do_inter, do_intra)
+        if kind == "mm":
+            img, txt = stacked.mm_reps(engine, members,
+                                       self._pub("pub_eval", "mm"))
+            img_vecs.extend(img)
+            txt_vecs.extend(txt)
+            return
+        self._local_test(kind, members)
+        reps, order = stacked.uni_reps(engine, members,
+                                       self._pub("pub_eval", kind))
+        assert np.array_equal(order, self.distill_index), \
+            "public-set iteration order changed between phases"
+        (img_vecs if kind == "img" else txt_vecs).extend(reps)
+
+    def _local_test(self, kind: str, members: List[ClientHandle]) -> None:
+        """Top-1/top-k on the family's local test set: counts stay on the
+        device, one fetch per client."""
+        test_loader = self.datasets.get(f"{kind}_test")
+        if test_loader is None:
+            return
+        for client in members:
             counts = torch.stack([
-                torch.stack(engine.test_step(client.state, batch))
+                torch.stack(client.engine.test_step(client.state, batch))
                 for batch in test_loader]).sum(0).tolist()
             c1, ck, n = counts
             if n:
                 self.logger.log(
-                    f"client {client.client_idx} ({client.kind}) "
+                    f"client {client.client_idx} ({kind}) "
                     f"top1 {100*c1/n:.2f} topk {100*ck/n:.2f}")
-
-    def _uni_client_reps(self, client: ClientHandle) -> Dict:
-        """Train-mode feature pass over the public eval loader; the BN
-        running-stat update persists (the reference leaves the model in
-        train() mode here, ClientTrainer.py:552)."""
-        parts, idx_parts = [], []
-        for batch in self._pub("pub_eval", client.kind):
-            feats, _ = client.engine.features_step(client.state, batch)
-            valid = np.asarray(batch["valid"])
-            parts.append(feats[:suffix_valid(valid)])
-            idx_parts.append(np.asarray(batch["index"])[valid])
-        order = np.concatenate(idx_parts)
-        assert np.array_equal(order, self.distill_index), \
-            "public-set iteration order changed between phases"
-        vec = torch.cat(parts)
-        if client.kind == "img":
-            return {"img": vec, "txt": None}
-        return {"img": None, "txt": vec}
-
-    def _run_mm_client(self, client: ClientHandle, round_n: int) -> None:
-        engine: MMClientEngine = client.engine
-        args = self.args
-        old_model = engine.snapshot(client.state)
-        engine.set_round_lr(client.state, round_n)
-        do_inter = args.contrast_local_inter
-        do_intra = args.contrast_local_intra
-        for _ in range(args.local_epochs):
-            for batch in client.train_loader:
-                engine.local_step(client.state, batch)
-            if do_inter or do_intra:
-                for batch in self._pub("pub_train", "mm"):
-                    globals_ = {"img": self.global_img_feature,
-                                "txt": self.global_txt_feature,
-                                "index": self._batch_rows(batch)}
-                    engine.contrast_step(client.state, old_model, batch,
-                                         globals_, do_inter, do_intra)
-
-    def _mm_client_reps(self, client: ClientHandle) -> Dict:
-        img_parts, txt_parts = [], []
-        for batch in self._pub("pub_eval", "mm"):
-            fi, ft = client.engine.features_step(client.state, batch)
-            n = suffix_valid(np.asarray(batch["valid"]))
-            img_parts.append(fi[:n])
-            txt_parts.append(ft[:n])
-        return {"img": torch.cat(img_parts), "txt": torch.cat(txt_parts)}
 
     # -- distillation ---------------------------------------------------
     def _distill(self, img_vecs: List[torch.Tensor],
@@ -348,7 +336,20 @@ class MMFL:
     def _seed_round(self, round_n: int) -> random.Random:
         """Re-seed every per-round randomness source as a function of
         (seed, round): torch's generators (dropout), each loader's epoch
-        order (``set_round``), and the client sampler returned."""
+        order (``set_round``), and the client sampler returned. A straight
+        run and one that ``resume``s at round R then draw the same streams
+        from R on.
+
+        The clients draw no device randomness (PIE's dropout rate is 0,
+        the GRU has none, caption drop is host-side per sample and epoch),
+        so the stacked and sequential branches, which run the clients'
+        steps in different orders, need no counterpart of the JAX
+        package's per-(round, client, epoch, step) keys
+        (``_client_epoch_keys``): only the server's BERT dropout draws from
+        torch's generator, in the same order in both branches. The two
+        branches walk the shuffled public loader a different number of
+        times a round (once per family or once per client), so their
+        public-batch orders differ, in the JAX package as here."""
         torch.manual_seed(self.args.seed * 1_000_003 + round_n)
         seen = set()
         for v in self.datasets.values():
@@ -366,8 +367,9 @@ class MMFL:
     def train(self, round_n: int) -> Dict:
         """One round. ``last_scores`` then holds its scores and
         ``last_timing`` the StepTimer phases (server_train,
-        global_features, aggregate_distill, eval) and ``round``, the whole
-        round up to its scores (saving excluded)."""
+        global_features, clients_<kind> per family, aggregate_distill,
+        eval) and ``round``, the whole round up to its scores (saving
+        excluded)."""
         with self.timer.phase("round"):
             scores = self.last_scores = self._round(round_n)
         self.last_timing = self.timer.report()
@@ -382,6 +384,7 @@ class MMFL:
             self._save(f"{self.args.name}-best_model.ckpt")
         if round_n == self.args.comm_rounds - 1:
             self._save(f"{self.args.name}-last_model.ckpt")
+        self.save_round(round_n)
         return scores
 
     def _round(self, round_n: int) -> Dict:
@@ -403,19 +406,23 @@ class MMFL:
                 self._extract_global_features()
 
         img_vecs, txt_vecs = [], []
-        for client in cur:
-            self.logger.log(f"Training Client {client.client_idx} "
-                            f"({client.kind})!")
-            if client.kind == "mm":
-                self._run_mm_client(client, round_n)
-                reps = self._mm_client_reps(client)
-            else:
-                self._run_uni_client(client, round_n)
-                reps = self._uni_client_reps(client)
-            if reps["img"] is not None:
-                img_vecs.append(reps["img"])
-            if reps["txt"] is not None:
-                txt_vecs.append(reps["txt"])
+        if getattr(args, "client_parallel", True):
+            groups: Dict[str, List[ClientHandle]] = {}
+            for client in cur:
+                groups.setdefault(client.kind, []).append(client)
+            runs = [(kind, members, f"Training {kind} clients "
+                     f"{[c.client_idx for c in members]} "
+                     f"(stacked x{len(members)})")
+                    for kind, members in groups.items()]
+        else:
+            runs = [(c.kind, [c], f"Training Client {c.client_idx} "
+                     f"({c.kind})!") for c in cur]
+        for kind, members, message in runs:
+            self.logger.log(message)
+            with self.timer.phase(f"clients_{kind}"):
+                self._run_group(kind, members, round_n, img_vecs, txt_vecs)
+        if getattr(args, "save_client", False):
+            self._save_clients(cur, round_n)
 
         if not args.disable_distill and (img_vecs or txt_vecs):
             if args.agg_method != "con_w":
@@ -455,3 +462,51 @@ class MMFL:
             {"model": state.model.state_dict(),
              "criterion": state.criterion.state_dict(),
              "step": state.step})
+
+    def _save_clients(self, cur: List[ClientHandle], round_n: int) -> None:
+        """--save_client: each trained client's model after the round's
+        local training, named like the reference's
+        ``saved_clients/<dset>/Client{k}-model_{local_epoch}.pth``
+        (ClientTrainer.py:207-208, MMClientTrainer.py:106-107; its
+        ``local_epoch`` counter accumulates ``local_epochs`` per round)."""
+        local_epoch = (round_n + 1) * self.args.local_epochs
+        root = os.path.join(getattr(self.args, "exp_dir", "."),
+                            "saved_clients")
+        for c in cur:
+            save_checkpoint(
+                os.path.join(root, c.kind,
+                             f"Client{c.client_id}-model_{local_epoch}.ckpt"),
+                {"model": c.state.model.state_dict(), "round": round_n + 1,
+                 "kind": c.kind, "client_id": c.client_id})
+        self.logger.log(f"saved {len(cur)} client snapshots under {root}")
+
+    # -- round checkpoints ------------------------------------------------
+    def save_round(self, round_n: int) -> Optional[str]:
+        """With ``--ckpt_dir``: the server's and every client's model,
+        criterion, optimizer and step, and the best score, as round
+        ``round_n``'s checkpoint."""
+        if self.checkpointer is None:
+            return None
+        return self.checkpointer.save(round_n, {
+            "server": self.server_state.state_dict(),
+            "clients": [c.state.state_dict() for c in self.clients],
+            "meta": {"best_score": self.best_score, "round": round_n}})
+
+    def resume(self) -> int:
+        """Restore the latest round checkpoint; returns the next round to
+        run (0 when there is none)."""
+        restored = (self.checkpointer.restore()
+                    if self.checkpointer is not None else None)
+        if restored is None:
+            return 0
+        if len(restored["clients"]) != len(self.clients):
+            raise ValueError(
+                f"checkpoint holds {len(restored['clients'])} clients, this "
+                f"run has {len(self.clients)}")
+        self.server_state.load_state_dict(restored["server"])
+        for client, state in zip(self.clients, restored["clients"]):
+            client.state.load_state_dict(state)
+        self.best_score = float(restored["meta"].get("best_score", 0.0))
+        next_round = int(restored["meta"]["round"]) + 1
+        self.logger.log(f"resumed from round {next_round - 1}")
+        return next_round

@@ -8,13 +8,15 @@ datasets are ported (``--synthetic``, at the default scale or ``--smoke``);
 the real-data readers and ``--paper_scale`` raise, as do the options
 ``federation.rounds.MMFL`` does not have yet.
 
-One round on the card, the paper's flags, sequential clients:
-  python -m creamfl_tpu_torch.main --synthetic --comm_rounds 1 \
-      --local_epochs 1 --num_img_clients 1 --num_txt_clients 1 \
-      --num_mm_clients 1 --client_num_per_round 3 --no_client_parallel \
+Two rounds on the card, the paper's flags, stacked client families (the
+default; ``--no_client_parallel`` runs the clients one by one), a round
+checkpoint after each round:
+  python -m creamfl_tpu_torch.main --synthetic --comm_rounds 2 \
+      --local_epochs 1 --num_img_clients 2 --num_txt_clients 2 \
+      --num_mm_clients 2 --client_num_per_round 6 \
       --img_model_local resnet18 --agg_method con_w \
-      --contrast_local_inter --contrast_local_intra
-
+      --contrast_local_inter --contrast_local_intra --ckpt_dir ck
+The same command with ``--resume`` continues after the latest checkpoint.
 The same on the CPU at small shapes: add ``--no-cuda --smoke``.
 """
 
@@ -236,7 +238,8 @@ def run(args):
 
     algo = MMFL(args, datasets, server_cfg, mm_cfg, tracker=tracker,
                 logger=logger, bert_config=bert_cfg, device=device)
-    for round_n in range(args.comm_rounds):
+    start_round = algo.resume() if args.resume else 0
+    for round_n in range(start_round, args.comm_rounds):
         algo.train(round_n)
     logger.log("Best:")
     if algo.best_scores is not None:

@@ -91,16 +91,31 @@ def softmax_matvec(v: torch.Tensor, gallery: torch.Tensor,
     return out
 
 
+def segment_mean(x: torch.Tensor, segments: int) -> torch.Tensor:
+    """Mean of ``x`` [M] (the per-row CE): a scalar for ``segments`` 1;
+    else [S], the mean of each of S equal contiguous segments of rows."""
+    if segments == 1:
+        return torch.mean(x)
+    if x.shape[0] % segments:
+        raise ValueError(f"{x.shape[0]} rows do not split into {segments} "
+                         "equal segments")
+    return x.reshape(segments, -1).mean(dim=1)
+
+
 def gallery_cross_entropy(feats: torch.Tensor, gallery: torch.Tensor,
                           labels: torch.Tensor, tau: float = 0.5,
                           blockwise: bool = False,
-                          col_block: int = 8192) -> torch.Tensor:
+                          col_block: int = 8192,
+                          segments: int = 1) -> torch.Tensor:
     """Mean CE of ``feats @ gallery.T / tau`` against integer ``labels``.
 
     The gallery is a constant (frozen global features): it gets no
     gradient (``ClientTrainer.py:370,388``). ``blockwise=True`` streams
     the logsumexp over gallery blocks under activation checkpointing, so
     the backward recomputes block logits instead of saving them.
+    ``segments`` S > 1: the rows are S equal contiguous segments (the
+    members of a stacked client family) and the result is the [S] vector
+    of their means.
     """
     gallery = gallery.detach()
     labels = labels.long()
@@ -108,13 +123,13 @@ def gallery_cross_entropy(feats: torch.Tensor, gallery: torch.Tensor,
         logits = (_f32(feats) @ _f32(gallery).T) / tau
         lse = torch.logsumexp(logits, dim=1)
         label_logit = logits.gather(1, labels[:, None])[:, 0]
-        return torch.mean(lse - label_logit)
+        return segment_mean(lse - label_logit, segments)
     label_vecs = gallery.index_select(0, labels)
     label_logit = torch.sum(_f32(feats) * _f32(label_vecs), dim=1) / tau
     lse = torch.utils.checkpoint.checkpoint(
         streaming_logsumexp, feats, gallery, tau, col_block,
         use_reentrant=False)
-    return torch.mean(lse - label_logit)
+    return segment_mean(lse - label_logit, segments)
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +207,14 @@ def lse_merge(part_max: torch.Tensor, part_sum: torch.Tensor
 
 def ce_merge(part_max: torch.Tensor, part_sum: torch.Tensor,
              v: torch.Tensor, gallery: torch.Tensor, labels: torch.Tensor,
-             tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3's forward merge: (loss [1] = mean of lse - <v_i, g_{label_i}> /
-    tau, lse [M])."""
+             tau: float, segments: int = 1
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's forward merge: (loss [S] = the mean of lse - <v_i, g_{label_i}>
+    / tau over each of S equal contiguous segments of rows, lse [M])."""
     lse = lse_merge(part_max, part_sum)
     label_vecs = _f32(gallery).index_select(0, labels.long())
     label_logit = torch.sum(_f32(v) * label_vecs, dim=1) * (1.0 / tau)
-    return torch.mean(lse - label_logit).reshape(1), lse
+    return segment_mean(lse - label_logit, segments).reshape(segments), lse
 
 
 def matvec_partials(v: torch.Tensor, gallery: torch.Tensor,
@@ -221,10 +237,16 @@ def matvec_partials(v: torch.Tensor, gallery: torch.Tensor,
 def dfeats_merge(part: torch.Tensor, gallery: torch.Tensor,
                  labels: torch.Tensor, gbar: torch.Tensor, tau: float,
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K3's backward merge: (sum of the splits - g_{label_i}) * gbar /
-    (tau * M), in ``dtype`` (default float32)."""
+    """K3's backward merge: (sum of the splits - g_{label_i}) * gbar[s] /
+    (tau * M / S) for row i of segment s, gbar [S] (one gbar, S 1: the
+    whole of M), in ``dtype`` (default float32)."""
     m = part.shape[1]
+    segments = gbar.numel()
     label_vecs = _f32(gallery).index_select(0, labels.long())
-    scale = gbar.to(torch.float32).reshape(()) / (tau * m)
+    if segments == 1:
+        scale = gbar.to(torch.float32).reshape(()) / (tau * m)
+    else:
+        scale = (gbar.to(torch.float32) / (tau * (m // segments))
+                 ).repeat_interleave(m // segments)[:, None]
     return ((part.sum(dim=0) - label_vecs) * scale).to(
         dtype or torch.float32)

@@ -11,7 +11,10 @@ replace the Pallas TPU kernels of the JAX package
   ``torch.autograd.Function``: forward K1's partial pass + a merge that
   also takes the label logits and the mean (writing the loss and the lse),
   backward K2's partial pass + a merge that writes dfeats in the
-  features' dtype. Two launches each way, no torch op between them.
+  features' dtype. Two launches each way, no torch op between them. With
+  ``segments`` S the M rows are S equal contiguous segments (a stacked
+  client family's members, one gallery read for all of them) and the loss
+  is the [S] vector of their means.
 * ``conw_diag`` (K4): ``diag(log_softmax(v @ g.T))``, K1 with the
   diagonal dot folded into its merge pass.
 
@@ -32,7 +35,8 @@ ctypes. A wrapper given CPU tensors runs the plain version from
 ``ops.gallery``; given CUDA tensors it launches the kernel or raises.
 Each wrapper counts its launches in ``<wrapper>.launches`` (K3 in its
 forward); K3 also counts its forward pass on K1 and its backward pass on
-K2, whose partial kernels it runs.
+K2, whose partial kernels it runs, and its forward launches by (rows,
+segments) in ``fused_gallery_ce.launches_by_rows``.
 """
 
 from __future__ import annotations
@@ -86,11 +90,11 @@ def _lib() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gallery_lse.argtypes = [i, p, p, i, i, i, f, i, i, p, p, i, p, p, p,
-                                p]
+    lib.gallery_lse.argtypes = [i, p, p, i, i, i, f, i, i, p, p, i, p, i, p,
+                                p, p]
     lib.gallery_lse.restype = i
     lib.gallery_matvec.argtypes = [i, p, p, p, i, i, i, f, i, i, p, i, p, p,
-                                   f, i, p, p]
+                                   i, f, i, p, p]
     lib.gallery_matvec.restype = i
     lib.gallery_tc_peak.argtypes = [i, i, p, p]
     lib.gallery_tc_peak.restype = i
@@ -239,22 +243,23 @@ def _count(fn, route: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _lse_launch(v: torch.Tensor, g: torch.Tensor, tau: float, mode: int,
-                route: str, labels: Optional[torch.Tensor] = None):
+                route: str, labels: Optional[torch.Tensor] = None,
+                segments: int = 1):
     """The lse partial pass on ``route`` + the merge in ``mode``: returns
-    out [M] (lse, or diag - lse), and for ``_CE`` (loss [1], lse)."""
+    out [M] (lse, or diag - lse), and for ``_CE`` (loss [segments], lse)."""
     (m, d), n = v.shape, g.shape[0]
     splits, per_split = plan_for("lse", route, m, n, d, _sm_count(v))
     part_max = torch.empty(m, splits, dtype=torch.float32, device=v.device)
     part_sum = torch.empty_like(part_max)
     out = torch.empty(m, dtype=torch.float32, device=v.device)
-    loss = (torch.empty(1, dtype=torch.float32, device=v.device)
+    loss = (torch.empty(segments, dtype=torch.float32, device=v.device)
             if mode == _CE else None)
     with torch.cuda.device(v.device):
         _check(_lib().gallery_lse(
             _ROUTE_ID[route], v.data_ptr(), g.data_ptr(), m, n, d, 1.0 / tau,
             splits, per_split, part_max.data_ptr(), part_sum.data_ptr(),
-            mode, _ptr(labels), out.data_ptr(), _ptr(loss), _stream(v)),
-            f"gallery_lse ({route})")
+            mode, _ptr(labels), m // segments, out.data_ptr(), _ptr(loss),
+            _stream(v)), f"gallery_lse ({route})")
     return out if loss is None else (loss, out)
 
 
@@ -264,20 +269,22 @@ def _matvec_launch(v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor,
                    gbar: Optional[torch.Tensor] = None,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The matvec partial pass on ``route`` + the merge: the [M, D] sum,
-    or with ``labels`` and ``gbar`` K3's dfeats in ``out_dtype``."""
+    or with ``labels`` and ``gbar`` ([S], one per segment of M / S rows)
+    K3's dfeats in ``out_dtype``."""
     (m, d), n = v.shape, g.shape[0]
     if d > MV_MAX_DIM:
         raise ValueError(f"gallery_matvec: D = {d} > {MV_MAX_DIM}")
     splits, per_split = plan_for("matvec", route, m, n, d, _sm_count(v))
     part = torch.empty(splits, m, d, dtype=torch.float32, device=v.device)
     out = torch.empty(m, d, dtype=out_dtype, device=v.device)
+    seg_rows = m if gbar is None else m // gbar.numel()
     with torch.cuda.device(v.device):
         _check(_lib().gallery_matvec(
             _ROUTE_ID[route], v.data_ptr(), g.data_ptr(), lse.data_ptr(), m,
             n, d, 1.0 / tau, splits, per_split, part.data_ptr(),
-            int(labels is not None), _ptr(labels), _ptr(gbar),
-            float(tau * m), int(out_dtype == torch.bfloat16), out.data_ptr(),
-            _stream(v)), f"gallery_matvec ({route})")
+            int(labels is not None), _ptr(labels), _ptr(gbar), seg_rows,
+            float(tau * seg_rows), int(out_dtype == torch.bfloat16),
+            out.data_ptr(), _stream(v)), f"gallery_matvec ({route})")
     return out
 
 
@@ -345,43 +352,55 @@ def softmax_matvec(v: torch.Tensor, gallery: torch.Tensor,
     return out
 
 
+def _check_segments(name: str, m: int, segments: int) -> None:
+    if segments < 1 or m % segments:
+        raise ValueError(f"{name}: {m} rows do not split into {segments} "
+                         "equal segments")
+
+
 class FusedGalleryCE(torch.autograd.Function):
     """Mean CE of ``feats @ gallery.T / tau`` vs ``labels``, no gradient to
     the gallery or the labels. Forward: K1's partial pass and the CE-mode
     merge (loss and lse); backward: K2's partial pass and the dfeats-mode
-    merge, with gbar read from the device. On CPU tensors both run their
-    plain steps (``ops.gallery``: partials over the same split plan, then
-    the merges), so the formulas are checked without a card."""
+    merge, with gbar read from the device. ``segments`` S > 1: the loss is
+    [S], one mean per equal contiguous segment of rows, and gbar [S]. On
+    CPU tensors both run their plain steps (``ops.gallery``: partials over
+    the same split plan, then the merges), so the formulas are checked
+    without a card."""
 
     @staticmethod
-    def forward(ctx, feats, gallery, labels, tau, route=None):
+    def forward(ctx, feats, gallery, labels, tau, route=None, segments=1):
         f32 = feats.to(torch.float32).contiguous()
         g32 = gallery.to(torch.float32).contiguous()
         labels = labels.to(torch.int64).contiguous()
         route = resolve_route("fused_gallery_ce", route,
                               plan_gallery_route(f32, g32))
         (m, d), n = f32.shape, g32.shape[0]
+        _check_segments("fused_gallery_ce", m, segments)
         if f32.device.type == "cpu":
             splits, per_split = plan_for("lse", route, m, n, d,
                                          _sm_count(f32))
             cols = LSE_TC_COLS if route == "tc" else LSE_BLOCK_COLS
             loss, lse = plain.ce_merge(
                 *plain.lse_partials(f32, g32, tau, splits, per_split, cols),
-                f32, g32, labels, tau)
+                f32, g32, labels, tau, segments)
         else:
             _check_inputs("fused_gallery_ce", f32, g32)
             _check_shapes("fused_gallery_ce", f32, g32)
-            loss, lse = _lse_launch(f32, g32, tau, _CE, route, labels)
+            loss, lse = _lse_launch(f32, g32, tau, _CE, route, labels,
+                                    segments)
             _count(row_logsumexp, route)
             _count(fused_gallery_ce, route)
+            rows = fused_gallery_ce.launches_by_rows
+            rows[(m, segments)] = rows.get((m, segments), 0) + 1
         ctx.save_for_backward(f32, g32, lse, labels)
         ctx.tau, ctx.route, ctx.feats_dtype = tau, route, feats.dtype
-        return loss.reshape(())
+        return loss.reshape(()) if segments == 1 else loss
 
     @staticmethod
     def backward(ctx, gbar):
         f32, g32, lse, labels = ctx.saved_tensors
-        gbar = gbar.to(torch.float32).reshape(1)
+        gbar = gbar.to(torch.float32).reshape(-1)
         if f32.device.type == "cpu":
             (m, d), n = f32.shape, g32.shape[0]
             splits, per_split = plan_for("matvec", ctx.route, m, n, d,
@@ -399,20 +418,25 @@ class FusedGalleryCE(torch.autograd.Function):
                                     labels, gbar.contiguous(),
                                     ctx.feats_dtype)
             _count(softmax_matvec, ctx.route)
-        return dfeats, None, None, None, None
+        return dfeats, None, None, None, None, None
 
 
 def fused_gallery_ce(feats: torch.Tensor, gallery: torch.Tensor,
                      labels: torch.Tensor, tau: float = 0.5,
-                     route: Optional[str] = None) -> torch.Tensor:
-    """Mean CE of ``feats @ gallery.T / tau`` vs integer ``labels`` (K3).
-    Labels must lie in [0, N) (the kernels give NaN otherwise)."""
+                     route: Optional[str] = None,
+                     segments: int = 1) -> torch.Tensor:
+    """Mean CE of ``feats @ gallery.T / tau`` vs integer ``labels`` (K3): a
+    scalar, or with ``segments`` S > 1 the [S] means of S equal contiguous
+    segments of rows, in one launch each way. Labels must lie in [0, N)
+    (the kernels give NaN otherwise)."""
     if feats.device.type == "cpu":
         if route is not None:
             resolve_route("fused_gallery_ce", route, plan_gallery_route(
                 feats.to(torch.float32).contiguous(), gallery))
-        return plain.gallery_cross_entropy(feats, gallery, labels, tau=tau)
-    return FusedGalleryCE.apply(feats, gallery.detach(), labels, tau, route)
+        return plain.gallery_cross_entropy(feats, gallery, labels, tau=tau,
+                                           segments=segments)
+    return FusedGalleryCE.apply(feats, gallery.detach(), labels, tau, route,
+                                segments)
 
 
 _WRAPPERS = (row_logsumexp, softmax_matvec, fused_gallery_ce, conw_diag)
@@ -422,6 +446,7 @@ def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
         fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+    fused_gallery_ce.launches_by_rows = {}
 
 
 def launch_counts() -> Dict[str, int]:

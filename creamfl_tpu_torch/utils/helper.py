@@ -13,6 +13,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from creamfl_tpu_torch.utils.serialize import to_host
+
 
 def set_seed(seed: int) -> None:
     """Seed Python's, NumPy's and torch's global generators (the reference's
@@ -39,16 +41,8 @@ def get_save_dirs(exp_dir: str, name: str) -> Dict[str, str]:
 
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> str:
     """``torch.save`` of ``payload`` (state dicts and plain values) with
-    every tensor copied to the host; returns ``path``. The JAX package's
-    pickle format and round checkpoints come with ``--resume``."""
-
-    def host(x):
-        if isinstance(x, torch.Tensor):
-            return x.detach().cpu()
-        if isinstance(x, dict):
-            return {k: host(v) for k, v in x.items()}
-        return x
-
+    every tensor copied to the host; returns ``path``. Round checkpoints
+    are ``utils.checkpoint``'s."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(host(payload), path)
+    torch.save(to_host(payload), path)
     return path

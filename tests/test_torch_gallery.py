@@ -412,3 +412,120 @@ def test_matvec_tolerance_premise(rng, unit):
     held = np.all(np.abs(got - want) <= tol["atol"] + tol["rtol"]
                   * np.abs(want))
     assert held == unit
+
+
+# ---------------------------------------------------------------------------
+# K3 over a stacked client family: segments
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def seg_inputs(rng):
+    """S = 3 segments of 5 rows (three clients on one public batch: the
+    same labels in each segment) against a 150 x 24 gallery."""
+    s, bs, n, d = 3, 5, 150, 24
+    f = rng.normal(size=(s, bs, d)).astype(np.float32)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    labels = rng.integers(0, n, size=(bs,)).astype(np.int32)
+    return f, g, labels
+
+
+def _segmented(fn, f, g, labels, weights):
+    """fn on the [S * M, D] rows with segments S: its [S] losses and the
+    dfeats of sum(weights * losses), [S, M, D]."""
+    s, bs, d = f.shape
+    tf = torch.tensor(f.reshape(s * bs, d), requires_grad=True)
+    losses = fn(tf, torch.tensor(g), torch.tensor(np.tile(labels, s)), s)
+    assert losses.shape == (s,)
+    (torch.tensor(weights) * losses).sum().backward()
+    return _np(losses), _np(tf.grad).reshape(f.shape)
+
+
+def _seg_fns():
+    """The wrapper (the plain CE on the CPU) and the autograd Function's
+    kernel steps on either route."""
+    def wrapper(a, b, c, s):
+        return tk.fused_gallery_ce(a, b, c, 0.5, segments=s)
+
+    def function(route):
+        return lambda a, b, c, s: tk.FusedGalleryCE.apply(a, b, c, 0.5,
+                                                          route, s)
+
+    return {"wrapper": wrapper, "tc": function("tc"),
+            "simt": function("simt")}
+
+
+@pytest.mark.parametrize("path", ["wrapper", "tc", "simt"])
+def test_segmented_ce_equals_separate_calls(seg_inputs, path):
+    """One segmented call = S separate calls, loss and dfeats, each
+    segment with its own gbar."""
+    f, g, labels = seg_inputs
+    weights = np.array([1.0, 0.5, 2.0], np.float32)
+    fn = _seg_fns()[path]
+    losses, dfeats = _segmented(fn, f, g, labels, weights)
+    for i in range(f.shape[0]):
+        tf = torch.tensor(f[i], requires_grad=True)
+        one = fn(tf, torch.tensor(g), torch.tensor(labels), 1)
+        assert one.shape == ()
+        (float(weights[i]) * one).backward()
+        np.testing.assert_allclose(losses[i], float(one), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(dfeats[i], _np(tf.grad), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["wrapper", "tc", "simt"])
+def test_segmented_ce_equals_jax_vmap(seg_inputs, interpret_mode, path):
+    """The segmented losses and dfeats equal ``jax.vmap`` of the JAX
+    ``fused_gallery_ce`` (Pallas in interpret mode) over [S, M, D]
+    features and its ``jax.grad``."""
+    f, g, labels = seg_inputs
+    weights = np.array([1.0, 0.5, 2.0], np.float32)
+    jg, jl = jnp.asarray(g), jnp.asarray(labels)
+
+    def per_client(x):
+        return jax.vmap(lambda v: jpl.fused_gallery_ce(v, jg, jl, 0.5))(x)
+
+    want = per_client(jnp.asarray(f))
+    dwant = jax.grad(lambda x: jnp.sum(jnp.asarray(weights)
+                                       * per_client(x)))(jnp.asarray(f))
+    losses, dfeats = _segmented(_seg_fns()[path], f, g, labels, weights)
+    np.testing.assert_allclose(losses, np.asarray(want), **VAL)
+    np.testing.assert_allclose(dfeats, np.asarray(dwant), **GRAD)
+
+
+def test_segments_one_is_the_unsegmented_call(ce_inputs):
+    """segments=1 keeps the scalar loss and the arithmetic of the call
+    without segments, bit for bit: the plain CE (the wrapper on the CPU)
+    and both kernel merges (a mean of all rows, gbar / (tau M))."""
+    f, g, labels = ce_inputs
+    tg, tl = torch.tensor(g), torch.tensor(labels).long()
+    for segments in ({}, {"segments": 1}):
+        tf = torch.tensor(f, requires_grad=True)
+        loss = tk.fused_gallery_ce(tf, tg, tl, 0.5, **segments)
+        loss.backward()
+        logits = (torch.tensor(f) @ tg.T) / 0.5
+        want = torch.mean(torch.logsumexp(logits, dim=1)
+                          - logits.gather(1, tl[:, None])[:, 0])
+        assert loss.shape == () and torch.equal(loss.detach(), want)
+        if segments:
+            assert torch.equal(tf.grad, grad)
+        grad = tf.grad
+    f32 = torch.tensor(f)
+    parts = tgal.lse_partials(f32, tg, 0.5, 2, 1, 128)
+    loss, lse = tgal.ce_merge(*parts, f32, tg, tl, 0.5, segments=1)
+    label_logit = torch.sum(f32 * tg.index_select(0, tl), dim=1) * 2.0
+    assert torch.equal(loss, torch.mean(lse - label_logit).reshape(1))
+    part = tgal.matvec_partials(f32, tg, lse, 0.5, 2, 1, 64)
+    gbar = torch.tensor([0.75])
+    want = (part.sum(dim=0) - tg.index_select(0, tl)) * (
+        gbar.reshape(()) / (0.5 * f32.shape[0]))
+    assert torch.equal(tgal.dfeats_merge(part, tg, tl, gbar, 0.5), want)
+
+
+def test_segments_must_divide_rows(ce_inputs):
+    f, g, labels = ce_inputs  # 6 rows
+    with pytest.raises(ValueError, match="segments"):
+        tk.fused_gallery_ce(torch.tensor(f), torch.tensor(g),
+                            torch.tensor(labels), 0.5, segments=4)
+    with pytest.raises(ValueError, match="segments"):
+        tk.FusedGalleryCE.apply(torch.tensor(f), torch.tensor(g),
+                                torch.tensor(labels), 0.5, None, 4)

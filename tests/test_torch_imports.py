@@ -50,6 +50,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(result["imported"]) >= 45, result["imported"]
     for name in ("creamfl_tpu_torch.main", "creamfl_tpu_torch.data.pipelines",
                  "creamfl_tpu_torch.federation.rounds",
+                 "creamfl_tpu_torch.federation.stacked",
+                 "creamfl_tpu_torch.utils.checkpoint",
+                 "creamfl_tpu_torch.utils.serialize",
                  "creamfl_tpu_torch.engine.evaluator"):
         assert name in result["imported"], name
     bad = [m for m in result["loaded"] if _is_forbidden(m)]

@@ -313,10 +313,17 @@ def test_seed_round_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """What the port does not have yet raises; the stacked branch, round
+    checkpoints, --resume and --save_client are ported
+    (test_torch_stacked.py, test_torch_resume.py)."""
+    from creamfl_tpu_torch.federation.rounds import _UNPORTED
+
+    assert not {"client_parallel", "ckpt_dir", "resume",
+                "save_client"} & {flag for flag, _, _ in _UNPORTED}
     server, mm, bert = _configs(build_configs, _args(tmp_path))
-    for kw in (dict(client_parallel=True), dict(ckpt_dir=str(tmp_path)),
-               dict(resume=True), dict(save_client=True),
-               dict(glove_path="g.txt"), dict(bert_ckpt="b.pth")):
+    for kw in (dict(client_bf16=True), dict(resnet_ckpt="r.pth"),
+               dict(glove_path="g.txt"), dict(bert_ckpt="b.pth"),
+               dict(client_resnet_ckpt="c.pth")):
         args = _args(tmp_path, **kw)
         with pytest.raises(NotImplementedError):
             MMFL(args, {}, server, mm, bert_config=bert, device="cpu")
@@ -336,7 +343,8 @@ def test_cli_smoke_round_on_cpu(tmp_path):
            "--no_client_parallel", "--agg_method", "con_w",
            "--contrast_local_inter", "--contrast_local_intra", "--seed", "0",
            "--exp_dir", str(tmp_path), "--name", "smoke"]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # One torch thread: the suite's parallel workers share the host.
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
