@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check its kernels.
 
-    python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked]
+    python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked |
+                                      --paper-round | --paper-full]
 
 Phases (any failure exits non-zero):
 
@@ -32,8 +33,11 @@ Phases (any failure exits non-zero):
    ResNet-18 clients (100 classes, feature_dim 256) take task and contrast
    steps, run a local test and extract features over the full 50 000-row
    public set; then con_w aggregates their representations against
-   50 000 x 256 global features. K1-K4 must have launched here, every
-   launch on the tc route.
+   50 000 x 256 global features. The same three clients then run again
+   with ``use_bf16=True`` (``--client_bf16``) from the same weights and
+   inputs: their features' least row cosine against the fp32 run's must be
+   >= 0.99, and both runs' steps and sweeps are timed. K1-K4 must have
+   launched here, every launch on the tc route.
 5. The server at the paper's width (ResNet-101 + BERT-base, embed 256,
    bf16, batch 128 at 224², max_len 32): train steps, an extraction step at
    batch 256, a distill step against 50 000 x 256 targets and an eval step,
@@ -58,6 +62,22 @@ Phases (any failure exits non-zero):
    fresh ``MMFL`` over the same checkpoint directory resumes at round 1
    with every restored server and client state dict equal, bit for bit,
    to the round's.
+8. The paper round (``--paper-round`` runs the build and this step alone):
+   ``main.run`` with ``--synthetic --paper_scale`` on the stacked branch,
+   2 clients of each kind, all six sampled: a 4 096-row public set at 224²
+   (the cut; the paper has 50 000), R101 + BERT-base, image clients of
+   5 000 samples at 32², mm clients of 2 000 captions, a 25 000-caption
+   test, the public and test images synthesized on the card. No 224² image
+   is rendered on the host, every device-image batch is on the card, every
+   K3 and K4 launch is on tc and as many as the round's steps make; con_w,
+   global features and scores as in step 6. Then the synth on the card
+   (the same ids in two orders and batch sizes bit-equal; the CPU test's
+   distribution bounds over 4 096 images; event and host ms per batch of
+   128), the server's ``load_pretrained`` from random-weight files
+   (weights equal to the files'), and ``RawTrainer`` for 4 steps and one
+   validation. ``--paper-full`` runs this step alone at the paper's full
+   geometry (50 000 rows, pools of 10 / 10 / 15 with 10 sampled, 5 local
+   epochs); it is not part of the default run.
 
 Each path runs with the launch counts zeroed just before it and read just
 after. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -67,6 +87,7 @@ it the per-kernel JSON, and before that the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -74,6 +95,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +111,9 @@ N_PUB, DIM, N_CLASS = 50_000, 256, 100
 # contrast steps run K3 at M PUB_BS against a ROUND_PUB x DIM gallery.
 ROUND_PUB = 2048
 PUB_BS, TASK_BS, TAIL_BS = 128, 64, 80
+# --client_bf16's image clients: least row cosine of their public-set
+# features against the fp32 run's from the same weights and inputs.
+BF16_COSINE = 0.99
 # Depth of the slice run: per client, task steps and full-size contrast
 # steps (one ragged contrast step at TAIL_BS follows).
 N_CLIENTS, TASK_STEPS, CONTRAST_STEPS = 3, 3, 3
@@ -880,6 +905,68 @@ def synth_images(seed: int, row0: int, bs: int, size: int, dev):
     return torch.rand(bs, size, size, 3, generator=gen, device=dev)
 
 
+def slice_clients(engine, seed: int, globals_base, timer, dev,
+                  prefix: str = ""):
+    """Each of the N_CLIENTS clients from its seed: task steps, the contrast
+    steps (full-size, then the ragged last batch), a local test and the
+    features sweep over the whole public set, every input made on the
+    device from (seed, client, step). Returns each client's [N_PUB, DIM]
+    features, and its features of the first public batch from its initial
+    weights (taken after the snapshot; in train mode, so that they move
+    only the BatchNorm running stats); timer phases carry ``prefix``."""
+    reps, probes = [], []
+    for k in range(N_CLIENTS):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1_000 + k)
+        state = engine.set_round_lr(engine.init_state(seed + k), 0)
+        old = engine.snapshot(state)
+        probes.append(engine.features_step(state, {
+            "images": synth_images(seed, 0, PUB_BS, 224, dev)})[0])
+        for step in range(TASK_STEPS):
+            images = synth_images(seed + 100 * k, step * TASK_BS, TASK_BS,
+                                  32, dev)
+            labels = torch.randint(0, N_CLASS, (TASK_BS,), generator=gen,
+                                   device=dev)
+            with timer.phase(f"{prefix}task_step"):
+                state, metrics = engine.task_step(
+                    state, {"images": images, "labels": labels})
+        losses = [float(metrics["loss"])]
+        rows = [(s * PUB_BS, PUB_BS) for s in range(CONTRAST_STEPS)]
+        rows.append((N_PUB - TAIL_BS, TAIL_BS))  # the ragged last batch
+        for row0, bs in rows:
+            batch = {"images": synth_images(seed, row0, bs, 224, dev)}
+            globals_ = dict(globals_base, index=torch.arange(
+                row0, row0 + bs, device=dev))
+            with timer.phase(f"{prefix}contrast_step"):
+                state, loss = engine.contrast_step(state, old, batch,
+                                                   globals_, True, True)
+            losses.append(float(loss))
+        test = {"images": synth_images(seed + 7, 0, TASK_BS, 32, dev),
+                "labels": torch.randint(0, N_CLASS, (TASK_BS,),
+                                        generator=gen, device=dev)}
+        with timer.phase(f"{prefix}test_step"):
+            c1, ck, cnt = (float(x) for x in engine.test_step(state, test))
+        feats = torch.empty(N_PUB, DIM, device=dev)
+        with timer.phase(f"{prefix}features_sweep"):
+            for row0 in range(0, N_PUB, PUB_BS):
+                bs = min(PUB_BS, N_PUB - row0)
+                out, _ = engine.features_step(
+                    state, {"images": synth_images(seed, row0, bs, 224,
+                                                   dev)})
+                feats[row0:row0 + bs] = out
+        tag = f"{prefix}client {k}"
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{tag}: non-finite losses {losses}")
+        if not bool(torch.isfinite(feats).all()):
+            raise AssertionError(f"{tag}: non-finite features")
+        norms = feats.norm(dim=1)
+        if not bool(((norms - 1).abs() < 1e-4).all()):
+            raise AssertionError(f"{tag}: features are not unit rows")
+        log(f"[slice] {tag}: losses {[round(x, 5) for x in losses]} "
+            f"test top1 {c1}/{cnt} topk {ck}/{cnt}")
+        reps.append(feats)
+    return reps, probes
+
+
 def slice_phase(seed: int, dev=torch.device("cuda")):
     import types
 
@@ -897,57 +984,30 @@ def slice_phase(seed: int, dev=torch.device("cuda")):
     args = types.SimpleNamespace(img_model_local="resnet18",
                                  feature_dim=DIM, mlp_local=False,
                                  interintra_weight=0.5, loss_scale=False)
-    engine = UniClientEngine("img", num_class=N_CLASS, args=args,
-                             device=dev)
     timer = StepTimer(device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    reps = []
+    reps, probes = slice_clients(UniClientEngine(
+        "img", num_class=N_CLASS, args=args, device=dev), seed,
+        globals_base, timer, dev)
+    # --client_bf16: the same clients from the same weights and inputs,
+    # their trunks in bf16. From the initial weights their features stay
+    # within BF16_COSINE (row cosine) of the fp32 run's; after the steps
+    # (which amplify the rounding through the x128 feature scale) the
+    # sweep's are reported.
+    reps16, probes16 = slice_clients(UniClientEngine(
+        "img", num_class=N_CLASS, args=args, use_bf16=True, device=dev),
+        seed, globals_base, timer, dev, prefix="bf16_")
     for k in range(N_CLIENTS):
-        state = engine.set_round_lr(engine.init_state(seed + k), 0)
-        old = engine.snapshot(state)
-        for step in range(TASK_STEPS):
-            images = synth_images(seed + 100 * k, step * TASK_BS, TASK_BS,
-                                  32, dev)
-            labels = torch.randint(0, N_CLASS, (TASK_BS,), generator=gen,
-                                   device=dev)
-            with timer.phase("task_step"):
-                state, metrics = engine.task_step(
-                    state, {"images": images, "labels": labels})
-        losses = [float(metrics["loss"])]
-        rows = [(s * PUB_BS, PUB_BS) for s in range(CONTRAST_STEPS)]
-        rows.append((N_PUB - TAIL_BS, TAIL_BS))  # the ragged last batch
-        for row0, bs in rows:
-            batch = {"images": synth_images(seed, row0, bs, 224, dev)}
-            globals_ = dict(globals_base, index=torch.arange(
-                row0, row0 + bs, device=dev))
-            with timer.phase("contrast_step"):
-                state, loss = engine.contrast_step(state, old, batch,
-                                                   globals_, True, True)
-            losses.append(float(loss))
-        test = {"images": synth_images(seed + 7, 0, TASK_BS, 32, dev),
-                "labels": torch.randint(0, N_CLASS, (TASK_BS,),
-                                        generator=gen, device=dev)}
-        with timer.phase("test_step"):
-            c1, ck, cnt = (float(x) for x in engine.test_step(state, test))
-        feats = torch.empty(N_PUB, DIM, device=dev)
-        with timer.phase("features_sweep"):
-            for row0 in range(0, N_PUB, PUB_BS):
-                bs = min(PUB_BS, N_PUB - row0)
-                out, _ = engine.features_step(
-                    state, {"images": synth_images(seed, row0, bs, 224,
-                                                   dev)})
-                feats[row0:row0 + bs] = out
-        if not all(map(math.isfinite, losses)):
-            raise AssertionError(f"client {k}: non-finite losses {losses}")
-        if not bool(torch.isfinite(feats).all()):
-            raise AssertionError(f"client {k}: non-finite features")
-        norms = feats.norm(dim=1)
-        if not bool(((norms - 1).abs() < 1e-4).all()):
-            raise AssertionError(f"client {k}: features are not unit rows")
-        log(f"[slice] client {k}: losses {[round(x, 5) for x in losses]} "
-            f"test top1 {c1}/{cnt} topk {ck}/{cnt}")
-        reps.append(feats)
+        cos = float(F.cosine_similarity(probes[k], probes16[k], dim=1).min())
+        swept = float(F.cosine_similarity(reps[k], reps16[k], dim=1).min())
+        log(f"[slice] bf16 client {k}: min row cosine vs fp32 {cos:.5f} "
+            f"from the same weights (bound {BF16_COSINE}), {swept:.5f} "
+            f"after the steps (the sweep)")
+        if cos < BF16_COSINE:
+            raise AssertionError(f"bf16 client {k}: features' row cosine "
+                                 f"{cos} vs fp32 < {BF16_COSINE}")
+    del reps16, probes, probes16
     img_reps = torch.stack(reps)
     del reps
     with timer.phase("con_w"):
@@ -1244,43 +1304,91 @@ STACKED_ROUND_ARGS = ("--synthetic", "--comm_rounds", "1", "--local_epochs",
                       "--img_model_local", "resnet18", "--agg_method",
                       "con_w", "--contrast_local_inter",
                       "--contrast_local_intra")
+# The paper round (--paper_scale: public and test images synthesized on
+# the card; caption sets cached on the host and prefetched): the stacked
+# round's clients, a PAPER_PUB-row public set at 224² and otherwise the
+# paper's geometry (R101 + BERT-base, image clients of 5 000 samples at 32²,
+# mm clients of 2 000 captions, a 25 000-caption test). --paper-full drops
+# the cuts: 50 000 rows, the default pools of 10 / 10 / 15 clients with 10
+# sampled, 5 local epochs.
+PAPER_PUB = 4096
+PAPER_ROUND_ARGS = ("--synthetic", "--paper_scale", "--pub_data_num",
+                    str(PAPER_PUB)) + STACKED_ROUND_ARGS[1:]
+PAPER_FULL_ARGS = ("--synthetic", "--paper_scale", "--comm_rounds", "1",
+                   "--img_model_local", "resnet18", "--agg_method", "con_w",
+                   "--contrast_local_inter", "--contrast_local_intra")
+# The synth's checks: images per concept for its mean image (cosine with
+# the concept pattern >= SYNTH_COSINE), and the residual's bounds.
+SYNTH_IMAGES, SYNTH_PER_CONCEPT, SYNTH_COSINE = 4096, 256, 0.98
+SYNTH_MEAN, SYNTH_STD = 1e-2, 1e-2
 ROUND_PHASES = ("server_train", "global_features", "aggregate_distill",
                 "eval")
 
 
 class _HostLoaderTime:
-    """Seconds the host spends producing loader batches (rendering and
-    stacking samples), summed over every ``ArrayLoader`` iteration while
-    active."""
+    """Seconds the round's thread waits for loader batches: each ``next``
+    of the outermost loader it iterates (``ArrayLoader``, ``PrefetchLoader``
+    or ``DeviceImageBatches``), so rendering and stacking on that thread, a
+    prefetch queue's wait and the enqueueing of on-device synthesis; and,
+    apart (``thread_seconds``), what ``ArrayLoader`` spends producing
+    batches on prefetch threads, which overlaps the round."""
 
     def __init__(self):
-        from creamfl_tpu_torch.data import loaders
+        from creamfl_tpu_torch.data import device_synth, loaders
 
-        self.cls, self.seconds = loaders.ArrayLoader, 0.0
-        self.orig = self.cls.__iter__
+        self.producer = loaders.ArrayLoader
+        self.orig = {cls: cls.__iter__ for cls in (
+            loaders.ArrayLoader, loaders.PrefetchLoader,
+            device_synth.DeviceImageBatches)}
+        self.seconds = self.thread_seconds = 0.0
+        self.depth = 0
+        self.lock = threading.Lock()
 
-    def __enter__(self):
+    def _timed(self, orig, producer: bool):
         import time
 
-        timer, orig = self, self.orig
+        timer = self
 
         def timed(loader):
             it = orig(loader)
+            on_main = threading.current_thread() is threading.main_thread()
             while True:
+                outer = on_main and timer.depth == 0
                 t0 = time.perf_counter()
+                if on_main:
+                    timer.depth += 1
                 try:
                     batch = next(it)
                 except StopIteration:
                     return
                 finally:
-                    timer.seconds += time.perf_counter() - t0
+                    dt = time.perf_counter() - t0
+                    if on_main:
+                        timer.depth -= 1
+                        if outer:
+                            timer.seconds += dt
+                    elif producer:
+                        with timer.lock:
+                            timer.thread_seconds += dt
                 yield batch
 
-        self.cls.__iter__ = timed
+        return timed
+
+    def __enter__(self):
+        for cls, orig in self.orig.items():
+            cls.__iter__ = self._timed(orig, cls is self.producer)
         return self
 
     def __exit__(self, *exc):
-        self.cls.__iter__ = self.orig
+        for cls, orig in self.orig.items():
+            cls.__iter__ = orig
+
+
+def _dataset_len(loader) -> int:
+    """Rows of the dataset under a loader and its wrappers."""
+    while not hasattr(loader, "dataset"):
+        loader = getattr(loader, "base", None) or loader.loader
+    return len(loader.dataset)
 
 
 class _Utilization:
@@ -1348,7 +1456,11 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda"),
     log(f"clients (the round minus the other phases): "
         f"{round_s - sum(phases[k] for k in ROUND_PHASES):.3f} s")
     log(f"round wall time: {round_s:.3f} s")
-    log(f"host loader time (set-up included): {host.seconds:.3f} s")
+    log(f"host loader time (set-up included): {host.seconds:.3f} s, "
+        f"{host.seconds / round_s:.3f} of the round")
+    if host.thread_seconds:
+        log(f"batch assembly on prefetch threads (overlapped): "
+            f"{host.thread_seconds:.3f} s")
     if util is not None:
         mean = statistics.mean(util.samples) if util.samples else None
         log(f"card utilization over the run (nvidia-smi, "
@@ -1359,7 +1471,7 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda"),
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"clients trained {algo.sampled}; saved {saved}")
 
-    n_pub = len(algo.datasets["pub_eval"].dataset)
+    n_pub = _dataset_len(algo.datasets["pub_eval"])
     dim = args.feature_dim
     for name, f in (("image", algo.global_img_feature),
                     ("text", algo.global_txt_feature)):
@@ -1463,79 +1575,304 @@ def resume_check(algo, dev=torch.device("cuda")) -> None:
     torch.cuda.empty_cache()
 
 
-def run_round(seed: int, stacked: bool = False):
+def expected_gallery_launches(algo, stacked: bool):
+    """K3 launches and their (rows, segments) a round makes: per contrast
+    epoch (``local_epochs`` a round) and public batch, one per client
+    (sequential) or client family (stacked, over all its members' rows,
+    one segment each), two for mm."""
+    n = _dataset_len(algo.datasets["pub_train"])
+    sizes = [min(PUB_BS, n - i) for i in range(0, n, PUB_BS)]
+    per_step = {"img": 1, "txt": 1, "mm": 2}
+    epochs = algo.args.local_epochs
+    kinds = [c.kind for c in algo.clients if c.client_idx in algo.sampled]
+    groups = ({k: kinds.count(k) for k in kinds} if stacked
+              else {i: 1 for i in range(len(kinds))})
+    rows = {}
+    for group, members in groups.items():
+        step = per_step[group if stacked else kinds[group]]
+        for bs in sizes:
+            key = (members * bs, members)
+            rows[key] = rows.get(key, 0) + epochs * step
+    return sum(rows.values()), rows
+
+
+class _PaperWatch:
+    """During the paper round: counts ``SyntheticCaptionDataset._image``
+    calls (host rendering of a caption set's image) and checks that every
+    batch of a ``DeviceImageBatches`` loader (public, test and mm sets)
+    carries its images as a tensor on the card (on ``dev``)."""
+
+    def __init__(self, dev=torch.device("cuda")):
+        from creamfl_tpu_torch.data import device_synth, synthetic
+
+        self.dev = dev
+        self.ds_cls = synthetic.SyntheticCaptionDataset
+        self.loader_cls = device_synth.DeviceImageBatches
+        self.orig_image = self.ds_cls._image
+        self.orig_iter = self.loader_cls.__iter__
+        self.host_images = 0
+        self.batches = {}
+
+    def __enter__(self):
+        watch = self
+
+        def image(ds, *a, **kw):
+            watch.host_images += 1
+            return watch.orig_image(ds, *a, **kw)
+
+        def batches(loader):
+            for batch in watch.orig_iter(loader):
+                images = batch["images"]
+                if not (isinstance(images, torch.Tensor)
+                        and images.device.type == watch.dev.type):
+                    raise AssertionError("a device-image batch's images "
+                                         "are not on the card")
+                side = images.shape[1]
+                watch.batches[side] = watch.batches.get(side, 0) + 1
+                yield batch
+
+        self.ds_cls._image = image
+        self.loader_cls.__iter__ = batches
+        return self
+
+    def __exit__(self, *exc):
+        self.ds_cls._image = self.orig_image
+        self.loader_cls.__iter__ = self.orig_iter
+
+
+def synth_phase(seed: int, dev=torch.device("cuda")):
+    """The public set's ``DeviceImageSynth`` at 224² on the card: the same
+    ids in two orders and two batch sizes give bit-equal rows; over
+    SYNTH_IMAGES images the residual's mean and deviation and each
+    concept's mean image meet the CPU test's bounds; event and host ms per
+    batch of PUB_BS."""
+    import time
+
+    import numpy as np
+
+    from creamfl_tpu_torch.data.device_synth import DeviceImageSynth
+    from creamfl_tpu_torch.data.synthetic import SyntheticCaptionDataset
+
+    ds = SyntheticCaptionDataset(n_captions=5 * SYNTH_IMAGES,
+                                 image_size=IMAGE, with_images=False, seed=1)
+    synth = DeviceImageSynth(IMAGE, seed=ds.seed, n_concepts=ds.n_concepts,
+                             signal=ds.signal, device=dev)
+    ids = np.arange(SYNTH_IMAGES) * 7 + seed
+    concepts = np.asarray([ds._concept(int(i)) for i in ids])
+    one = synth(ids[:PUB_BS], concepts[:PUB_BS])
+    rev = synth(ids[:PUB_BS][::-1].copy(), concepts[:PUB_BS][::-1].copy())
+    odd = torch.cat([synth(ids[i:min(i + 37, PUB_BS)],
+                           concepts[i:min(i + 37, PUB_BS)])
+                     for i in range(0, PUB_BS, 37)])
+    if not (torch.equal(one, rev.flip(0)) and torch.equal(one, odd)):
+        raise AssertionError("synth: an image depends on its batch")
+    c = ds.n_concepts
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    total_sq = torch.zeros((), dtype=torch.float64, device=dev)
+    sums = torch.zeros((c, IMAGE, IMAGE, 3), dtype=torch.float64,
+                       device=dev)
+    counts = np.bincount(concepts, minlength=c)
+    for i in range(0, SYNTH_IMAGES, PUB_BS):
+        cls = torch.as_tensor(concepts[i:i + PUB_BS], device=dev)
+        images = synth(ids[i:i + PUB_BS], concepts[i:i + PUB_BS])
+        residual = (images - synth.patterns[cls]).double()
+        total += residual.sum()
+        total_sq += (residual * residual).sum()
+        sums.index_add_(0, cls, images.double())
+    n = SYNTH_IMAGES * IMAGE * IMAGE * 3
+    mean = float(total) / n
+    std = math.sqrt(float(total_sq) / n - mean * mean)
+    means = sums / torch.as_tensor(counts, device=dev).view(c, 1, 1, 1)
+    cos = F.cosine_similarity(means.reshape(c, -1),
+                              synth.patterns.double().reshape(c, -1), dim=1)
+    log(f"[synth] {SYNTH_IMAGES} images at {IMAGE}²: residual mean "
+        f"{mean:.3e} std {std:.6f}; per-concept mean-image cosine min "
+        f"{float(cos.min()):.5f} over {counts.min()}-{counts.max()} images "
+        f"a concept")
+    if (abs(mean) >= SYNTH_MEAN or abs(std - 1) >= SYNTH_STD
+            or counts.min() < SYNTH_PER_CONCEPT
+            or float(cos.min()) < SYNTH_COSINE):
+        raise AssertionError("synth: the distribution misses its bounds")
+    if dev.type != "cuda":
+        return
+    ms = cuda_time_ms(lambda: synth(ids[:PUB_BS], concepts[:PUB_BS]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        synth(ids[:PUB_BS], concepts[:PUB_BS])
+    host_ms = (time.perf_counter() - t0) * 100
+    torch.cuda.synchronize()
+    log(f"[synth] batch of {PUB_BS} at {IMAGE}²: {ms:.3f} ms on the card "
+        f"(CUDA events, median of 10), {host_ms:.3f} ms of host time a "
+        f"call (enqueue, mean of 10)")
+
+
+def pretrained_check(algo, seed: int, tmp: str) -> None:
+    """The round's server loads random-weight files at its width (a
+    torchvision-keyed ResNet-101 with its ``fc`` and an HF-keyed BERT-base
+    under ``bert.``) through ``load_pretrained``; its trunk and BERT then
+    equal the files' tensors."""
+    from creamfl_tpu_torch.models.bert import init_bert
+    from creamfl_tpu_torch.models.resnet import init_parameters
+
+    model = algo.server_state.model
+    gen = torch.Generator().manual_seed(seed + 99)
+    trunk = copy.deepcopy(model.img_enc.cnn).cpu()
+    init_parameters(trunk, gen)
+    resnet = trunk.state_dict()
+    resnet["fc.weight"] = torch.randn(1000, 2048, generator=gen)
+    resnet["fc.bias"] = torch.randn(1000, generator=gen)
+    bert = copy.deepcopy(model.txt_enc.bert).cpu()
+    init_bert(bert, gen)
+    bert_sd = {f"bert.{k}": v for k, v in bert.state_dict().items()}
+    paths = (os.path.join(tmp, "resnet101.pth"), os.path.join(tmp, "bert.bin"))
+    torch.save(resnet, paths[0])
+    torch.save(bert_sd, paths[1])
+    algo.server.load_pretrained(algo.server_state, resnet_path=paths[0],
+                                bert_path=paths[1])
+    for key, val in model.img_enc.cnn.state_dict().items():
+        if not torch.equal(val.cpu(), resnet[key]):
+            raise AssertionError(f"load_pretrained: trunk {key} differs")
+    for key, val in model.txt_enc.bert.state_dict().items():
+        if not torch.equal(val.cpu(), bert_sd[f"bert.{key}"]):
+            raise AssertionError(f"load_pretrained: BERT {key} differs")
+    log(f"[paper] load_pretrained: {len(resnet) - 2} trunk and "
+        f"{len(bert_sd)} BERT tensors on the card equal the files'")
+
+
+def raw_trainer_check(algo, tmp: str, steps: int = 4) -> None:
+    """``RawTrainer`` on the round's server: ``steps`` train steps over the
+    paper-scale public loader (device images), one validation pass over a
+    640-caption set whose images are synthesized on the card."""
+    from creamfl_tpu_torch.data.device_synth import (DeviceImageBatches,
+                                                     DeviceImageSynth)
+    from creamfl_tpu_torch.data.loaders import ArrayLoader
+    from creamfl_tpu_torch.data.synthetic import SyntheticCaptionDataset
+    from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
+    from creamfl_tpu_torch.engine.evaluator import RetrievalEvaluator
+    from creamfl_tpu_torch.engine.pretrain import RawTrainer
+
+    class Reports:
+        def __init__(self):
+            self.train = []
+
+        def log(self, msg, level=None):
+            pass
+
+        def report(self, step, metrics, prefix=""):
+            if "train__loss" in metrics:
+                self.train.append(metrics["train__loss"])
+
+    val_ds = SyntheticCaptionDataset(
+        n_captions=640, image_size=IMAGE, max_len=MAX_LEN, seed=2,
+        vocab=algo.datasets["vocab"],
+        bert_tokenizer=BertWordPieceTokenizer.synthetic(), with_images=False)
+    val = DeviceImageBatches(
+        ArrayLoader(val_ds, PUB_BS, pad_last=True),
+        DeviceImageSynth(IMAGE, seed=val_ds.seed, device=algo.device),
+        val_ds._concept)
+    pub = algo.datasets["pub_train"]
+    steps = min(steps, len(pub))
+    reports = Reports()
+    trainer = RawTrainer(algo.server, algo.server_state, logger=reports,
+                         evaluator=RetrievalEvaluator(n_crossfolds=0))
+    step0 = trainer.state.step
+    out = trainer.train(pub, 1, val_loaders={"val": val},
+                        model_save_to=os.path.join(tmp, "last.pth"),
+                        best_model_save_to=os.path.join(tmp, "best.pth"),
+                        pub_data_ratio=(steps + 0.5) / len(pub))
+    taken = trainer.state.step - step0
+    rsum = out["scores"]["val"]["rsum"]
+    log(f"[paper] RawTrainer: {taken} steps, loss {reports.train}, "
+        f"validation rsum {rsum:.2f}")
+    if taken != steps or not all(map(math.isfinite, reports.train)):
+        raise AssertionError("RawTrainer: wrong step count or a non-finite "
+                             "loss")
+
+
+def run_round(seed: int, kind: str = "round"):
     """``round_phase`` with the launch counts zeroed just before it and read
-    just after: K3 (with the K1 and K2 launches inside it) once per public
-    batch and client (sequential) or client family (stacked, over all its
-    members' rows in one segment each), two for mm; K4 once per upload and
-    modality; every launch on the tc route; no K5/K6 (the standard trunk).
-    Then, outside the counted run, K1-K3 on the tc route against their
-    plain versions on the round's own global features (a public batch of
-    caption rows against the image gallery, each caption's own image its
-    label; stacked: K3 over two such batches in two segments), and for the
-    stacked round the resume check. Returns the round's launch counts."""
+    just after: K3 (with the K1 and K2 launches inside it) as
+    ``expected_gallery_launches`` says; K4 once per upload and modality,
+    pad slots included; every launch on the tc route; no K5/K6 (the standard trunk). Then,
+    outside the counted run, K1-K3 on the tc route against their plain
+    versions on the round's own global features (a public batch of caption
+    rows against the image gallery, each caption's own image its label;
+    stacked: K3 over two such batches in two segments). ``kind``:
+    "round" (sequential clients), "stacked" (with the resume check),
+    "paper_round" / "paper_full" (``--paper_scale``, stacked; no 224² image
+    rendered on the host, every device-image batch on the card; then the
+    synth, ``load_pretrained`` and ``RawTrainer`` checks). Returns the
+    round's launch counts."""
     import tempfile
 
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    tag = "stacked" if stacked else "round"
-    with tempfile.TemporaryDirectory() as ckpt:
+    stacked = kind != "round"
+    paper = kind.startswith("paper")
+    round_args = {"round": ROUND_ARGS, "stacked": STACKED_ROUND_ARGS,
+                  "paper_round": PAPER_ROUND_ARGS,
+                  "paper_full": PAPER_FULL_ARGS}[kind]
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = ("--ckpt_dir", tmp) if kind == "stacked" else ()
+        watch = _PaperWatch() if paper else contextlib.nullcontext()
         K.reset_launch_counts()
         FK.reset_launch_counts()
-        if stacked:
-            algo = round_phase(seed, ("--ckpt_dir", ckpt),
-                               round_args=STACKED_ROUND_ARGS, tag=tag)
-        else:
-            algo = round_phase(seed)
+        with watch:
+            algo = round_phase(seed, extra, round_args=round_args, tag=kind)
         torch.cuda.synchronize()
         counts = dict(K.launch_counts(), **FK.launch_counts())
         by_rows = dict(K.fused_gallery_ce.launches_by_rows)
-        log(f"[{tag}] kernels {json.dumps(counts)} by route "
+        log(f"[{kind}] kernels {json.dumps(counts)} by route "
             f"{json.dumps(gallery_route_counts())}; K3 by (rows, segments) "
             f"{json.dumps({f'{m}x{s}': n for (m, s), n in by_rows.items()})}")
-        steps = len(algo.datasets["pub_train"])  # contrast steps per client
-        per_step = {"img": 1, "txt": 1, "mm": 2}
-        kinds = [c.kind for c in algo.clients if c.client_idx in algo.sampled]
-        families = {k: kinds.count(k) for k in kinds}
-        if stacked:
-            k3 = steps * sum(per_step[k] for k in families)
-            rows = {}
-            for k, n in families.items():
-                rows[(n * PUB_BS, n)] = (rows.get((n * PUB_BS, n), 0)
-                                         + steps * per_step[k])
-        else:
-            k3 = steps * sum(per_step[k] for k in kinds)
-            rows = {(PUB_BS, 1): k3}
-        k4 = algo.img_reps.shape[0] + algo.txt_reps.shape[0]
+        k3, rows = expected_gallery_launches(algo, stacked)
+        # K4 once per upload and modality, on the client axis padded to a
+        # power of two (federation/aggregation.py:_bucketed; the pad
+        # slots' diagonals are computed, then masked).
+        k4 = sum(1 << (n - 1).bit_length() for n in (
+            algo.img_reps.shape[0], algo.txt_reps.shape[0]))
         want = {"fused_gallery_ce": k3, "row_logsumexp": k3,
                 "softmax_matvec": k3, "conw_diag": k4,
                 "mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}
         if counts != want or by_rows != rows:
-            raise AssertionError(f"{tag}: launches {counts} by rows "
+            raise AssertionError(f"{kind}: launches {counts} by rows "
                                  f"{by_rows}, not {want} by rows {rows}")
         for name in GALLERY_KERNELS:
             by_route = getattr(K, name).launches_by_route
             if by_route != {"tc": counts[name], "simt": 0}:
-                raise AssertionError(f"{tag}: {name} took routes {by_route}, "
-                                     f"not all {counts[name]} on tc")
+                raise AssertionError(f"{kind}: {name} took routes "
+                                     f"{by_route}, not all {counts[name]} "
+                                     f"on tc")
+        if paper:
+            log(f"[{kind}] host-rendered caption-set images: "
+                f"{watch.host_images}; device-image batches by side "
+                f"{json.dumps(watch.batches)}, all on the card")
+            if watch.host_images or set(watch.batches) != {IMAGE}:
+                raise AssertionError(f"{kind}: images rendered on the host "
+                                     f"or at another size")
         errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
         gal = algo.global_img_feature.float()
         shape = f"{PUB_BS}x{gal.shape[0]}x{gal.shape[1]}"
-        check_gallery_case(f"{tag} globals {shape} tc",
+        check_gallery_case(f"{kind} globals {shape} tc",
                            algo.global_txt_feature[:PUB_BS].float(), gal,
                            torch.arange(PUB_BS, device=gal.device), 0.5,
                            "tc", errs)
         if stacked:
             check_segmented_case(
-                f"{tag} globals 2x{shape} tc",
+                f"{kind} globals 2x{shape} tc",
                 algo.global_txt_feature[:2 * PUB_BS].float(), gal,
                 torch.arange(PUB_BS, device=gal.device).repeat(2), 0.5,
                 "tc", 2, errs)
-        log(f"[{tag}] K1-K3 on the round's global features, worst errors "
+        log(f"[{kind}] K1-K3 on the round's global features, worst errors "
             f"{json.dumps(errs)}")
-        if stacked:
+        if kind == "stacked":
             resume_check(algo)
+        if paper:
+            synth_phase(seed, algo.device)
+            pretrained_check(algo, seed, tmp)
+            raw_trainer_check(algo, tmp)
     del algo
     torch.cuda.empty_cache()
     return counts
@@ -1553,6 +1890,13 @@ def main() -> int:
     parser.add_argument("--stacked", action="store_true",
                         help="build and run the stacked round phase alone, "
                         "then stop without the result line")
+    parser.add_argument("--paper-round", action="store_true",
+                        help="build and run the paper round phase alone, "
+                        "then stop without the result line")
+    parser.add_argument("--paper-full", action="store_true",
+                        help="build and run the paper round at the paper's "
+                        "full geometry alone, then stop without the result "
+                        "line")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1567,11 +1911,13 @@ def main() -> int:
     if opts.probe:
         probe_phase(opts.seed)
         return 0
-    if opts.round:
-        run_round(opts.seed)
-        return 0
-    if opts.stacked:
-        run_round(opts.seed, stacked=True)
+    alone = [kind for kind, on in (
+        ("round", opts.round), ("stacked", opts.stacked),
+        ("paper_round", opts.paper_round), ("paper_full", opts.paper_full))
+        if on]
+    if alone:
+        for kind in alone:
+            run_round(opts.seed, kind)
         return 0
     run_probe(opts.seed)
     rec = kernel_phase(opts.seed)
@@ -1594,7 +1940,8 @@ def main() -> int:
     paths["server"] = server_phase(opts.seed)
     log(f"[server] kernels {json.dumps(paths['server'])}")
     paths["round"] = run_round(opts.seed)
-    paths["stacked"] = run_round(opts.seed, stacked=True)
+    paths["stacked"] = run_round(opts.seed, "stacked")
+    paths["paper_round"] = run_round(opts.seed, "paper_round")
     # Per kernel, its launches on each path that runs it, and their sum.
     by_path = {k: {p: c[k] for p, c in paths.items() if c.get(k, 0)}
                for k in KERNELS}

@@ -1,8 +1,7 @@
 """Batching and collation for static shapes.
 
 The port's own copy of the JAX package's ``data/loaders.py``: the same
-batches, pads and epoch order for one seed. ``ProjectedLoader`` has no
-on-device image branch (``device_synth`` is not ported).
+batches, pads and epoch order for one seed.
 
 The reference's DataLoaders sort each batch by caption length and pad to
 the batch max (`src/datasets/_dataloader.py:35-64`). Here, as in the JAX
@@ -283,9 +282,11 @@ class ProjectedLoader:
     """Restrict a batch loader to the fields a consumer actually reads.
 
     A text-client sweep that reads only ``captions``/``lengths`` then
-    copies no image batch to the device. (Host-rendered images are still
-    rendered: the JAX package skips them only on its on-device image
-    path, which the port does not have.)
+    copies no image batch to the device, and synthesizes none: when
+    ``images`` is not requested and the loader is a ``DeviceImageBatches``
+    wrapper (``data/device_synth.py``), iteration short-circuits to its
+    caption-only ``base`` loader. Host-rendered images (the default
+    scale) are still rendered.
     """
 
     def __init__(self, loader, fields):
@@ -296,5 +297,11 @@ class ProjectedLoader:
         return len(self.loader)
 
     def __iter__(self):
-        for batch in self.loader:
+        from creamfl_tpu_torch.data.device_synth import DeviceImageBatches
+
+        src = self.loader
+        if isinstance(src, DeviceImageBatches) and (
+                "images" not in self.fields):
+            src = src.base  # skip device image synthesis
+        for batch in src:
             yield {k: v for k, v in batch.items() if k in self.fields}

@@ -17,8 +17,13 @@ reference `src/utils/load_datasets.py` + `src/datasets/load_FL_datasets.py`).
 Images are rendered on the host by the datasets and batched by
 ``ArrayLoader`` (the JAX package's ``grain`` backend falls back to it);
 for one seed the batches are bit-equal to the JAX package's. The
-real-data readers and the on-device image path (``device_images``) are
-not ported yet.
+``--paper_scale`` knobs: ``cache`` pre-renders the caption sets into
+contiguous host arrays, ``prefetch`` assembles batches on a background
+thread, ``client_image_size`` gives the image clients their own (CIFAR)
+resolution, ``mm_client_data_size`` the mm clients their own size, and
+``device_images`` synthesizes the caption sets' images on ``device``
+(``data/device_synth.py``) so that only caption fields live on the host.
+The real-data readers are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +32,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from creamfl_tpu_torch.data.loaders import ArrayLoader
+from creamfl_tpu_torch.data.device_synth import (DeviceImageBatches,
+                                                 DeviceImageSynth)
+from creamfl_tpu_torch.data.loaders import (ArrayLoader, CachedDataset,
+                                            PrefetchLoader)
 from creamfl_tpu_torch.data.partition import data_partitioner
 from creamfl_tpu_torch.data.synthetic import (SyntheticCaptionDataset,
                                               SyntheticImageClassification,
@@ -44,21 +52,19 @@ def build_synthetic_datasets(args, vocab: Optional[Vocabulary] = None,
                              retrieval_test_size: int = 100,
                              batch_size: Optional[int] = None,
                              bert_tokenizer=None,
+                             cache: bool = False,
+                             client_image_size: Optional[int] = None,
+                             prefetch: int = 0,
+                             mm_client_data_size: Optional[int] = None,
                              device_images: bool = False,
                              pub_batch_size: Optional[int] = None,
-                             pub_eval_batch_size: Optional[int] = None
-                             ) -> Dict:
+                             pub_eval_batch_size: Optional[int] = None,
+                             device="cuda") -> Dict:
     """Shape-faithful synthetic bundle (scaled down by default).
 
-    The JAX function's ``cache``, ``prefetch``, ``client_image_size`` and
-    ``mm_client_data_size`` knobs serve only its ``--paper_scale`` branch
-    and come with that slice (``loaders.CachedDataset`` and
-    ``loaders.PrefetchLoader`` are ported already).
+    ``device`` is where ``device_images`` synthesizes; nothing else reads
+    it.
     """
-    if device_images:
-        raise NotImplementedError(
-            "device_images (on-device image synthesis, --paper_scale) is "
-            "not ported yet (ROADMAP queue 1 item 3)")
     vocab = vocab or Vocabulary.synthetic(100)
     bs = batch_size or min(args.batch_size, pub_size)
     # Public loaders have their own batch sizes in the reference
@@ -66,25 +72,47 @@ def build_synthetic_datasets(args, vocab: Optional[Vocabulary] = None,
     # load_datasets.py:59,82) independent of the clients' --batch_size.
     pub_bs = min(pub_batch_size or bs, pub_size)
     pub_ebs = min(pub_eval_batch_size or pub_bs, pub_size)
+    client_image_size = client_image_size or image_size
 
-    pub = SyntheticCaptionDataset(
+    def _maybe_cache(ds):
+        return CachedDataset(ds, verbose=True) if cache else ds
+
+    def _caption_loader(base_ds, store, **kw):
+        """Loader over a caption dataset; with ``device_images`` the images
+        are synthesized on the device per batch, on the consumer's thread
+        (after the prefetch thread)."""
+        loader = ArrayLoader(store, **kw)
+        if prefetch:
+            loader = PrefetchLoader(loader, prefetch)
+        if not device_images:
+            return loader
+        synth = DeviceImageSynth(base_ds.image_size, seed=base_ds.seed,
+                                 n_concepts=base_ds.n_concepts,
+                                 signal=base_ds.signal, device=device)
+        return DeviceImageBatches(loader, synth, base_ds._concept)
+
+    pub_ds = SyntheticCaptionDataset(
         n_captions=pub_size, image_size=image_size, max_len=max_len,
-        vocab=vocab, seed=1, bert_tokenizer=bert_tokenizer)
-    test = SyntheticCaptionDataset(
+        vocab=vocab, seed=1, bert_tokenizer=bert_tokenizer,
+        with_images=not device_images)
+    test_ds = SyntheticCaptionDataset(
         n_captions=retrieval_test_size, image_size=image_size,
-        max_len=max_len, vocab=vocab, seed=2, bert_tokenizer=bert_tokenizer)
+        max_len=max_len, vocab=vocab, seed=2, bert_tokenizer=bert_tokenizer,
+        with_images=not device_images)
+    pub, test = _maybe_cache(pub_ds), _maybe_cache(test_ds)
 
     datasets: Dict = {
         "vocab": vocab,
         "synthetic": True,
         # Keep the trailing partial public batch like the reference.
-        "pub_train": ArrayLoader(pub, batch_size=pub_bs, shuffle=True,
-                                 drop_last=False, pad_last=False,
-                                 seed=args.seed),
-        "pub_eval": ArrayLoader(pub, batch_size=pub_ebs, shuffle=False,
-                                pad_last=False),
-        "test": ArrayLoader(test, batch_size=min(bs, retrieval_test_size),
-                            shuffle=False, pad_last=True),
+        "pub_train": _caption_loader(pub_ds, pub, batch_size=pub_bs,
+                                     shuffle=True, drop_last=False,
+                                     pad_last=False, seed=args.seed),
+        "pub_eval": _caption_loader(pub_ds, pub, batch_size=pub_ebs,
+                                    shuffle=False, pad_last=False),
+        "test": _caption_loader(test_ds, test,
+                                batch_size=min(bs, retrieval_test_size),
+                                shuffle=False, pad_last=True),
         "img_num_class": 100,
         "txt_num_class": 4,
         # Synthetic retrieval test is small: shrink the crossfolds.
@@ -97,7 +125,7 @@ def build_synthetic_datasets(args, vocab: Optional[Vocabulary] = None,
     if args.num_img_clients > 0:
         full = SyntheticImageClassification(
             n=client_data_size * args.num_img_clients,
-            image_size=image_size, num_classes=100, seed=3)
+            image_size=client_image_size, num_classes=100, seed=3)
         parts = data_partitioner("cifar100", len(full),
                                  args.num_img_clients, "hetero",
                                  alpha=args.alpha,
@@ -110,7 +138,7 @@ def build_synthetic_datasets(args, vocab: Optional[Vocabulary] = None,
             for i in range(args.num_img_clients)]
         datasets["img_test"] = ArrayLoader(
             SyntheticImageClassification(n=test_size,
-                                         image_size=image_size,
+                                         image_size=client_image_size,
                                          num_classes=100, seed=4),
             min(bs, test_size), pad_last=True)
     if args.num_txt_clients > 0:
@@ -133,15 +161,22 @@ def build_synthetic_datasets(args, vocab: Optional[Vocabulary] = None,
                                         seed=6),
             min(bs, test_size), pad_last=True)
     if args.num_mm_clients > 0:
+        # mm shards are smaller than unimodal ones (the reference's F30k
+        # k-split gives ~2k pairs a client vs CIFAR's 5k).
+        mm_n = mm_client_data_size or client_data_size
+        mm_datasets = [
+            SyntheticCaptionDataset(n_captions=mm_n, image_size=image_size,
+                                    max_len=max_len, vocab=vocab,
+                                    seed=100 + i,
+                                    with_images=not device_images)
+            for i in range(args.num_mm_clients)]
         # pad_last + pair masking in local_step: reference DataLoaders
         # keep the trailing partial batch (drop_last=False).
         datasets["mm_clients"] = [
-            ArrayLoader(SyntheticCaptionDataset(
-                n_captions=client_data_size, image_size=image_size,
-                max_len=max_len, vocab=vocab, seed=100 + i),
-                batch_size=min(bs, client_data_size), shuffle=True,
-                drop_last=False, pad_last=True, seed=args.seed)
-            for i in range(args.num_mm_clients)]
+            _caption_loader(ds, _maybe_cache(ds), batch_size=min(bs, mm_n),
+                            shuffle=True, drop_last=False, pad_last=True,
+                            seed=args.seed)
+            for ds in mm_datasets]
     return datasets
 
 

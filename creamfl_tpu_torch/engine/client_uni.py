@@ -52,10 +52,14 @@ class UniClientEngine:
     EngineState."""
 
     def __init__(self, modality: str, num_class: int, args,
-                 vocab_size: int = 0, device="cuda"):
+                 vocab_size: int = 0, use_bf16: bool = False, device="cuda"):
+        """``use_bf16`` (``--client_bf16``, image clients): the trunk
+        computes in bf16; parameters, BatchNorm statistics, optimizer state
+        and checkpoints stay fp32."""
         if modality not in ("img", "txt"):
             raise ValueError(f"unknown client modality {modality!r}")
         self.modality = modality
+        self.dtype = torch.bfloat16 if use_bf16 else torch.float32
         self.vocab_size = vocab_size
         self.args = args
         self.device = resolve_device(device)
@@ -85,7 +89,8 @@ class UniClientEngine:
             model = ImageClientNet(self.cnn_type, num_class=self.num_class,
                                    embed_dim=self.args.feature_dim,
                                    scale=128.0,
-                                   mlp_local=self.args.mlp_local)
+                                   mlp_local=self.args.mlp_local,
+                                   dtype=self.dtype)
             init_parameters(model, gen)
         else:
             model = TextClientNet(self.vocab_size, num_class=self.num_class,

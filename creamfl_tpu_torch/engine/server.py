@@ -13,7 +13,10 @@ Port of the JAX package's ``engine/server.py`` (reference
 * ``distill_step``: ``kd_weight`` * MSE against the con_w aggregate rows
   ``rows``; the mm-client term counts both modalities a second time, as
   the reference does (`MMFL.py:371-378`);
-* ``eval_step``: eval-mode forward.
+* ``eval_step``: eval-mode forward;
+* ``load_pretrained``: torchvision ResNet, HF BERT and GloVe weights from
+  local files; ``save_models`` / ``load_models``: the engine bundle that
+  ``engine.pretrain.RawTrainer`` writes.
 
 bf16 as in the JAX package: trunk and BERT compute in bf16 (autocast inside
 the encoders), params, heads and the criterion in fp32. The fused trunk is
@@ -33,6 +36,7 @@ import torch
 from creamfl_tpu_torch.engine.state import EngineState
 from creamfl_tpu_torch.losses.mcsoft import (MCSoftContrastiveConfig,
                                              MCSoftCriterion)
+from creamfl_tpu_torch.models import convert
 from creamfl_tpu_torch.models.bert import BertConfig
 from creamfl_tpu_torch.models.pcme import PCME, init_pcme
 from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
@@ -40,6 +44,7 @@ from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
                                              make_server_optimizer,
                                              set_learning_rate)
 from creamfl_tpu_torch.utils.device import resolve_device
+from creamfl_tpu_torch.utils.helper import save_checkpoint
 from creamfl_tpu_torch.utils.serialize import flatten_dict
 
 StateDict = Dict[str, torch.Tensor]
@@ -118,6 +123,47 @@ class ServerEngine:
 
     def set_round_lr(self, state: EngineState, round_n: int) -> EngineState:
         set_learning_rate(state.optimizer, self.lr_schedule(round_n))
+        return state
+
+    @torch.no_grad()
+    def load_pretrained(self, state: EngineState,
+                        resnet_path: Optional[str] = None,
+                        bert_path: Optional[str] = None,
+                        glove_path: Optional[str] = None,
+                        vocab=None) -> EngineState:
+        """Copy pretrained weights into the state's model, in place: a
+        torchvision ResNet state dict into the image trunk (its ``fc.*``
+        dropped), an HF BERT state dict (with or without its ``bert.``
+        prefix) into the BERT text encoder, a GloVe text file into the GRU
+        branch's word embedding (misses keep their initial rows). The
+        reference downloads all three; here they are local files."""
+        model = state.model
+        if resnet_path:
+            model.img_enc.cnn.load_state_dict(
+                convert.load_torchvision_trunk(resnet_path))
+        if bert_path and not model.not_bert:
+            model.txt_enc.bert.load_hf_state_dict(
+                convert.load_state_dict(bert_path))
+        if glove_path and model.not_bert and vocab is not None:
+            embed = model.txt_enc.embed.weight
+            mat, _ = convert.load_glove_embeddings(
+                glove_path, vocab, embed.shape[1],
+                init=embed.detach().cpu().numpy())
+            embed.copy_(torch.from_numpy(mat))
+        return state
+
+    def save_models(self, path: str, state: EngineState,
+                    metadata: Optional[Dict] = None) -> str:
+        """The engine bundle (reference retrieval_trainer.py:137-149):
+        model, criterion, optimizer and step, with ``metadata``."""
+        return save_checkpoint(path, dict(state.state_dict(),
+                                          metadata=metadata or {}))
+
+    def load_models(self, path: str, state: EngineState) -> EngineState:
+        """Restore a ``save_models`` bundle into ``state`` in place, the
+        optimizer's moments included."""
+        state.load_state_dict(torch.load(path, map_location=self.device,
+                                         weights_only=True))
         return state
 
     def text_inputs(self, batch: Dict[str, Any]):

@@ -29,8 +29,12 @@ a resumed run continues a straight one. Weights are drawn from
 ``args.seed``; ``load_state_dicts`` replaces them (e.g. by a JAX
 ``MMFL``'s, converted).
 
-Not ported yet, and refused rather than ignored: a multi-GPU mesh,
-``--client_bf16`` and the pretrained-weight loaders (ROADMAP queue 1).
+``--client_bf16`` runs the image clients' trunks in bf16 on both client
+branches. ``--resnet_ckpt``, ``--bert_ckpt`` and ``--glove_path`` load the
+server's pretrained weights from local files, ``--client_resnet_ckpt`` and
+``--glove_path`` the clients' (a client trunk whose shapes differ from the
+file's is logged and skipped, as in the JAX package). Not ported yet, and
+refused rather than ignored: a multi-GPU mesh (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -55,18 +59,6 @@ from creamfl_tpu_torch.utils.helper import save_checkpoint
 from creamfl_tpu_torch.utils.logging import NoOpTracker, PythonLogger
 from creamfl_tpu_torch.utils.profiling import StepTimer
 
-# Options of the JAX MMFL that the port does not have yet, with the
-# ROADMAP item that brings each.
-_UNPORTED = (
-    ("client_bf16", "--client_bf16", "queue 1 item 3"),
-    ("resnet_ckpt", "--resnet_ckpt", "queue 1 item 3 (load_pretrained)"),
-    ("bert_ckpt", "--bert_ckpt", "queue 1 item 3 (load_pretrained)"),
-    ("glove_path", "--glove_path", "queue 1 item 3 (load_pretrained)"),
-    ("client_resnet_ckpt", "--client_resnet_ckpt",
-     "queue 1 item 3 (load_pretrained)"),
-)
-
-
 class ClientHandle:
     """One federated client: family engine + its own state + data."""
 
@@ -89,10 +81,6 @@ class MMFL:
         lists, img/txt test loaders, vocab, class counts, crossfolds).
         ``device``: where everything runs; CUDA unless the caller asks for
         the CPU."""
-        for flag, what, item in _UNPORTED:
-            if getattr(args, flag, None):
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
         self.device = resolve_device(device)
         n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
                  else 1)
@@ -123,6 +111,13 @@ class MMFL:
         self.clients: List[ClientHandle] = []
         self._build_clients(mm_config, vocab_size)
         self.server_state = self.server.init_state(self._init_seed(0))
+        files = {"resnet_path": getattr(args, "resnet_ckpt", None),
+                 "bert_path": getattr(args, "bert_ckpt", None),
+                 "glove_path": getattr(args, "glove_path", None)}
+        if any(files.values()):
+            self.server.load_pretrained(self.server_state,
+                                        vocab=datasets["vocab"], **files)
+            self.logger.log("loaded pretrained weights into server")
 
         self.best_score = 0.0
         self.best_scores = None
@@ -152,8 +147,9 @@ class MMFL:
         families = []
         if args.num_img_clients > 0 and ds.get("img_clients"):
             families.append(("img", UniClientEngine(
-                "img", ds["img_num_class"], args, device=dev),
-                ds["img_clients"]))
+                "img", ds["img_num_class"], args,
+                use_bf16=bool(getattr(args, "client_bf16", False)),
+                device=dev), ds["img_clients"]))
         if args.num_txt_clients > 0 and ds.get("txt_clients"):
             families.append(("txt", UniClientEngine(
                 "txt", ds["txt_num_class"], args, vocab_size=vocab_size,
@@ -170,6 +166,57 @@ class MMFL:
                                       loader, i)
                 client.client_idx = idx
                 self.clients.append(client)
+        if getattr(args, "glove_path", None):
+            self._load_client_glove(args.glove_path)
+        if getattr(args, "client_resnet_ckpt", None):
+            self._load_client_resnet(args.client_resnet_ckpt)
+
+    @torch.no_grad()
+    def _load_client_resnet(self, path: str) -> None:
+        """A torchvision ResNet file into every image client's trunk
+        (reference resnet18_client(pretrained=True),
+        resnet_client.py:227-231); when the trunk's shapes differ from the
+        file's, log it and load nothing."""
+        from creamfl_tpu_torch.models.convert import load_torchvision_trunk
+
+        trunk = load_torchvision_trunk(path)
+        got = {k: tuple(v.shape) for k, v in trunk.items()}
+        for c in self.clients:
+            if c.kind != "img":
+                continue
+            backbone = c.state.model.backbone
+            if got != {k: tuple(v.shape)
+                       for k, v in backbone.state_dict().items()}:
+                self.logger.log("client trunk/ckpt architecture mismatch; "
+                                "skipping pretrained load")
+                return
+            backbone.load_state_dict(trunk)
+
+    @torch.no_grad()
+    def _load_client_glove(self, glove_path: str) -> None:
+        """GloVe rows into the text and mm clients' word embeddings
+        (reference caption_encoder.py:60-85, language_model.py:66-91). As
+        in the JAX package, one matrix is built per embedding shape, its
+        misses from the first such client's rows, and every client of that
+        shape takes it."""
+        from creamfl_tpu_torch.models.convert import load_glove_embeddings
+
+        vocab = self.datasets["vocab"]
+        mat = None
+        for c in self.clients:
+            if c.kind == "txt":
+                embed = c.state.model.embed.weight
+            elif c.kind == "mm":
+                embed = c.state.model.txt_enc.embed.weight
+            else:
+                continue
+            if mat is None or mat.shape != tuple(embed.shape):
+                mat, missing = load_glove_embeddings(
+                    glove_path, vocab, embed.shape[1],
+                    init=embed.detach().cpu().numpy())
+                self.logger.log(
+                    f"glove: {len(vocab) - missing}/{len(vocab)} hit")
+            embed.copy_(torch.from_numpy(mat))
 
     def load_state_dicts(self, server: Optional[Dict] = None,
                          clients: Optional[List[Optional[Dict]]] = None

@@ -4,9 +4,9 @@ Port of the JAX package's ``main.py``: the same flag surface
 (``add_args``), ``build_configs``, ``build_datasets`` and ``run``. Runs on
 the card (``--device N`` picks it) unless ``--no-cuda`` asks for the CPU;
 without a card and without ``--no-cuda`` it raises. Only the synthetic
-datasets are ported (``--synthetic``, at the default scale or ``--smoke``);
-the real-data readers and ``--paper_scale`` raise, as do the options
-``federation.rounds.MMFL`` does not have yet.
+datasets are ported (``--synthetic``, at the default scale, ``--smoke`` or
+``--paper_scale``); the real-data readers raise, as does a mesh of more
+than one card.
 
 Two rounds on the card, the paper's flags, stacked client families (the
 default; ``--no_client_parallel`` runs the clients one by one), a round
@@ -17,7 +17,12 @@ checkpoint after each round:
       --img_model_local resnet18 --agg_method con_w \
       --contrast_local_inter --contrast_local_intra --ckpt_dir ck
 The same command with ``--resume`` continues after the latest checkpoint.
-The same on the CPU at small shapes: add ``--no-cuda --smoke``.
+The same on the CPU at small shapes: add ``--no-cuda --smoke``. At the
+paper's geometry (a 50 000-row public set at 224², its images synthesized
+on the card): add ``--paper_scale``; ``--client_bf16`` runs the image
+clients' trunks in bf16, and ``--resnet_ckpt``, ``--bert_ckpt``,
+``--glove_path`` and ``--client_resnet_ckpt`` load weights from local
+files.
 """
 
 from __future__ import annotations
@@ -96,8 +101,8 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                         default=False,
                         help='full paper geometry on synthetic data: '
                              '50k public set @224px, R101+BERT, 25k-'
-                             'caption retrieval eval (pre-rendered '
-                             'into RAM)')
+                             'caption retrieval eval (images '
+                             'synthesized on the device)')
     parser.add_argument('--coco_root', type=str, default=None)
     parser.add_argument('--cifar_root', type=str, default=None)
     parser.add_argument('--agnews_root', type=str, default=None)
@@ -188,9 +193,11 @@ def build_configs(args):
     return server, mm, bert_config
 
 
-def build_datasets(args):
-    """The synthetic bundle at ``--smoke`` or the default scale (the JAX
-    package's scales, `creamfl_tpu/main.py:205-230`)."""
+def build_datasets(args, device=None):
+    """The synthetic bundle at ``--smoke``, ``--paper_scale`` or the
+    default scale (the JAX package's scales, `creamfl_tpu/main.py:186-230`).
+    ``--paper_scale`` synthesizes the caption sets' images on ``device``
+    (default: the run's, ``--no-cuda`` / ``--device``)."""
     from creamfl_tpu_torch.data import pipelines
     from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
 
@@ -198,16 +205,26 @@ def build_datasets(args):
         raise NotImplementedError(
             "the real-data readers are not ported yet (ROADMAP queue 1, "
             "real-data readers); pass --synthetic")
-    if getattr(args, "paper_scale", False):
-        raise NotImplementedError(
-            "--paper_scale (on-device image synthesis) is not ported yet "
-            "(ROADMAP queue 1 item 3)")
     bert_tok = (None if args.not_bert
                 else BertWordPieceTokenizer.synthetic())
     if args.smoke:
         scale = dict(pub_size=128, image_size=64, max_len=12,
                      client_data_size=64, test_size=32,
                      retrieval_test_size=60)
+    elif getattr(args, "paper_scale", False):
+        # The paper's geometry: the public set at 224² (--pub_data_num
+        # rows), CIFAR-resolution image clients, 2 000-caption mm clients,
+        # a COCO-5K-sized retrieval test. Caption sets are pre-rendered
+        # into host arrays and prefetched on a thread; their images are
+        # synthesized on the device (data/device_synth.py).
+        scale = dict(pub_size=args.pub_data_num, image_size=224,
+                     max_len=32, client_data_size=5000,
+                     mm_client_data_size=2000, test_size=1024,
+                     retrieval_test_size=25000, cache=True,
+                     client_image_size=32, prefetch=2,
+                     device_images=True, pub_batch_size=128,
+                     pub_eval_batch_size=256,
+                     device=device or _run_device(args))
     else:
         scale = dict(pub_size=min(args.pub_data_num, 2048),
                      image_size=224, max_len=32, client_data_size=512,
@@ -218,14 +235,21 @@ def build_datasets(args):
                                               **scale)
 
 
+def _run_device(args):
+    """The run's device: the card ``--device`` names, or the CPU under
+    ``--no-cuda``; raises when the card is asked for and there is none."""
+    from creamfl_tpu_torch.utils.device import resolve_device
+
+    return resolve_device("cpu" if args.no_cuda else f"cuda:{args.device}")
+
+
 def run(args):
     """One federated run; returns the ``MMFL`` it drove."""
     from creamfl_tpu_torch.federation.rounds import MMFL
-    from creamfl_tpu_torch.utils.device import resolve_device
     from creamfl_tpu_torch.utils.helper import set_seed
     from creamfl_tpu_torch.utils.logging import PythonLogger, get_tracker
 
-    device = resolve_device("cpu" if args.no_cuda else f"cuda:{args.device}")
+    device = _run_device(args)
     # Seed the global python/numpy/torch generators like the reference
     # (main.py:122 -> helper.set_seed).
     set_seed(args.seed)
@@ -234,7 +258,7 @@ def run(args):
                                                    f"{args.name}.log"))
     tracker = get_tracker(args.name, enabled=args.wandb)
     server_cfg, mm_cfg, bert_cfg = build_configs(args)
-    datasets = build_datasets(args)
+    datasets = build_datasets(args, device)
 
     algo = MMFL(args, datasets, server_cfg, mm_cfg, tracker=tracker,
                 logger=logger, bert_config=bert_cfg, device=device)

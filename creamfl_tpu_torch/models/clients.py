@@ -25,7 +25,8 @@ import torch
 import torch.nn as nn
 
 from creamfl_tpu_torch.models.gru import BiGRU, init_gru
-from creamfl_tpu_torch.models.pcme import MLPHead, gru_pie_forward
+from creamfl_tpu_torch.models.pcme import (MLPHead, compute_dtype,
+                                           gru_pie_forward)
 from creamfl_tpu_torch.models.pie import PIENet, init_pie
 from creamfl_tpu_torch.models.resnet import (ResNetBackbone, global_avg_pool,
                                              init_parameters,
@@ -55,13 +56,19 @@ class ImageClientNet(nn.Module):
     ``head_proj`` exists with ``mlp_local`` only, as in the JAX client
     engine's tree; the train phase leaves it out of its graph (no
     gradient, so SGD leaves it as the JAX engine's frozen copy does).
+
+    ``dtype=torch.bfloat16`` (``--client_bf16``) runs the trunk under
+    ``torch.autocast`` and casts its grid to fp32 before pooling;
+    parameters, BatchNorm statistics and everything after the pool stay
+    fp32, as in the JAX client.
     """
 
     def __init__(self, cnn_type: str = "resnet18", num_class: int = 100,
                  embed_dim: int = 256, scale: float = 128.0,
-                 mlp_local: bool = False):
+                 mlp_local: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.scale = scale
+        self.dtype = dtype
         self.backbone = ResNetBackbone(cnn_type)
         width = resnet_feature_dim(cnn_type)
         self.linear = None
@@ -73,7 +80,9 @@ class ImageClientNet(nn.Module):
         self.head_proj = MLPHead(width) if mlp_local else None
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
-        x = global_avg_pool(self.backbone(images).float()) * self.scale
+        with compute_dtype(self.dtype, images.device):
+            grid = self.backbone(images)
+        x = global_avg_pool(grid.float()) * self.scale
         return x if self.linear is None else self.linear(x)
 
     def forward(self, images: torch.Tensor, phase: str = "train"

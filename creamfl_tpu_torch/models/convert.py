@@ -8,12 +8,19 @@ scale/bias/mean/var -> weight/bias/running_mean/running_var, LayerNorm
 scale/bias -> weight/bias, Embed tables as they are. BERT takes
 HuggingFace's names (the inverse of the JAX package's ``hf_bert_to_flax``),
 the BiGRU ``torch.nn.GRU``'s (``weight_ih_l0``, ``*_l0_reverse``).
+
+Pretrained weights from local files (the reference downloads torchvision
+ResNets, HF ``bert-base-uncased`` and GloVe; nothing is fetched here):
+``load_state_dict`` reads a torch checkpoint, whose torchvision or HF key
+names the port's modules already use, and ``load_glove_embeddings`` builds
+a word-embedding matrix from a GloVe text file (copies of the JAX
+package's).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,3 +233,67 @@ def flax_server_state_to_torch(params: Mapping, batch_stats: Mapping
     for name, val in params["criterion"].items():
         sd[f"criterion.{name}"] = _t(val)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Pretrained weights from local files
+# ---------------------------------------------------------------------------
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint's state dict (unwrapping a ``state_dict`` entry),
+    every tensor on the CPU."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+def load_torchvision_trunk(path: str) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet checkpoint without its classifier (``fc.*``):
+    the state dict of ``models.resnet.ResNetBackbone``."""
+    return {k: v for k, v in load_state_dict(path).items()
+            if not k.startswith("fc.")}
+
+
+def load_glove_embeddings(path: str, vocab, word_dim: int = 300,
+                          init: Optional[np.ndarray] = None
+                          ) -> Tuple[np.ndarray, int]:
+    """Text-format GloVe file -> [V, word_dim] matrix.
+
+    Reproduces the reference's hit-rate trick
+    (caption_encoder.py:77-85): on a miss, retry after stripping
+    '-', '.', "'" and taking the pre-'/' part. Returns (matrix, n_missing).
+    """
+    table: Dict[str, np.ndarray] = {}
+    wanted = set(vocab.word2idx.keys())
+    variants = set()
+    for w in wanted:
+        v = w.replace("-", "").replace(".", "").replace("'", "")
+        if "/" in v:
+            v = v.split("/")[0]
+        variants.add(v)
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip().split(" ")
+            word = parts[0]
+            if word in wanted or word in variants:
+                table[word] = np.asarray(parts[1:], np.float32)
+
+    if init is None:
+        rng = np.random.default_rng(0)
+        mat = rng.normal(0, 0.02,
+                         (len(vocab), word_dim)).astype(np.float32)
+    else:
+        mat = np.array(init, np.float32, copy=True)
+    missing = 0
+    for word, idx in vocab.word2idx.items():
+        key = word
+        if key not in table:
+            key = word.replace("-", "").replace(".", "").replace("'", "")
+            if "/" in key:
+                key = key.split("/")[0]
+        if key in table:
+            mat[idx] = table[key]
+        else:
+            missing += 1
+    return mat, missing

@@ -35,7 +35,7 @@ from creamfl_tpu_torch.models.resnet import (BatchNorm, ResNetBackbone,
 from creamfl_tpu_torch.ops.l2norm import l2_normalize
 
 
-def _compute(dtype: torch.dtype, device: torch.device):
+def compute_dtype(dtype: torch.dtype, device: torch.device):
     """bf16 autocast on ``device`` for a bf16 module, else nothing."""
     if dtype == torch.float32:
         return contextlib.nullcontext()
@@ -71,7 +71,7 @@ class ImageEncoder(nn.Module):
         self.head_proj = MLPHead(embed_dim) if mlp_local else None
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with _compute(self.dtype, images.device):
+        with compute_dtype(self.dtype, images.device):
             grid = self.cnn(images)
         b, h, w, c = grid.shape
         grid = grid.float()
@@ -131,7 +131,7 @@ class TextEncoderBert(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with _compute(self.dtype, input_ids.device):
+        with compute_dtype(self.dtype, input_ids.device):
             hidden = self.bert(input_ids, attention_mask)
         cls = hidden[:, 0, :].float()
         return {"embedding": l2_normalize(self.linear(cls))}

@@ -151,6 +151,23 @@ def test_cached_prefetch_and_projected_loaders():
 
 
 def test_device_images_not_ported():
-    with pytest.raises(NotImplementedError):
-        pipelines.build_synthetic_datasets(_args(), device_images=True,
-                                           **SCALE)
+    """The on-device image branch is ported (it was refused before):
+    with ``device_images`` the caption sets' images come from
+    ``DeviceImageSynth`` on the device asked for, as torch tensors of the
+    host images' shape, and every other field is the host bundle's."""
+    import torch
+
+    from creamfl_tpu_torch.data.device_synth import DeviceImageBatches
+
+    host = pipelines.build_synthetic_datasets(_args(), **SCALE)
+    dev = pipelines.build_synthetic_datasets(_args(), device_images=True,
+                                             device="cpu", **SCALE)
+    for key in ("pub_train", "pub_eval", "test"):
+        assert isinstance(dev[key], DeviceImageBatches), key
+        for hb, db in zip(host[key], dev[key]):
+            assert sorted(hb) == sorted(db)
+            assert isinstance(db["images"], torch.Tensor)
+            assert tuple(db["images"].shape) == hb["images"].shape
+            for k in hb:
+                if k != "images":
+                    np.testing.assert_array_equal(db[k], hb[k], err_msg=k)

@@ -122,6 +122,20 @@ def test_cli_without_synthetic_raises():
     args = main.parse_args(["--no-cuda", "--no_client_parallel"])
     with pytest.raises(NotImplementedError, match="--synthetic"):
         main.build_datasets(args)
-    args = main.parse_args(["--no-cuda", "--synthetic", "--paper_scale"])
-    with pytest.raises(NotImplementedError, match="paper_scale"):
+    # --paper_scale is ported: still no real data without --synthetic; with
+    # it, the bundle's images are synthesized on the device asked for.
+    args = main.parse_args(["--no-cuda", "--paper_scale"])
+    with pytest.raises(NotImplementedError, match="--synthetic"):
         main.build_datasets(args)
+    from creamfl_tpu_torch.data import pipelines
+
+    seen = {}
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pipelines, "build_synthetic_datasets",
+               lambda args, **kw: seen.update(kw))
+    try:
+        main.build_datasets(main.parse_args(["--no-cuda", "--synthetic",
+                                             "--paper_scale"]))
+    finally:
+        mp.undo()
+    assert seen["device_images"] and seen["device"] == torch.device("cpu")

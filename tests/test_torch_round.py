@@ -313,20 +313,38 @@ def test_seed_round_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port does not have yet raises; the stacked branch, round
-    checkpoints, --resume and --save_client are ported
-    (test_torch_stacked.py, test_torch_resume.py)."""
-    from creamfl_tpu_torch.federation.rounds import _UNPORTED
+    """The options the port once refused are ported: --client_bf16 (the
+    image clients' trunks in bf16) and the pretrained-weight files
+    (--resnet_ckpt, --bert_ckpt, --glove_path, --client_resnet_ckpt), as
+    are the stacked branch, round checkpoints, --resume and --save_client
+    (test_torch_stacked.py, test_torch_resume.py). A mesh of more than one
+    card stays refused (it needs more than one card to reach)."""
+    from creamfl_tpu_torch.models.resnet import ResNetBackbone
 
-    assert not {"client_parallel", "ckpt_dir", "resume",
-                "save_client"} & {flag for flag, _, _ in _UNPORTED}
-    server, mm, bert = _configs(build_configs, _args(tmp_path))
-    for kw in (dict(client_bf16=True), dict(resnet_ckpt="r.pth"),
-               dict(glove_path="g.txt"), dict(bert_ckpt="b.pth"),
-               dict(client_resnet_ckpt="c.pth")):
-        args = _args(tmp_path, **kw)
-        with pytest.raises(NotImplementedError):
-            MMFL(args, {}, server, mm, bert_config=bert, device="cpu")
+    trunk = ResNetBackbone("resnet10").state_dict()
+    torch.save(dict(trunk, **{"fc.weight": torch.zeros(1000, 512),
+                              "fc.bias": torch.zeros(1000)}),
+               tmp_path / "r.pth")
+    torch.save({}, tmp_path / "b.pth")  # not read: the server is GRU
+    (tmp_path / "g.txt").write_text("nosuchword 0.5 0.5\n")
+    files = dict(resnet_ckpt=str(tmp_path / "r.pth"),
+                 bert_ckpt=str(tmp_path / "b.pth"),
+                 glove_path=str(tmp_path / "g.txt"),
+                 client_resnet_ckpt=str(tmp_path / "r.pth"))
+    args = _args(tmp_path, client_bf16=True, **files)
+    server, mm, bert = _configs(build_configs, args)
+    log = _Log()
+    algo = MMFL(args, build_synthetic_datasets(args, **SIZES), server, mm,
+                bert_config=bert, logger=log, device="cpu")
+    img = [c for c in algo.clients if c.kind == "img"]
+    assert img and all(c.engine.dtype == torch.bfloat16 for c in img)
+    for module in [algo.server_state.model.img_enc.cnn] + [
+            c.state.model.backbone for c in img]:
+        for key, val in module.state_dict().items():
+            assert torch.equal(val, trunk[key]), key
+    assert "loaded pretrained weights into server" in log.lines
+    assert any(line.startswith("glove: 0/") for line in log.lines
+               if isinstance(line, str))
 
 
 SCORE_LINE = re.compile(r"step 1 \| i2t_r1=[0-9.]+ rsum_r1=[0-9.]+ "
