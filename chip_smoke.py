@@ -1,12 +1,14 @@
 """Drive the PyTorch/CUDA port on one GPU and check its kernels.
 
     python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked |
-                                      --paper-round | --paper-full]
+                                      --paper-round | --paper-full |
+                                      --real-round]
 
 Phases (any failure exits non-zero):
 
-1. Build the kernel sources (``creamfl_tpu_torch/csrc/gallery.cu`` and
-   ``csrc/fused_bn_mm.cu``), one nvcc each, in parallel.
+1. Build the kernel sources (``creamfl_tpu_torch/csrc/gallery.cu``,
+   ``csrc/fused_bn_mm.cu`` and ``csrc/jpeg.cu``), one nvcc each, in
+   parallel.
 2. The gallery kernels' first calls on their tc route, small and ragged, in
    a subprocess under a time limit (``--probe`` runs this step alone).
    Then hold each gallery kernel (K1 row logsumexp, K2 softmax matvec, K3
@@ -78,6 +80,20 @@ Phases (any failure exits non-zero):
    validation. ``--paper-full`` runs this step alone at the paper's full
    geometry (50 000 rows, pools of 10 / 10 / 15 with 10 sampled, 5 local
    epochs); it is not part of the default run.
+9. The real-data path on the repository's miniature real-format datasets
+   (``tests/fixtures/``; ``--real-round`` runs the build and this step
+   alone). nvJPEG and the colour kernel (``csrc/jpeg.cu``) decode every
+   fixture JPEG and a grayscale and a progressive file: each image's
+   statistics within DECODE_TOL levels of PIL's (DECODE_TABLE), the colour
+   kernel bit-equal to its plain version. The device transforms on the card
+   against the same on the CPU, bit for bit, and their ms per batch, also
+   at COCO's 640 x 480. Then a round on the fixture data at the paper's
+   widths (R101 + BERT-base with a vocab.txt of the frozen COCO words,
+   ResNet-18 image clients at 256², PCME ResNet-18 mm clients; stacked, 2
+   of each kind, an 8-row public set): every real image batch on the card,
+   every JPEG decoded by nvJPEG, every K3 and K4 launch on tc, con_w, global
+   features and scores as in step 6; then ``main.run`` with the arguments
+   of the JAX package's two-round fixture test, one round.
 
 Each path runs with the launch counts zeroed just before it and read just
 after. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -269,14 +285,16 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
 # ---------------------------------------------------------------------------
 
 def build_phase() -> None:
-    """Build every kernel source at once: one nvcc per source, in parallel."""
+    """Build every kernel source at once: one nvcc per source, in parallel
+    (the gallery kernels, K5/K6, and the JPEG decoder's colour kernel)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from creamfl_tpu_torch.data import jpeg
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(lambda mod: mod.build(), (K, FK)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(lambda mod: mod.build(), (K, FK, jpeg)))
     for path, seconds, out in builds:
         log(f"[build] {path.name} in {seconds:.1f} s")
         for line in out.splitlines():
@@ -1323,23 +1341,210 @@ SYNTH_IMAGES, SYNTH_PER_CONCEPT, SYNTH_COSINE = 4096, 256, 0.98
 SYNTH_MEAN, SYNTH_STD = 1e-2, 1e-2
 ROUND_PHASES = ("server_train", "global_features", "aggregate_distill",
                 "eval")
+# The real rounds (phase 9) read the repository's miniature real-format
+# datasets. The real round: the stacked round's clients and the paper's
+# widths (R101 + BERT-base server, ResNet-18 image clients at CIFAR's 256²,
+# PCME ResNet-18 + GRU mm clients at 224²; main.build_configs without
+# --smoke) on the fixture data (--smoke for the data alone: the miniature
+# annotation files miss frozen ids), an 8-row public set. The CLI round:
+# the arguments of the JAX package's test_two_round_mmfl_on_fixtures, one
+# round. Both add --partition_dir (a copy of the fixture F30k partition;
+# CIFAR's and AG_NEWS's are regenerated there) and the real round a
+# --bert_vocab.
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+REAL_DATA_ARGS = ("--coco_root", os.path.join(FIXTURES, "coco"),
+                  "--cifar_root", os.path.join(FIXTURES, "cifar"),
+                  "--agnews_root", os.path.join(FIXTURES, "agnews"),
+                  "--f30k_root", os.path.join(FIXTURES, "f30k"),
+                  "--coco_subset_idx",
+                  os.path.join(FIXTURES, "coco_subset_idx"), "--smoke",
+                  "--pub_data_num", "8")
+REAL_ROUND_ARGS = REAL_DATA_ARGS + STACKED_ROUND_ARGS[1:]
+REAL_CLI_ARGS = REAL_DATA_ARGS + (
+    "--comm_rounds", "1", "--local_epochs", "1", "--num_img_clients", "2",
+    "--num_txt_clients", "2", "--num_mm_clients", "2",
+    "--client_num_per_round", "6", "--img_model_local", "resnet10",
+    "--batch_size", "8", "--alpha", "0.5", "--server_lr", "1e-4",
+    "--agg_method", "con_w", "--contrast_local_intra",
+    "--contrast_local_inter", "--kd_weight", "0.3", "--interintra_weight",
+    "0.5", "--feature_dim", "16", "--not_bert")
+# nvJPEG + the colour kernel against PIL: per image, per-channel mean and
+# std and the four quadrants' per-channel means of PIL's decode (the CPU
+# test tests/test_torch_jpeg.py keeps the table true), each within
+# DECODE_TOL uint8 levels (the two IDCTs round differently: a few levels
+# on a few pixels). The fixture JPEGs (64², 4:2:0), then a grayscale and a
+# progressive file (EXTRA_JPEGS, base64).
+DECODE_TOL = 1.0
+DECODE_TABLE = {
+    "coco/allimages/COCO_train2014_000000000001.jpg": (
+        126.241, 127.946, 125.908, 52.334, 53.092, 51.602, 126.347, 130.828,
+        128.646, 123.868, 128.691, 127.045, 126.529, 126.738, 122.601, 128.221,
+        125.524, 125.340),
+    "coco/allimages/COCO_train2014_000000000002.jpg": (
+        129.930, 126.708, 127.039, 52.080, 53.270, 51.339, 132.737, 127.139,
+        125.413, 130.350, 127.583, 124.533, 127.569, 126.823, 129.919, 129.065,
+        125.287, 128.290),
+    "coco/allimages/COCO_train2014_000000000003.jpg": (
+        125.831, 129.068, 126.410, 52.436, 53.433, 51.830, 121.553, 124.982,
+        128.731, 128.134, 130.348, 122.650, 125.681, 130.802, 125.072, 127.955,
+        130.141, 129.185),
+    "coco/allimages/COCO_train2014_000000000004.jpg": (
+        128.136, 126.352, 128.354, 51.691, 53.379, 50.664, 127.100, 127.410,
+        128.313, 129.223, 126.791, 128.980, 126.104, 125.120, 126.130, 130.117,
+        126.086, 129.991),
+    "coco/allimages/COCO_train2014_000000000005.jpg": (
+        127.296, 129.657, 126.515, 52.185, 53.521, 51.155, 129.115, 130.980,
+        127.778, 126.864, 131.837, 124.370, 130.090, 129.502, 126.877, 123.116,
+        126.309, 127.033),
+    "coco/allimages/COCO_train2014_000000000006.jpg": (
+        128.383, 127.832, 126.826, 51.644, 52.767, 51.073, 129.499, 124.980,
+        129.367, 128.282, 128.212, 127.874, 125.611, 125.794, 124.572, 130.141,
+        132.340, 125.492),
+    "coco/allimages/COCO_val2014_000000000101.jpg": (
+        127.155, 126.107, 128.518, 51.484, 52.487, 50.500, 127.680, 128.861,
+        128.274, 129.559, 124.565, 129.202, 126.384, 124.626, 129.979, 124.999,
+        126.377, 126.617),
+    "coco/allimages/COCO_val2014_000000000102.jpg": (
+        129.096, 126.466, 126.801, 51.666, 53.069, 50.967, 129.248, 124.511,
+        126.100, 127.048, 123.628, 124.620, 128.836, 129.108, 126.283, 131.252,
+        128.615, 130.200),
+    "coco/allimages/COCO_val2014_000000000103.jpg": (
+        126.467, 128.651, 126.627, 51.727, 53.004, 50.803, 125.739, 127.439,
+        129.782, 128.443, 129.112, 125.038, 126.480, 127.154, 124.871, 125.205,
+        130.896, 126.817),
+    "coco/allimages/COCO_val2014_000000000104.jpg": (
+        127.773, 128.008, 128.018, 52.073, 53.655, 51.642, 128.633, 126.833,
+        130.101, 128.452, 127.043, 126.816, 128.054, 129.001, 127.381, 125.953,
+        129.156, 127.775),
+    "coco/allimages/COCO_val2014_000000000105.jpg": (
+        128.685, 127.549, 126.519, 51.746, 53.093, 50.773, 126.179, 129.807,
+        125.830, 129.470, 126.590, 125.686, 129.448, 127.081, 127.939, 129.644,
+        126.717, 126.622),
+    "coco/allimages/COCO_val2014_000000000106.jpg": (
+        127.078, 125.248, 127.282, 51.727, 53.484, 50.710, 126.409, 124.740,
+        125.779, 126.972, 128.266, 126.146, 129.936, 124.694, 131.101, 124.996,
+        123.292, 126.102),
+    "f30k/flickr30k-images/fx0.jpg": (
+        126.241, 127.946, 125.908, 52.334, 53.092, 51.602, 126.347, 130.828,
+        128.646, 123.868, 128.691, 127.045, 126.529, 126.738, 122.601, 128.221,
+        125.524, 125.340),
+    "f30k/flickr30k-images/fx1.jpg": (
+        126.791, 126.981, 129.568, 52.678, 53.876, 52.162, 128.165, 122.787,
+        131.242, 126.058, 126.717, 130.603, 123.165, 132.106, 128.053, 129.774,
+        126.312, 128.375),
+    "f30k/flickr30k-images/fx10.jpg": (
+        127.222, 126.570, 128.178, 51.889, 53.170, 50.919, 125.971, 125.492,
+        129.374, 130.196, 125.443, 124.467, 129.178, 126.543, 127.497, 123.542,
+        128.800, 131.376),
+    "f30k/flickr30k-images/fx11.jpg": (
+        127.019, 127.097, 125.915, 52.661, 53.613, 51.700, 125.751, 127.006,
+        123.768, 128.104, 127.738, 129.196, 128.043, 124.812, 125.282, 126.177,
+        128.833, 125.414),
+    "f30k/flickr30k-images/fx2.jpg": (
+        126.317, 125.852, 128.676, 54.155, 54.321, 52.612, 129.211, 125.182,
+        128.741, 122.256, 123.942, 126.049, 131.484, 125.563, 128.856, 122.318,
+        128.719, 131.058),
+    "f30k/flickr30k-images/fx3.jpg": (
+        128.378, 126.744, 128.391, 51.925, 53.469, 50.717, 127.265, 126.994,
+        128.504, 129.573, 127.086, 129.248, 126.236, 126.219, 126.025, 130.439,
+        126.677, 129.788),
+    "f30k/flickr30k-images/fx4.jpg": (
+        129.037, 126.443, 127.567, 52.592, 53.788, 51.777, 134.013, 124.159,
+        129.279, 127.943, 128.452, 126.131, 126.664, 129.011, 128.049, 127.526,
+        124.148, 126.811),
+    "f30k/flickr30k-images/fx5.jpg": (
+        127.109, 128.239, 127.915, 52.380, 53.781, 51.338, 127.838, 124.931,
+        126.542, 129.261, 131.173, 128.308, 127.443, 129.339, 126.216, 123.896,
+        127.514, 130.594),
+    "f30k/flickr30k-images/fx6.jpg": (
+        127.083, 125.907, 128.259, 51.491, 52.558, 50.577, 127.856, 128.230,
+        128.824, 129.148, 125.029, 128.512, 125.837, 123.745, 129.125, 125.488,
+        126.624, 126.574),
+    "f30k/flickr30k-images/fx7.jpg": (
+        126.670, 126.705, 129.299, 51.617, 52.956, 50.285, 124.126, 124.772,
+        127.982, 124.199, 127.064, 127.421, 128.378, 128.822, 131.241, 129.977,
+        126.161, 130.552),
+    "f30k/flickr30k-images/fx8.jpg": (
+        127.250, 126.411, 128.619, 50.659, 52.255, 50.359, 127.228, 125.755,
+        127.757, 128.657, 126.648, 130.886, 128.031, 125.696, 129.102, 125.082,
+        127.545, 126.733),
+    "f30k/flickr30k-images/fx9.jpg": (
+        128.081, 128.163, 127.776, 52.323, 53.642, 51.590, 127.726, 127.604,
+        129.752, 128.642, 127.067, 126.003, 129.800, 128.208, 127.570, 126.158,
+        129.772, 127.780),
+    "gray": (
+        127.932, 127.932, 127.932, 48.093, 48.093, 48.093, 125.788, 125.788,
+        125.788, 126.284, 126.284, 126.284, 137.389, 137.389, 137.389, 122.366,
+        122.366, 122.366),
+    "prog": (
+        110.638, 129.704, 90.260, 53.604, 49.406, 42.910, 108.462, 113.428,
+        97.415, 111.832, 113.941, 95.795, 110.240, 144.474, 64.786, 111.868,
+        144.951, 103.141),
+}
+EXTRA_JPEGS = {
+    "gray": (  # 47 x 35, grayscale, quality 85
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8LCwkMEQ8S"
+    "EhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBweHx7/wAALCAAjAC8BAREA/8QAHwAA"
+    "AQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQR"
+    "BRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RF"
+    "RkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+    "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/9oACAEB"
+    "AAA/AOw8GaxFp/lefJ5bJwAAoYZxwe+c5wP1xXTa34rgksQ0fzJs3rsAG3pjqR15/wDrZxXj"
+    "fj20TUJT5CqEk2tE+Bk9j/knHvXllx4NvWl3CEbt25goyG9OSMntXd+BtOl02QxXH7uRThcj"
+    "bnkYGMdc5OOnXpXunhXxRbWzCJ1+ZDjZFhskLjPPse//AOvwPxbq1xYzCIOYixYhjhQRk85P"
+    "UkZ4x29KwLLxldT35jlnBVlIP7xjgHOOv/6/rXqPgq1Gq2qkSCSHO5maPHAbkenUd8c16PF4"
+    "Ms5LcNkEZLAgAlTnt69QM89s+/G+MdJSyBjRggCZKg43HIzgevU8d8++fJdd8U3llqDm4Qtt"
+    "xlWkyQTnp0Hr+ZrQ8Y6HNeTs8HAzjI5wOmMnOc9O+ePXnA0/wpJDeGYwyIAD8oJPA+mOMk8j"
+    "04PevXfCirpTN5m4sGDnrgckjPZSVPTGee1ekQ+OLGG3CSkupxggZJA5A65B57Y/XnhvGN8u"
+    "oIDBGqliRvV8L0HvnAIPPfOa8U1zwo1zKZDFKgL8EAt1GeT1P/6vbPvPhTQbXUbZBcQZcHgE"
+    "7gTgjHscADgeuSa6jWvCNjZgy+Q6IQFDjqfu8cnAXkfSvKfH9wdNneLzU8tSyvv5JAKng/iR"
+    "36V5ZceMLttRNtG0qkMG25baWyewBOTknvx+vbeDtUk1S6QzFDLycZ5xgYXnAHTHBPX2r2fw"
+    "14Ot9TUZgUuwGEcDaDtyc8ED8RjIPeqvw3uJxFtE0mPMT+I8dP8AEj6cdK7TWriaTT1eRgx8"
+    "jdyoxndjp+NfPHxWmlF1dQhyEJXI/wCAg/zJ/OvIXhik1Q7l6licEjO05XOPQ816V8Lj88Iw"
+    "MM6xnjquM4/OvorwfNK1rKxdsxxKyYOMEkD/ANmP51//2Q=="),
+    "prog": (  # 53 x 31, progressive, 4:2:0, quality 88
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAQDAwMDAgQDAwMEBAQFBgoGBgUFBgwICQcKDgwP"
+    "Dg4MDQ0PERYTDxAVEQ0NExoTFRcYGRkZDxIbHRsYHRYYGRj/2wBDAQQEBAYFBgsGBgsYEA0Q"
+    "GBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBgYGBj/wgAR"
+    "CAAfADUDASIAAhEBAxEB/8QAGgAAAgMBAQAAAAAAAAAAAAAAAwUAAgYHBP/EABgBAQEBAQEA"
+    "AAAAAAAAAAAAAAYFBAEH/9oADAMBAAIQAxAAAAFxMOLlJ0DEWmk+rmxU0rnMw0vhugDb285W"
+    "4ozqysScLvyzmOJjiYxf/8QAHRAAAgIDAAMAAAAAAAAAAAAAAgMBBAAREgUhIv/aAAgBAQAB"
+    "BQJNoeW2x065GKtj0q1GMsBh2ldKYzlzT01jOlEe0mcC1hwLDZJBTjltGJhnj42qh7XSiIdS"
+    "iIbS+lPicY6NG0cW7WDZHl9keScPf//EAB4RAAEEAwADAAAAAAAAAAAAAAABAgMEBRIUExUh"
+    "/9oACAEDAQE/AWYlqwHqWJOPxjeclxDdl+jLE6Vx9ufoEmseAmsz7qf/xAAeEQABBAMAAwAA"
+    "AAAAAAAAAAADAAECBAUSIRETFP/aAAgBAgEBPwE9YYeMp03PxlSwUYPs69I482RLdg5VSGSE"
+    "PLq3kywfWK+206//xAAfEAABBAICAwAAAAAAAAAAAAAAARARISAxMkFhceH/2gAIAQEABj8C"
+    "ZYVDbey6IOy8O1aPDaOJ9aUw0RAtH//EACAQAQACAgICAwEAAAAAAAAAAAEAESExQVFxgWGR"
+    "8KH/2gAIAQEAAT8h3KVw1EcTHOYd7LUyFFgKpF+Yoqzym0ehNgXxCO/oRIyebh8bPUCGeLxK"
+    "zY1iahR5m0KIgAV2I1uHPUIPpq4YX4RgJd7g8wOv2YHRjMy9Z1+/stNXpyYhko07ZicsPEsd"
+    "Ewy8/9oADAMBAAIAAwAAABB1+IywQM3/xAAbEQACAQUAAAAAAAAAAAAAAAAAAREhMUFRYf/a"
+    "AAgBAwEBPxCUN4KTIzdgY7OFM6G4rY1OHYRD/8QAGhEAAwADAQAAAAAAAAAAAAAAAAERITFB"
+    "Yf/aAAgBAgEBPxB/bJdZhim0SWqeksqRvw7MNxU//8QAIxABAAICAgICAwEBAAAAAAAAAREh"
+    "ADFBYXGRUaGBsfDR4f/aAAgBAQABPxCTUFBAiRquLwDCkkkSN0f37w6ljJYQEke4MJehJHg5"
+    "KH8/5mhCoilcnr6x0kBFpPD3r5s1kwjJks9uCULDPG9Q7eY894vCQF9jt8Tf/MbwJMmoRhnX"
+    "MYhsOpDCfPv6cXhOVs+uWOsEofCTHM+ryGsolQjWczlMkOjf96yfnUAeOmavc8+MhBUmVMSV"
+    "K/0ThqxEkQsU8LzetTgmIRSBceOnJ6gCPl0V77vFhOFSBuZdj5xRJMpsrzut/jeTCTbWDUT1"
+    "qXzkEDVIFT7weph8A9fv3hwigrKCNupwyKJUjr9BFd4KOKyrX0j1n//Z"),
+}
 
 
 class _HostLoaderTime:
     """Seconds the round's thread waits for loader batches: each ``next``
-    of the outermost loader it iterates (``ArrayLoader``, ``PrefetchLoader``
-    or ``DeviceImageBatches``), so rendering and stacking on that thread, a
-    prefetch queue's wait and the enqueueing of on-device synthesis; and,
+    of the outermost loader it iterates (``ArrayLoader``, ``PrefetchLoader``,
+    ``DeviceImageBatches`` or ``DeviceImages``), so rendering and stacking
+    on that thread, a prefetch queue's wait, the enqueueing of on-device
+    synthesis and the reading and decoding of real images; and,
     apart (``thread_seconds``), what ``ArrayLoader`` spends producing
     batches on prefetch threads, which overlaps the round."""
 
     def __init__(self):
-        from creamfl_tpu_torch.data import device_synth, loaders
+        from creamfl_tpu_torch.data import device_images, device_synth, loaders
 
         self.producer = loaders.ArrayLoader
         self.orig = {cls: cls.__iter__ for cls in (
             loaders.ArrayLoader, loaders.PrefetchLoader,
-            device_synth.DeviceImageBatches)}
+            device_synth.DeviceImageBatches, device_images.DeviceImages)}
         self.seconds = self.thread_seconds = 0.0
         self.depth = 0
         self.lock = threading.Lock()
@@ -1790,6 +1995,252 @@ def raw_trainer_check(algo, tmp: str, steps: int = 4) -> None:
                              "loss")
 
 
+def decode_stats(img: torch.Tensor) -> list:
+    """Per-channel mean and std (over all pixels), then the per-channel
+    means of the top-left, top-right, bottom-left and bottom-right
+    quadrants, of a [h, w, 3] uint8 image: 18 numbers."""
+    x = img.double()
+    h, w = x.shape[:2]
+    parts = [x.mean((0, 1)), x.std((0, 1), correction=0)]
+    for rows in (slice(0, h // 2), slice(h // 2, h)):
+        for cols in (slice(0, w // 2), slice(w // 2, w)):
+            parts.append(x[rows, cols].mean((0, 1)))
+    return torch.cat(parts).tolist()
+
+
+def decode_inputs():
+    """(names, bytes) of DECODE_TABLE's files: the fixture JPEGs, then
+    EXTRA_JPEGS."""
+    import base64
+
+    names = [n for n in DECODE_TABLE if n not in EXTRA_JPEGS]
+    datas = []
+    for name in names:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            datas.append(f.read())
+    for name, b64 in EXTRA_JPEGS.items():
+        names.append(name)
+        datas.append(base64.b64decode("".join(b64)))
+    return names, datas
+
+
+def _ms_per_call(fn, dev, reps: int = 10):
+    """(CUDA-event ms, host ms) per call of ``fn`` on the card: the median
+    by events, and the host's wall time per call over ``reps`` calls
+    without a synchronisation between them."""
+    import time
+
+    event_ms = cuda_time_ms(fn, reps=reps)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(dev)
+    return event_ms, host_ms
+
+
+def decode_phase(seed: int, dev=torch.device("cuda")):
+    """nvJPEG and the colour kernel (csrc/jpeg.cu) on every file of
+    DECODE_TABLE, against the table (each statistic within DECODE_TOL),
+    the colour kernel against its plain version on nvJPEG's planes (bit
+    for bit); then the device transforms on the card against the same on
+    the CPU, from the same decoded pixels and recipes (bit for bit: the
+    transforms are exact integer and IEEE arithmetic); ms per batch of
+    each."""
+    import random
+
+    import numpy as np
+
+    from creamfl_tpu_torch.data import jpeg
+    from creamfl_tpu_torch.data import transforms as T
+
+    names, datas = decode_inputs()
+    launches = jpeg.decode_batch.launches
+    out, sizes, (planes, meta) = jpeg._decode(datas, dev, names)
+    torch.cuda.synchronize(dev)
+    if jpeg.decode_batch.launches != launches + 1:
+        raise AssertionError("decode: the colour kernel did not launch")
+    gaps = {}
+    for b, name in enumerate(names):
+        w, h = (int(v) for v in sizes[b])
+        got = decode_stats(out[b, :h, :w])
+        gaps[name] = max(abs(x - y) for x, y in zip(got, DECODE_TABLE[name]))
+    worst = max(gaps, key=gaps.get)
+    log(f"[decode] {len(names)} files (nvJPEG + colour kernel) vs PIL's "
+        f"statistics: largest gap {gaps[worst]:.3f} levels ({worst}), "
+        f"bound {DECODE_TOL}")
+    if gaps[worst] > DECODE_TOL:
+        raise AssertionError(f"decode: {worst} is {gaps[worst]:.3f} levels "
+                             "from PIL's statistics")
+    plain = jpeg.plain_rgb(planes, meta)
+    for b, (w, h) in enumerate(sizes):
+        if not torch.equal(out[b, :int(h), :int(w)], plain[b]):
+            raise AssertionError(f"decode: the colour kernel disagrees with "
+                                 f"its plain version on {names[b]}")
+    log("[decode] colour kernel == plain version on every file (bit for "
+        "bit)")
+    fixtures = datas[:len(DECODE_TABLE) - len(EXTRA_JPEGS)]
+    ev, host = _ms_per_call(lambda: jpeg.decode_batch(fixtures, dev), dev)
+    log(f"[decode] batch of {len(fixtures)} fixture JPEGs (64², not COCO's "
+        f"sizes): {ev:.3f} ms by CUDA events, {host:.3f} ms of host time a "
+        f"call (nvJPEG's Huffman decoding runs on the host)")
+    gen = random.Random(seed)
+    recipes = np.stack([T.imagenet_params(int(w), int(h), b % 2 == 0, gen,
+                                          random_erasing_prob=0.5)
+                        for b, (w, h) in enumerate(sizes)])
+    got = T.apply_batch(out, sizes, recipes, 224)
+    want = T.apply_batch(out.cpu(), sizes, recipes, 224)
+    same = torch.equal(got.cpu(), want)
+    gcpu = torch.Generator().manual_seed(seed)
+    cifar = torch.randint(0, 256, (64, 32, 32, 3), dtype=torch.uint8,
+                          generator=gcpu)
+    csizes = [(32, 32)] * 64
+    for train, side in ((True, 256), (False, 32)):
+        crec = np.stack([T.cifar_params(32, 32, train, gen)
+                         for _ in range(64)])
+        cgot = T.apply_batch(cifar.to(dev), csizes, crec, side,
+                             T.CIFAR100_MEAN, T.CIFAR100_STD)
+        cwant = T.apply_batch(cifar, csizes, crec, side, T.CIFAR100_MEAN,
+                              T.CIFAR100_STD)
+        same = same and torch.equal(cgot.cpu(), cwant)
+    log(f"[transforms] card vs CPU on the same pixels and recipes "
+        f"(ImageNet train/eval with erasing at 224², CIFAR train at 256² and "
+        f"test at 32²): {'bit-equal' if same else 'DIFFER'} (tolerance: "
+        f"none)")
+    if not same:
+        raise AssertionError("transforms: the card and the CPU disagree")
+    ev, host = _ms_per_call(lambda: T.apply_batch(out, sizes, recipes, 224),
+                            dev)
+    log(f"[transforms] fixture batch of {len(names)} to 224²: {ev:.3f} ms by "
+        f"CUDA events, {host:.3f} ms of host time a call")
+    # COCO's image sizes: a batch of PUB_BS 640 x 480 sources (random
+    # pixels; the transform's cost does not depend on them).
+    big = torch.randint(0, 256, (PUB_BS, 480, 640, 3), dtype=torch.uint8,
+                        device=dev)
+    bsizes = [(640, 480)] * PUB_BS
+    for train in (True, False):
+        brec = np.stack([T.imagenet_params(640, 480, train, gen,
+                                           random_erasing_prob=0.2)
+                         for _ in range(PUB_BS)])
+        ev, host = _ms_per_call(
+            lambda: T.apply_batch(big, bsizes, brec, 224), dev, reps=5)
+        what = ("train: RandomResizedCrop" if train
+                else "eval: Resize + CenterCrop")
+        log(f"[transforms] batch of {PUB_BS} 640x480 sources to 224² "
+            f"({what}): {ev:.3f} ms by CUDA events, {host:.3f} ms of host "
+            f"time a call")
+    del big
+    crec = np.stack([T.cifar_params(32, 32, True, gen) for _ in range(512)])
+    cifar = torch.randint(0, 256, (512, 32, 32, 3), dtype=torch.uint8,
+                          device=dev)
+    ev, host = _ms_per_call(lambda: T.apply_batch(
+        cifar, [(32, 32)] * 512, crec, 256, T.CIFAR100_MEAN,
+        T.CIFAR100_STD), dev, reps=5)
+    log(f"[transforms] CIFAR train batch of 512 to 256²: {ev:.3f} ms by "
+        f"CUDA events, {host:.3f} ms of host time a call")
+
+
+def write_bert_vocab(path: str) -> float:
+    """A BERT vocab.txt: BERT's special tokens, then the words of the frozen
+    COCO vocabulary, so that the fixture captions map to real WordPiece
+    ids, not to [UNK]. Returns the share of [UNK] among the fixture
+    captions' ids."""
+    from creamfl_tpu_torch.data import frozen
+    from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
+    from creamfl_tpu_torch.data.vocab import Vocabulary
+
+    vocab = Vocabulary().load_from_pickle(frozen.coco_vocab_path())
+    words = [w for w in vocab.word2idx
+             if not (w.startswith("<") and w.endswith(">"))]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                          + words) + "\n")
+    tok = BertWordPieceTokenizer.from_vocab_file(path)
+    with open(os.path.join(FIXTURES, "coco", "annotations",
+                           "captions_train2014.json")) as f:
+        captions = [a["caption"] for a in json.load(f)["annotations"]]
+    ids = [i for c in captions for i in tok.encode(c, 64)[0]
+           if i not in (tok.cls, tok.sep, tok.pad)]
+    return sum(i == tok.unk for i in ids) / max(1, len(ids))
+
+
+class _FullWidthConfigs:
+    """Inside: ``main.build_configs`` gives the configs without --smoke
+    (R101 + BERT-base server, ResNet-18 PCME mm clients) whatever --smoke
+    says, so that --smoke shapes the data alone."""
+
+    def __enter__(self):
+        from creamfl_tpu_torch import main as port_main
+
+        self.mod, self.orig = port_main, port_main.build_configs
+        orig = self.orig
+        port_main.build_configs = lambda args: orig(
+            argparse.Namespace(**dict(vars(args), smoke=False)))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_configs = self.orig
+
+
+class _RealWatch:
+    """During a real-data round: every batch of a ``DeviceImages`` loader
+    carries its images as a tensor on the card (counted by side), and the
+    JPEG files are decoded by nvJPEG, none by PIL."""
+
+    def __init__(self, dev=torch.device("cuda")):
+        from creamfl_tpu_torch.data import device_images, jpeg
+
+        self.dev = dev
+        self.cls = device_images.DeviceImages
+        self.orig_iter = self.cls.__iter__
+        self.routes = jpeg.decode_batch.images_by_route
+        self.batches = {}
+
+    def __enter__(self):
+        watch = self
+        self.before = dict(self.routes)
+
+        def batches(loader):
+            for batch in watch.orig_iter(loader):
+                images = batch["images"]
+                if not (isinstance(images, torch.Tensor)
+                        and images.device.type == watch.dev.type):
+                    raise AssertionError("a real batch's images are not on "
+                                         "the card")
+                side = images.shape[1]
+                watch.batches[side] = watch.batches.get(side, 0) + 1
+                yield batch
+
+        self.cls.__iter__ = batches
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__iter__ = self.orig_iter
+        self.decoded = {k: v - self.before[k] for k, v in self.routes.items()}
+
+
+def real_args(tmp: str, bert: bool):
+    """The real rounds' --partition_dir (the fixture F30k partition copied
+    into ``tmp``) and, with ``bert``, --bert_vocab."""
+    import shutil
+
+    parts = os.path.join(tmp, "partitions")
+    os.makedirs(parts, exist_ok=True)
+    shutil.copy(os.path.join(FIXTURES, "partitions",
+                             "client_noniid_flicker30k.pkl"), parts)
+    extra = ("--partition_dir", parts)
+    if bert:
+        vocab = os.path.join(tmp, "vocab.txt")
+        unk = write_bert_vocab(vocab)
+        log(f"[real_round] BERT vocab: the frozen COCO words; [UNK] share "
+            f"of the fixture captions' WordPiece ids {unk:.3f}")
+        if unk > 0.2:
+            raise AssertionError("the fixture captions map mostly to [UNK]")
+        extra += ("--bert_vocab", vocab)
+    return extra
+
+
 def run_round(seed: int, kind: str = "round"):
     """``round_phase`` with the launch counts zeroed just before it and read
     just after: K3 (with the K1 and K2 launches inside it) as
@@ -1802,8 +2253,10 @@ def run_round(seed: int, kind: str = "round"):
     "round" (sequential clients), "stacked" (with the resume check),
     "paper_round" / "paper_full" (``--paper_scale``, stacked; no 224² image
     rendered on the host, every device-image batch on the card; then the
-    synth, ``load_pretrained`` and ``RawTrainer`` checks). Returns the
-    round's launch counts."""
+    synth, ``load_pretrained`` and ``RawTrainer`` checks), "real_round" /
+    "real_cli" (the fixture datasets, stacked, at the paper's widths or
+    with the CLI's --smoke configs; every real image batch on the card,
+    every JPEG decoded by nvJPEG). Returns the round's launch counts."""
     import tempfile
 
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
@@ -1811,15 +2264,23 @@ def run_round(seed: int, kind: str = "round"):
 
     stacked = kind != "round"
     paper = kind.startswith("paper")
+    real = kind.startswith("real")
     round_args = {"round": ROUND_ARGS, "stacked": STACKED_ROUND_ARGS,
                   "paper_round": PAPER_ROUND_ARGS,
-                  "paper_full": PAPER_FULL_ARGS}[kind]
+                  "paper_full": PAPER_FULL_ARGS,
+                  "real_round": REAL_ROUND_ARGS,
+                  "real_cli": REAL_CLI_ARGS}[kind]
     with tempfile.TemporaryDirectory() as tmp:
         extra = ("--ckpt_dir", tmp) if kind == "stacked" else ()
-        watch = _PaperWatch() if paper else contextlib.nullcontext()
+        if real:
+            extra = real_args(tmp, bert=kind == "real_round")
+        watch = (_PaperWatch() if paper else _RealWatch() if real
+                 else contextlib.nullcontext())
+        configs = (_FullWidthConfigs() if kind == "real_round"
+                   else contextlib.nullcontext())
         K.reset_launch_counts()
         FK.reset_launch_counts()
-        with watch:
+        with watch, configs:
             algo = round_phase(seed, extra, round_args=round_args, tag=kind)
         torch.cuda.synchronize()
         counts = dict(K.launch_counts(), **FK.launch_counts())
@@ -1852,19 +2313,30 @@ def run_round(seed: int, kind: str = "round"):
             if watch.host_images or set(watch.batches) != {IMAGE}:
                 raise AssertionError(f"{kind}: images rendered on the host "
                                      f"or at another size")
+        if real:
+            log(f"[{kind}] real image batches by side "
+                f"{json.dumps(watch.batches)}, all on the card; JPEG files "
+                f"decoded {json.dumps(watch.decoded)}")
+            if (watch.decoded["pil"] or not watch.decoded["nvjpeg"]
+                    or set(watch.batches) != {224, 256, 32}):
+                raise AssertionError(f"{kind}: an image decoded by PIL, or "
+                                     f"image batches at other sizes")
         errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
         gal = algo.global_img_feature.float()
-        shape = f"{PUB_BS}x{gal.shape[0]}x{gal.shape[1]}"
-        check_gallery_case(f"{kind} globals {shape} tc",
-                           algo.global_txt_feature[:PUB_BS].float(), gal,
-                           torch.arange(PUB_BS, device=gal.device), 0.5,
-                           "tc", errs)
+        txt = algo.global_txt_feature.float()
+        # A public batch of caption rows (the whole public set when it is
+        # smaller), and two of them for the segmented case.
+        n = min(PUB_BS, gal.shape[0])
+        two = txt[:2 * n] if txt.shape[0] >= 2 * n else txt[:n].repeat(2, 1)
+        shape = f"{n}x{gal.shape[0]}x{gal.shape[1]}"
+        check_gallery_case(f"{kind} globals {shape} tc", txt[:n], gal,
+                           torch.arange(n, device=gal.device), 0.5, "tc",
+                           errs)
         if stacked:
             check_segmented_case(
-                f"{kind} globals 2x{shape} tc",
-                algo.global_txt_feature[:2 * PUB_BS].float(), gal,
-                torch.arange(PUB_BS, device=gal.device).repeat(2), 0.5,
-                "tc", 2, errs)
+                f"{kind} globals 2x{shape} tc", two, gal,
+                torch.arange(n, device=gal.device).repeat(2), 0.5, "tc", 2,
+                errs)
         log(f"[{kind}] K1-K3 on the round's global features, worst errors "
             f"{json.dumps(errs)}")
         if kind == "stacked":
@@ -1876,6 +2348,16 @@ def run_round(seed: int, kind: str = "round"):
     del algo
     torch.cuda.empty_cache()
     return counts
+
+
+def real_phase(seed: int):
+    """Phase 9: the decoder and the device transforms (``decode_phase``),
+    then the real round at the paper's widths and the CLI's round, each
+    with the launch counts zeroed just before it and read just after.
+    Returns their launch counts by path."""
+    decode_phase(seed)
+    return {"real_round": run_round(seed, "real_round"),
+            "real_cli": run_round(seed, "real_cli")}
 
 
 def main() -> int:
@@ -1893,6 +2375,10 @@ def main() -> int:
     parser.add_argument("--paper-round", action="store_true",
                         help="build and run the paper round phase alone, "
                         "then stop without the result line")
+    parser.add_argument("--real-round", action="store_true",
+                        help="build and run phase 9 (the real-data path on "
+                        "the fixtures) alone, then stop without the result "
+                        "line")
     parser.add_argument("--paper-full", action="store_true",
                         help="build and run the paper round at the paper's "
                         "full geometry alone, then stop without the result "
@@ -1913,11 +2399,14 @@ def main() -> int:
         return 0
     alone = [kind for kind, on in (
         ("round", opts.round), ("stacked", opts.stacked),
-        ("paper_round", opts.paper_round), ("paper_full", opts.paper_full))
-        if on]
+        ("paper_round", opts.paper_round), ("paper_full", opts.paper_full),
+        ("real", opts.real_round)) if on]
     if alone:
         for kind in alone:
-            run_round(opts.seed, kind)
+            if kind == "real":
+                real_phase(opts.seed)
+            else:
+                run_round(opts.seed, kind)
         return 0
     run_probe(opts.seed)
     rec = kernel_phase(opts.seed)
@@ -1942,6 +2431,7 @@ def main() -> int:
     paths["round"] = run_round(opts.seed)
     paths["stacked"] = run_round(opts.seed, "stacked")
     paths["paper_round"] = run_round(opts.seed, "paper_round")
+    paths.update(real_phase(opts.seed))
     # Per kernel, its launches on each path that runs it, and their sum.
     by_path = {k: {p: c[k] for p, c in paths.items() if c.get(k, 0)}
                for k in KERNELS}

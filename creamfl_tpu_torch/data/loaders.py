@@ -282,11 +282,12 @@ class ProjectedLoader:
     """Restrict a batch loader to the fields a consumer actually reads.
 
     A text-client sweep that reads only ``captions``/``lengths`` then
-    copies no image batch to the device, and synthesizes none: when
-    ``images`` is not requested and the loader is a ``DeviceImageBatches``
-    wrapper (``data/device_synth.py``), iteration short-circuits to its
-    caption-only ``base`` loader. Host-rendered images (the default
-    scale) are still rendered.
+    copies no image batch to the device, and synthesizes or decodes none:
+    when ``images`` is not requested and the loader is a device-image
+    wrapper (``DeviceImageBatches``, ``data/device_synth.py``, or
+    ``DeviceImages``, ``data/device_images.py``), iteration short-circuits
+    to its caption-only ``base`` loader. Host-rendered images (the
+    synthetic default scale) are still rendered.
     """
 
     def __init__(self, loader, fields):
@@ -297,11 +298,12 @@ class ProjectedLoader:
         return len(self.loader)
 
     def __iter__(self):
+        from creamfl_tpu_torch.data.device_images import DeviceImages
         from creamfl_tpu_torch.data.device_synth import DeviceImageBatches
 
         src = self.loader
-        if isinstance(src, DeviceImageBatches) and (
+        if isinstance(src, (DeviceImageBatches, DeviceImages)) and (
                 "images" not in self.fields):
-            src = src.base  # skip device image synthesis
+            src = src.base  # skip device image synthesis or decoding
         for batch in src:
             yield {k: v for k, v in batch.items() if k in self.fields}

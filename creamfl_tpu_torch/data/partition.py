@@ -1,8 +1,8 @@
 """Federated non-IID data partitioning.
 
 The port's own copy of the JAX package's ``data/partition.py``: the same
-partitions for one seed. A cache that is not yet on disk is not written
-(see ``data_partitioner``).
+partitions for one seed, and the same pickle cache (read when present,
+written when regenerated, never into the packaged frozen artifacts).
 
 Reference semantics (`src/datasets/load_FL_datasets.py:79-129`):
   * ``homo``: random permutation split into equal chunks.
@@ -103,11 +103,14 @@ def data_partitioner(dataset: str, num_samples: int, num_clients: int,
         raise ValueError(f"unknown partition {partition!r}")
 
     if cache:
-        # The JAX package writes the pickle here unless check_dir is its
-        # packaged frozen-artifact directory; those artifacts come with
-        # the real-data readers (ROADMAP queue 1, "real-data readers").
-        raise NotImplementedError(
-            "writing partition caches next to the frozen reference "
-            "artifacts comes with the real-data readers; pass "
-            "check_dir=None on the synthetic path")
+        from creamfl_tpu_torch.data import frozen
+
+        # Never write regenerated partitions into the packaged frozen-
+        # artifact directory (e.g. a homo run whose _iid.pkl has no
+        # frozen counterpart): the package ships reference bytes only.
+        if os.path.abspath(check_dir) != os.path.abspath(
+                frozen.partitions_dir()):
+            os.makedirs(check_dir, exist_ok=True)
+            with open(cache, "wb") as f:
+                pickle.dump(net_map, f)
     return net_map

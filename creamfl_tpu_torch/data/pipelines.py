@@ -1,10 +1,10 @@
-"""Synthetic dataset bundle for the federated round.
+"""Dataset bundles for the federated round.
 
-Port of the synthetic half of the JAX package's ``data/pipelines.py``
-(``build_synthetic_datasets``, ``_family_batch_size``, ``_Subset``;
-reference `src/utils/load_datasets.py` + `src/datasets/load_FL_datasets.py`).
-``build_synthetic_datasets(args, ...)`` returns the loader bundle that
-``federation.rounds.MMFL`` consumes:
+Port of the JAX package's ``data/pipelines.py`` (``build_synthetic_datasets``,
+``build_real_datasets``, ``_family_batch_size``, ``_Subset``; reference
+`src/utils/load_datasets.py` + `src/datasets/load_FL_datasets.py`).
+Both builders return the loader bundle that ``federation.rounds.MMFL``
+consumes:
 
   pub_train / pub_eval  the public caption set (train loader shuffled with
                         a ragged last batch, eval loader in order);
@@ -23,11 +23,19 @@ thread, ``client_image_size`` gives the image clients their own (CIFAR)
 resolution, ``mm_client_data_size`` the mm clients their own size, and
 ``device_images`` synthesizes the caption sets' images on ``device``
 (``data/device_synth.py``) so that only caption fields live on the host.
-The real-data readers are not ported.
+
+``build_real_datasets`` reads MS-COCO, CIFAR-100, AG_NEWS and Flickr30k
+from their published formats, with the frozen artifacts of
+``data/frozen.py``; its image loaders are ``DeviceImages`` wrappers
+(``data/device_images.py``) that decode and transform each batch's images
+on ``device``. For one seed every caption, label and bookkeeping field is
+bit-equal to the JAX package's bundle, and so is every image for the same
+decoded pixels.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -200,3 +208,175 @@ class _Subset:
 
     def __getitem__(self, i):
         return self.dataset[self.indices[i]]
+
+
+def build_real_datasets(args, vocab_path: Optional[str], coco_root: str,
+                        cifar_root: str, agnews_root: str, f30k_root: str,
+                        bert_vocab: Optional[str] = None,
+                        partition_dir: Optional[str] = None,
+                        device="cuda") -> Dict:
+    """Real-data bundle; mirrors prepare_coco_dataloaders +
+    get_FL_trainloader. Raises FileNotFoundError on missing roots so the
+    caller can fall back to synthetic. The frozen artifacts default to the
+    packaged copies (``data/frozen.py``). Images are decoded and
+    transformed on ``device``. Every loader is an ``ArrayLoader``: the JAX
+    package's ``make_loader`` gives one too where grain is missing, as on
+    the card's machine, and grain's batches equal it, so
+    ``--data_backend`` changes nothing here."""
+    from creamfl_tpu_torch.data import frozen
+    from creamfl_tpu_torch.data.agnews import Language
+    from creamfl_tpu_torch.data.cifar import Cifar
+    from creamfl_tpu_torch.data.coco import CocoCaptionsCap, SubsetDataset
+    from creamfl_tpu_torch.data.device_images import (DeviceImages,
+                                                      ImageArray, JpegFiles)
+    from creamfl_tpu_torch.data.flickr30k import F30kCaptionsCap
+    from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
+    from creamfl_tpu_torch.data.transforms import (CIFAR100_MEAN,
+                                                   CIFAR100_STD)
+    from creamfl_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    def _jpeg_loader(dataset, base, batch_size, **kw):
+        """A loader over a COCO or F30k dataset (``base`` the reader under
+        any subset) with its images made on the device at 224²."""
+        return DeviceImages(ArrayLoader(dataset, batch_size, **kw),
+                            JpegFiles(base.image_path), 224, device=device)
+
+    def _cifar_loader(dataset, base, source, batch_size, **kw):
+        """A loader over a CIFAR set (``base`` the reader under any
+        subset); the clients of one set share its ``source``, which puts
+        the set on the device once."""
+        return DeviceImages(ArrayLoader(dataset, batch_size, **kw), source,
+                            base.out_size, CIFAR100_MEAN, CIFAR100_STD,
+                            device=device)
+
+    vocab = Vocabulary().load_from_pickle(vocab_path
+                                          or frozen.coco_vocab_path())
+    if partition_dir is None:
+        partition_dir = frozen.partitions_dir()
+    bert_tok = (BertWordPieceTokenizer.from_vocab_file(bert_vocab)
+                if bert_vocab and os.path.exists(bert_vocab) else None)
+
+    ann_dir = os.path.join(coco_root, "annotations")
+    image_root = os.path.join(coco_root, "allimages")
+    train_ann = os.path.join(ann_dir, "captions_train2014.json")
+    val_ann = os.path.join(ann_dir, "captions_val2014.json")
+    # Karpathy split ids are packaged artifacts; missing files are a loud
+    # error (a silent None would fall back to ALL annotations).
+    train_ids = frozen.load_coco_ids("train")
+    restval_ids = frozen.load_coco_ids("restval")
+    te_ids = frozen.load_coco_ids("test")
+
+    # Miniature --smoke fixtures pair the full-COCO frozen id files with
+    # subset annotation files, so missing ids are expected there; at real
+    # scale a partial annotation file must fail loudly.
+    allow_missing = bool(getattr(args, "smoke", False))
+
+    def coco(train, ids=train_ids, extra=restval_ids):
+        # Both pub splits keep caption-drop 0.1 + random-erasing 0.2: the
+        # reference passes the train probs to train_subset_eval too
+        # (load_datasets.py:80-89).
+        return CocoCaptionsCap(
+            image_root, train_ann, ids=ids, extra_ann_path=val_ann,
+            extra_ids=extra, train=train, vocab=vocab,
+            caption_drop_prob=0.1, random_erasing_prob=0.2,
+            bert_tokenizer=bert_tok, allow_missing_ids=allow_missing)
+
+    pub_num = getattr(args, "pub_data_num", 50000)
+    coco_train, coco_eval = coco(True), coco(False)
+    # total= matters only on the smoke-scale regeneration path.
+    subset_idx = frozen.load_subset_idx(
+        getattr(args, "coco_subset_idx", None), pub_data_num=pub_num,
+        total=len(coco_train))
+    # Honour --pub_data_num by slicing the frozen subset.
+    subset_idx = subset_idx[:pub_num]
+    coco_client = getattr(args, "coco_client", -1)
+    if coco_client > -1:
+        # Per-client COCO shard (reference load_datasets.py:164-166:
+        # captions [100000 + 10000*client, 110000 + 10000*client)).
+        subset_idx = list(range(100000 + coco_client * 10000,
+                                110000 + coco_client * 10000))
+    pub_train = SubsetDataset(coco_train, subset_idx)
+    pub_eval = SubsetDataset(coco_eval, subset_idx)
+    val_ids = frozen.load_coco_ids("dev")[:5000]
+    test_set = CocoCaptionsCap(image_root, val_ann, ids=te_ids, train=False,
+                               vocab=vocab, bert_tokenizer=bert_tok,
+                               allow_missing_ids=allow_missing)
+
+    # Public loaders use the server config's batch size (coco.yaml
+    # dataloader.batch_size=128; eval subset x2), independent of the
+    # clients' --batch_size.
+    pub_bs = _family_batch_size(128, len(pub_train))
+    datasets: Dict = {
+        "vocab": vocab,
+        "synthetic": False,
+        # Reference DataLoaders keep the trailing partial public batch
+        # (drop_last defaults False; the eval subset's last batch is bare,
+        # not padded).
+        "pub_train": _jpeg_loader(pub_train, coco_train, pub_bs,
+                                  shuffle=True, drop_last=False,
+                                  pad_last=False, seed=args.seed),
+        "pub_eval": _jpeg_loader(pub_eval, coco_eval, pub_bs * 2,
+                                 pad_last=False),
+        "test": _jpeg_loader(test_set, test_set, 8, pad_last=True),
+        "img_num_class": 100,
+        "txt_num_class": 4,
+        "n_crossfolds": 5,
+        "n_images_per_crossfold": 1000,
+        "n_captions_per_crossfold": 5000,
+    }
+    val_set = CocoCaptionsCap(image_root, val_ann, ids=val_ids, train=False,
+                              vocab=vocab, bert_tokenizer=bert_tok,
+                              allow_missing_ids=allow_missing)
+    datasets["val"] = _jpeg_loader(val_set, val_set, 8, pad_last=True)
+
+    if args.num_img_clients > 0:
+        train = Cifar(cifar_root, "Cifar100", train=True)
+        parts = data_partitioner("cifar100", len(train),
+                                 args.num_img_clients, "hetero",
+                                 check_dir=partition_dir, alpha=0.1,
+                                 y_train=train.targets, seed=args.seed)
+        img_bs = _family_batch_size(
+            512, *(len(parts[i]) for i in range(args.num_img_clients)))
+        source = ImageArray(train.data)
+        datasets["img_clients"] = [
+            _cifar_loader(_Subset(train, parts[i]), train, source, img_bs,
+                          shuffle=True, pad_last=True, seed=args.seed)
+            for i in range(args.num_img_clients)]
+        test_img = Cifar(cifar_root, "Cifar100", train=False)
+        datasets["img_test"] = _cifar_loader(
+            test_img, test_img, ImageArray(test_img.data),
+            _family_batch_size(512, len(test_img)), pad_last=True)
+    if args.num_txt_clients > 0:
+        train = Language(agnews_root, "AG_NEWS", train=True, vocab=vocab)
+        parts = data_partitioner("AG_NEWS", len(train),
+                                 args.num_txt_clients, "hetero",
+                                 check_dir=partition_dir, alpha=0.1,
+                                 y_train=train.targets, seed=args.seed)
+        txt_bs = _family_batch_size(
+            512, *(len(parts[i]) for i in range(args.num_txt_clients)))
+        datasets["txt_clients"] = [
+            ArrayLoader(_Subset(train, parts[i]), txt_bs, shuffle=True,
+                        pad_last=True, seed=args.seed)
+            for i in range(args.num_txt_clients)]
+        test_txt = Language(agnews_root, "AG_NEWS", train=False,
+                            vocab=vocab)
+        datasets["txt_test"] = ArrayLoader(
+            test_txt, _family_batch_size(512, len(test_txt)),
+            pad_last=True)
+    if args.num_mm_clients > 0:
+        pp = os.path.join(partition_dir, "client_noniid_flicker30k.pkl")
+        mm_sets = [
+            F30kCaptionsCap(f30k_root, "train", train=True, vocab=vocab,
+                            caption_drop_prob=0.1, random_erasing_prob=0.2,
+                            client=i, partition_pickle=pp)
+            for i in range(args.num_mm_clients)]
+        mm_bs = _family_batch_size(128, *(len(d) for d in mm_sets))
+        datasets["mm_clients"] = [
+            # pad_last + MCSoft pair masking == the reference's bare
+            # trailing partial batch (drop_last defaults False).
+            _jpeg_loader(d, d, mm_bs, shuffle=True, drop_last=False,
+                         pad_last=True, seed=args.seed)
+            for d in mm_sets]
+    return datasets

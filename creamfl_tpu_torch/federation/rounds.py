@@ -77,8 +77,11 @@ class MMFL:
                  tracker=None, logger=None, bert_config=None,
                  device="cuda"):
         """datasets: the bundle of ``data.pipelines.build_synthetic_datasets``
-        (pub_train / pub_eval / test loaders, per-family client loader
-        lists, img/txt test loaders, vocab, class counts, crossfolds).
+        or ``build_real_datasets`` (pub_train / pub_eval / test loaders,
+        per-family client loader lists, img/txt test loaders, vocab, class
+        counts, crossfolds); a loader's ``images`` may already be on the
+        device (``DeviceImages``, ``DeviceImageBatches``) and are used
+        there.
         ``device``: where everything runs; CUDA unless the caller asks for
         the CPU."""
         self.device = resolve_device(device)

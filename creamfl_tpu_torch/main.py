@@ -3,10 +3,12 @@
 Port of the JAX package's ``main.py``: the same flag surface
 (``add_args``), ``build_configs``, ``build_datasets`` and ``run``. Runs on
 the card (``--device N`` picks it) unless ``--no-cuda`` asks for the CPU;
-without a card and without ``--no-cuda`` it raises. Only the synthetic
-datasets are ported (``--synthetic``, at the default scale, ``--smoke`` or
-``--paper_scale``); the real-data readers raise, as does a mesh of more
-than one card.
+without a card and without ``--no-cuda`` it raises, as does a mesh of more
+than one card. Without ``--synthetic`` it reads MS-COCO, CIFAR-100,
+AG_NEWS and Flickr30k (``--coco_root``, ``--cifar_root``,
+``--agnews_root``, ``--f30k_root``; defaults under ``$HOME/data``) with the
+packaged frozen artifacts, and decodes and transforms their images on the
+run's device; when a root is missing it falls back to ``--synthetic``.
 
 Two rounds on the card, the paper's flags, stacked client families (the
 default; ``--no_client_parallel`` runs the clients one by one), a round
@@ -17,6 +19,20 @@ checkpoint after each round:
       --img_model_local resnet18 --agg_method con_w \
       --contrast_local_inter --contrast_local_intra --ckpt_dir ck
 The same command with ``--resume`` continues after the latest checkpoint.
+On the repository's miniature real-format datasets, on the CPU:
+  python -m creamfl_tpu_torch.main --no-cuda --smoke \
+      --coco_root tests/fixtures/coco --cifar_root tests/fixtures/cifar \
+      --agnews_root tests/fixtures/agnews --f30k_root tests/fixtures/f30k \
+      --coco_subset_idx tests/fixtures/coco_subset_idx --pub_data_num 8 \
+      --comm_rounds 1 --local_epochs 1 --num_img_clients 2 \
+      --num_txt_clients 2 --num_mm_clients 2 --client_num_per_round 6 \
+      --batch_size 8 --feature_dim 16 --not_bert --agg_method con_w \
+      --contrast_local_inter --contrast_local_intra --partition_dir parts
+where ``parts/`` holds a copy of
+``tests/fixtures/partitions/client_noniid_flicker30k.pkl`` (the packaged
+partitions index the full datasets; the CIFAR and AG_NEWS ones are
+regenerated there). ``--smoke`` lets the miniature annotation files miss
+frozen ids.
 The same on the CPU at small shapes: add ``--no-cuda --smoke``. At the
 paper's geometry (a 50 000-row public set at 224², its images synthesized
 on the card): add ``--paper_scale``; ``--client_bf16`` runs the image
@@ -131,6 +147,11 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument('--coco_subset_idx', type=str, default=None,
                         help='frozen public-subset index file (default: '
                              'the packaged reference artifact)')
+    parser.add_argument('--partition_dir', type=str, default=None,
+                        help='client partition pickles of the real data '
+                             '(default: the packaged frozen partitions); '
+                             'partitions missing there are regenerated '
+                             'and written there')
     parser.add_argument('--resnet_ckpt', type=str, default=None,
                         help='torchvision ResNet state_dict (.pth) for the '
                              'server image trunk')
@@ -194,17 +215,31 @@ def build_configs(args):
 
 
 def build_datasets(args, device=None):
-    """The synthetic bundle at ``--smoke``, ``--paper_scale`` or the
-    default scale (the JAX package's scales, `creamfl_tpu/main.py:186-230`).
-    ``--paper_scale`` synthesizes the caption sets' images on ``device``
-    (default: the run's, ``--no-cuda`` / ``--device``)."""
+    """The real bundle from the data roots, or, with ``--synthetic`` or when
+    a root is missing, the synthetic bundle at ``--smoke``,
+    ``--paper_scale`` or the default scale (the JAX package's
+    `creamfl_tpu/main.py:186-230`). Real images and ``--paper_scale``'s
+    synthesized ones are made on ``device`` (default: the run's,
+    ``--no-cuda`` / ``--device``)."""
     from creamfl_tpu_torch.data import pipelines
     from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
 
     if not args.synthetic:
-        raise NotImplementedError(
-            "the real-data readers are not ported yet (ROADMAP queue 1, "
-            "real-data readers); pass --synthetic")
+        try:
+            home = os.environ.get('HOME', '.')
+            return pipelines.build_real_datasets(
+                args,
+                vocab_path=args.vocab_path,  # None: packaged frozen vocab
+                coco_root=args.coco_root or f"{home}/data/mmdata/MSCOCO/2014",
+                cifar_root=args.cifar_root or f"{home}/data/cifar100",
+                agnews_root=args.agnews_root or f"{home}/data",
+                f30k_root=args.f30k_root or f"{home}/data/f30k",
+                bert_vocab=args.bert_vocab,
+                partition_dir=getattr(args, "partition_dir", None),
+                device=device or _run_device(args))
+        except FileNotFoundError as e:
+            print(f"real datasets unavailable ({e}); "
+                  f"falling back to --synthetic")
     bert_tok = (None if args.not_bert
                 else BertWordPieceTokenizer.synthetic())
     if args.smoke:

@@ -3,10 +3,10 @@
 Each source is compiled on its own, at first use, into
 ``creamfl_tpu_torch/_build/<hash>/lib<name>.so`` (the directory is
 git-ignored), where the hash covers the source, every ``*.cuh`` header
-beside it (which the source may include) and the flags: a changed source
-or header gets a new library and an unchanged one is built once. The
-libraries have a plain C interface: no PyTorch headers, so a build takes
-seconds.
+beside it (which the source may include), the flags and the source's link
+flags (``-lnvjpeg`` for ``csrc/jpeg.cu``): a changed source or header gets
+a new library and an unchanged one is built once. The libraries have a
+plain C interface: no PyTorch headers, so a build takes seconds.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import Sequence, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -40,28 +40,36 @@ def nvcc() -> str:
                        "CUDA toolkit")
 
 
-def library_path(source: Path) -> Path:
-    """Where the library built from ``source`` lives."""
+def toolkit_lib_dir() -> str:
+    """The CUDA toolkit's library directory (beside ``nvcc``'s)."""
+    return os.path.join(os.path.dirname(os.path.dirname(nvcc())), "lib64")
+
+
+def library_path(source: Path, link: Sequence[str] = ()) -> Path:
+    """Where the library built from ``source`` (linked with ``link``)
+    lives."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if link:
+        h.update(" ".join(link).encode())
     digest = h.hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{source.stem}.so"
 
 
-def build(source: Path) -> Tuple[Path, float, str]:
-    """Compile ``source`` unless a library for this exact source and these
-    flags exists. Returns (library path, build seconds, compiler output).
-    Raises if nvcc fails."""
-    lib = library_path(source)
+def build(source: Path, link: Sequence[str] = ()) -> Tuple[Path, float, str]:
+    """Compile ``source`` (linked with the flags ``link``) unless a library
+    for this exact source and these flags exists. Returns (library path,
+    build seconds, compiler output). Raises if nvcc fails."""
+    lib = library_path(source, link)
     if lib.exists():
         return lib, 0.0, ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source),
+                           *link], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -114,9 +114,20 @@ def test_partitioner_bit_equal(kind, seed):
 
 
 def test_partitioner_cache_write_waits_for_real_data(tmp_path):
-    with pytest.raises(NotImplementedError):
-        partition.data_partitioner("cifar100", 40, 2, "homo",
-                                   check_dir=str(tmp_path))
+    """The cache write waited for the real-data readers, which are ported:
+    a regenerated partition is written, equals the JAX package's, and is
+    read back (another seed does not regenerate it)."""
+    import pickle
+
+    got = partition.data_partitioner("cifar100", 40, 2, "homo",
+                                     check_dir=str(tmp_path))
+    want = jpartition.data_partitioner("cifar100", 40, 2, "homo")
+    assert got == want
+    with open(tmp_path / "client_cifar100_iid.pkl", "rb") as f:
+        assert pickle.load(f) == want
+    assert partition.data_partitioner("cifar100", 40, 2, "homo",
+                                      check_dir=str(tmp_path),
+                                      seed=7) == want
 
 
 def test_bert_wordpiece_synthetic_ids_bit_equal():

@@ -4,8 +4,10 @@ A fresh interpreter imports every module of ``creamfl_tpu_torch`` (and
 ``chip_smoke``) and lists what got loaded. ``creamfl_tpu_torch`` itself
 starts with ``creamfl_tpu``, so the check matches the JAX package by its
 exact name or its ``creamfl_tpu.`` prefix, not by a plain prefix. PyYAML,
-``transformers``, ``grain`` and PIL are not loaded either: the GPU machine
-lacks them. The walk finds new modules by itself.
+``transformers`` and ``grain`` are not loaded either: the GPU machine
+lacks them. Nor is PIL: the port decodes JPEG files with nvJPEG on the
+card and imports PIL only to decode on the CPU, at the first such call.
+The walk finds new modules by itself.
 
 The port's entry points run on the card unless the caller asks for the
 CPU: without a card, ``MMFL``, the text and mm client engines and the
@@ -116,26 +118,54 @@ def test_round_entry_points_need_a_card_or_the_cpu_asked_for():
     assert not os.path.exists(os.path.join(REPO, "unused"))
 
 
-def test_cli_without_synthetic_raises():
-    from creamfl_tpu_torch import main
+def test_cli_without_synthetic_raises(tmp_path, capsys):
+    """Without --synthetic the CLI reads the real datasets (the readers
+    are ported; the refusal this test held is gone): on the
+    fixture roots it builds the real bundle on the device asked for, and
+    without a card and without --no-cuda it raises; missing roots fall back
+    to the synthetic bundle with the JAX package's message."""
+    import shutil
 
-    args = main.parse_args(["--no-cuda", "--no_client_parallel"])
-    with pytest.raises(NotImplementedError, match="--synthetic"):
-        main.build_datasets(args)
-    # --paper_scale is ported: still no real data without --synthetic; with
-    # it, the bundle's images are synthesized on the device asked for.
-    args = main.parse_args(["--no-cuda", "--paper_scale"])
-    with pytest.raises(NotImplementedError, match="--synthetic"):
-        main.build_datasets(args)
+    from creamfl_tpu_torch import main
     from creamfl_tpu_torch.data import pipelines
 
-    seen = {}
-    mp = pytest.MonkeyPatch()
-    mp.setattr(pipelines, "build_synthetic_datasets",
-               lambda args, **kw: seen.update(kw))
-    try:
-        main.build_datasets(main.parse_args(["--no-cuda", "--synthetic",
-                                             "--paper_scale"]))
-    finally:
-        mp.undo()
-    assert seen["device_images"] and seen["device"] == torch.device("cpu")
+    fix = os.path.join(REPO, "tests", "fixtures")
+    parts = tmp_path / "parts"
+    parts.mkdir()
+    shutil.copy(os.path.join(fix, "partitions",
+                             "client_noniid_flicker30k.pkl"), parts)
+    real = ["--smoke", "--coco_root", os.path.join(fix, "coco"),
+            "--cifar_root", os.path.join(fix, "cifar"), "--agnews_root",
+            os.path.join(fix, "agnews"), "--f30k_root",
+            os.path.join(fix, "f30k"), "--coco_subset_idx",
+            os.path.join(fix, "coco_subset_idx"), "--partition_dir",
+            str(parts), "--pub_data_num", "8", "--num_img_clients", "1",
+            "--num_txt_clients", "1", "--num_mm_clients", "1"]
+    ds = main.build_datasets(main.parse_args(["--no-cuda"] + real))
+    assert ds["synthetic"] is False
+    batch = next(iter(ds["pub_train"]))
+    assert batch["images"].device.type == "cpu"
+    assert tuple(batch["images"].shape[1:]) == (224, 224, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main.build_datasets(main.parse_args(real))
+    missing = str(tmp_path / "absent")
+    ds = main.build_datasets(main.parse_args(
+        ["--no-cuda", "--smoke", "--coco_root", missing]))
+    assert ds["synthetic"] is True
+    out = capsys.readouterr().out
+    assert "real datasets unavailable" in out and missing in out
+    assert "falling back to --synthetic" in out
+    # --paper_scale: the fallback (and --synthetic) synthesize the bundle's
+    # images on the device asked for.
+    for flags in (["--coco_root", missing], ["--synthetic"]):
+        seen = {}
+        mp = pytest.MonkeyPatch()
+        mp.setattr(pipelines, "build_synthetic_datasets",
+                   lambda args, **kw: seen.update(kw))
+        try:
+            main.build_datasets(main.parse_args(
+                ["--no-cuda", "--paper_scale"] + flags))
+        finally:
+            mp.undo()
+        assert seen["device_images"] and seen["device"] == torch.device("cpu")
