@@ -77,13 +77,16 @@ Phases (any failure exits non-zero):
    distribution bounds over 4 096 images; event and host ms per batch of
    128), the server's ``load_pretrained`` from random-weight files
    (weights equal to the files'), and ``RawTrainer`` for 4 steps and one
-   validation. ``--paper-full`` runs this step alone at the paper's full
-   geometry (50 000 rows, pools of 10 / 10 / 15 with 10 sampled, 5 local
-   epochs); it is not part of the default run.
+   validation; then the round's two forward sweeps again, by the parent
+   commit's per-batch steps and by graph-replayed chunks, in turns.
+   ``--paper-full`` runs this step alone at the paper's full geometry
+   (50 000 rows, pools of 10 / 10 / 15 with 10 sampled, 5 local epochs);
+   it is not part of the default run.
 9. The real-data path on the repository's miniature real-format datasets
    (``tests/fixtures/``; ``--real-round`` runs the build and this step
    alone). nvJPEG and the colour kernel (``csrc/jpeg.cu``) decode every
-   fixture JPEG and a grayscale and a progressive file: each image's
+   fixture JPEG, a grayscale and a progressive file and CMYK, YCCK and
+   RGB-coded files: each image's
    statistics within DECODE_TOL levels of PIL's (DECODE_TABLE), the colour
    kernel bit-equal to its plain version. The device transforms on the card
    against the same on the CPU, bit for bit, and their ms per batch, also
@@ -94,6 +97,17 @@ Phases (any failure exits non-zero):
    every JPEG decoded by nvJPEG, every K3 and K4 launch on tc, con_w, global
    features and scores as in step 6; then ``main.run`` with the arguments
    of the JAX package's two-round fixture test, one round.
+10. The server's chunked sweeps on CUDA graphs (``--chunks`` runs the build
+   and this step alone; in the default run it follows step 4): at the
+   paper's width, each of ``eval_chunk``, ``extract_chunk``,
+   ``train_chunk`` and ``distill_chunk`` (k = 8) captured and replayed
+   against the same k eager steps from the same state and generator state
+   (train and distill under deterministic algorithms, bit for bit); the
+   extraction's dropout across reseeded replays; a chunk's time against
+   its k eager steps; the profiler's idle share of one train_chunk
+   against one eager train step; the graphs' memory; a train_chunk on the
+   fused trunk, its K5/K6 launches counted once per replay; the GRU
+   branch's eager route.
 
 Each path runs with the launch counts zeroed just before it and read just
 after. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -1069,10 +1083,16 @@ def synth_text(seed: int, row0: int, bs: int, vocab: int, dev):
 
 
 def profile_step(engine, state, inputs, tag: str, top: int = 12) -> None:
-    """One more train step under torch.profiler: device time by kernel,
-    the shares of K5's and K6's kernels (each with its merges, matched by
-    exact short name), and the device's idle share of the step's wall
-    time."""
+    """One more train step under torch.profiler (``profile_call``)."""
+    profile_call(lambda: engine.train_step(state, *inputs),
+                 f"{tag} train step", top)
+
+
+def profile_call(fn, tag: str, top: int = 12):
+    """``fn()`` under torch.profiler: device time by kernel, the shares of
+    K5's and K6's kernels (each with its merges, matched by exact short
+    name), and the device's idle share of the call's wall time. Returns
+    (wall ms, busy ms)."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1080,7 +1100,7 @@ def profile_step(engine, state, inputs, tag: str, top: int = 12) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        engine.train_step(state, *inputs)
+        fn()
         torch.cuda.synchronize()
     by_name, spans, cpu_spans = defaultdict(float), [], []
     for e in prof.events():
@@ -1108,12 +1128,13 @@ def profile_step(engine, state, inputs, tag: str, top: int = 12) -> None:
     k5, k6 = (sum(v for k, v in by_name.items()
                   if short_kernel_name(k) in names)
               for names in (K5_KERNELS, K6_KERNELS))
-    log(f"[profile] {tag} train step: wall {wall / 1e3:.3f} ms, device "
+    log(f"[profile] {tag}: wall {wall / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms (idle share {1 - busy / wall:.3f}), "
         f"kernel time {total / 1e3:.3f} ms, of it K5 {k5 / 1e3:.3f} ms and "
         f"K6 {k6 / 1e3:.3f} ms (together {(k5 + k6) / 1e3:.3f} ms)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / 1e3:9.3f} ms  {name[:110]}")
+    return wall / 1e3, busy / 1e3
 
 
 def run_server(engine, state, seed: int, dev, timer, tag: str,
@@ -1374,7 +1395,10 @@ REAL_CLI_ARGS = REAL_DATA_ARGS + (
 # test tests/test_torch_jpeg.py keeps the table true), each within
 # DECODE_TOL uint8 levels (the two IDCTs round differently: a few levels
 # on a few pixels). The fixture JPEGs (64², 4:2:0), then a grayscale and a
-# progressive file (EXTRA_JPEGS, base64).
+# progressive file, then CMYK, YCCK and RGB-coded files made with Pillow
+# 12.1 (YCCK: a CMYK file with its Adobe transform byte set to 2; Pillow
+# writes no YCCK and will not subsample an RGB-coded file) (EXTRA_JPEGS,
+# base64; tests/test_torch_jpeg.py keeps the table PIL's).
 DECODE_TOL = 1.0
 DECODE_TABLE = {
     "coco/allimages/COCO_train2014_000000000001.jpg": (
@@ -1481,6 +1505,26 @@ DECODE_TABLE = {
         110.638, 129.704, 90.260, 53.604, 49.406, 42.910, 108.462, 113.428,
         97.415, 111.832, 113.941, 95.795, 110.240, 144.474, 64.786, 111.868,
         144.951, 103.141),
+    "cmyk444": (
+        72.419, 70.094, 70.772, 57.984, 58.455, 58.731, 69.190, 79.310,
+        74.508, 82.827, 65.387, 55.481, 58.319, 58.878, 79.719, 78.919,
+        76.965, 73.263),
+    "cmyk420": (
+        65.261, 65.222, 65.706, 52.719, 49.092, 49.842, 71.850, 81.181,
+        71.873, 69.073, 53.652, 49.370, 58.707, 64.654, 88.046, 62.136,
+        62.395, 54.143),
+    "ycck444": (
+        65.051, 72.481, 66.535, 66.284, 64.385, 69.972, 57.083, 85.266,
+        62.167, 67.701, 40.441, 71.789, 56.298, 78.812, 67.091, 77.765,
+        84.991, 64.955),
+    "ycck420": (
+        70.712, 69.489, 64.465, 63.371, 57.978, 62.329, 81.211, 83.038,
+        63.833, 62.405, 35.009, 62.059, 60.684, 82.561, 75.518, 78.713,
+        76.879, 56.721),
+    "rgb444": (
+        129.545, 125.231, 125.770, 74.176, 72.461, 72.895, 136.692,
+        98.656, 122.163, 94.632, 155.863, 121.940, 152.425, 148.638,
+        129.538, 136.098, 97.590, 129.449),
 }
 EXTRA_JPEGS = {
     "gray": (  # 47 x 35, grayscale, quality 85
@@ -1526,6 +1570,189 @@ EXTRA_JPEGS = {
     "MYhsOpDCfPv6cXhOVs+uWOsEofCTHM+ryGsolQjWczlMkOjf96yfnUAeOmavc8+MhBUmVMSV"
     "K/0ThqxEkQsU8LzetTgmIRSBceOnJ6gCPl0V77vFhOFSBuZdj5xRJMpsrzut/jeTCTbWDUT1"
     "qXzkEDVIFT7weph8A9fv3hwigrKCNupwyKJUjr9BFd4KOKyrX0j1n//Z"),
+    "cmyk444": (  # 37 x 29, CMYK, 4:4:4, quality 85
+    "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAFAwQEBAMFBAQEBQUFBgcMCAcHBwcPCwsJDBEPEhIR"
+    "DxERExYcFxMUGhURERghGBodHR8fHxMXIiQiHiQcHh8e/8AAFAgAHQAlBEMRAE0RAFkRAEsR"
+    "AP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAAB"
+    "fQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2"
+    "Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqi"
+    "o6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5"
+    "+v/aAA4EQwBNAFkASwAAPwDxW4k8Ta/KXAuHhuHKSyAgruJQAg5PHUkdexGc44D4ReANS1a8"
+    "QmRPIdnDmVSCUJYCQnk42g/3ujHPPPafsyaQbTShfBVjWZS371VIOTzhQMqcgn5ccc+9es+H"
+    "7eSH4QxO+pQxyxRHaJYgiHDZJHJAPIGR/c4PLZ6fw/8AB7xFqEqbrS7iXYi75Vb9yCx6nAJJ"
+    "6DgE4HXkV9X+HNJ0/wAK6HFqUsPlPbwF3VQqlBt/jAA6M3fo24emOL/ab8ULHFNY/aFjBbaH"
+    "dCVJG758jjoDwOQeCe1fKHg9pz8YwotZLbfd+VHGjqI5cE5ypwSuVUYXHv0zXq3hH4FwRqZp"
+    "ZGkkkDIWlwVdckcD+I4XooB6cjJryP4+fEiW2RLaCZFn5BiIz+8wcuCAeeANp7jmuC/Z00H+"
+    "0Net5ktJGcygHJMhLNg8bcbcBunzZycc19QfHaZz8LESFneUBhk9QBjCgMSpPOcHv6EV6xpH"
+    "w+8L6LbLNNAu+PMjpJCGAKgsWUkfd6DPAxzwcGvnSxt9Q8X65NNHl7cKXLgbFYt2BAIwOT83"
+    "Xb7V9PfFbWo9N8CD7OI7WP7OHVBFxGpUg4BJXBLEYzkDAIAIrwz9kmFT4raeKTyy8y5zk7MO"
+    "QoPXkccHI4boOtqTxp4e0qZoDKVH3cSSJESRyTwDnrjnP3Rye3v3gL4QXM2h77uaS3uPMbzD"
+    "HbAl+eMgkFTjHH5cYr4P8YS3WqeJL25guHlG/BzKoI7nOST1LD8O9ep/tBJZXfiSzkvYDcMY"
+    "WwzXLoSQdpO1Dgcrj325wB1o6R4B8M+HLIIqwblcBMyAPvP3sADCnnAJzjBHA+WvbfC2gWHg"
+    "zQIZljKtGCFjd1UAE/XK5wc8jJ29xx99eD7KPTvB7KkQiMUP3vLBAIYNtyGDAAHjI5GcEZ57"
+    "fSd0XwbQ3URCx2uUl+87ZIDgPgklSDzjgD2qPVvF/hvw/HEscVjIY7cMod1CogI+Vc8lgVJ5"
+    "/ujqQK8X+NvxOFqk8WnXEjwRkovlEI6Fd3ygcfdIXkdj7Gvjr48an9v8SNbW8kMcSyMxK7Wb"
+    "G8MuQOWJ4xnrlu9fJ3gzy7f4rOFmCR/aS0vmyFFzkNkvnODknjp0GTkjz3xd8dLS31MParc/"
+    "6PujkDuVBB2k9/mIOAQeDk55yK+dLKHUvE+v+R9pMsD4LLHKzbACFUdcjJJwO+eOua+hf2Yv"
+    "D+3TBeGFmkjRJN6MGRTuzgYO35QuSM4yOAK+kP2gJ2tPh1DAsflSNH+8kZxjA4BAUgEA/i2M"
+    "5NeOeK/i/rWpGexs0jkCsVjjAOG5zgDuDt3c4HGfQH6b+B/w1S2itp5baQtHEuWbauHJBwG6"
+    "seTgZI5+hrnv2rPEtwLIWy3Msc0kaxJuLKS2B1cY3EtwMHHHOQRnxf8AZGtzL48+Y3ISecyB"
+    "lYF8sdueRxnkEk9jg8gnmbDXPHFzb/avtt4POYuDAwyQeRuxg9CME9f5+x6pqNhonk6Zb5Xy"
+    "lyylQCO33WBwMgjjjg/h4t8NNC+16XcXKWtsRJLkPO+4t1OcqPvc8/0xivT/ANoMC28RWSGK"
+    "AnyWJDMseCSD94kByepxkDNdL4i+Mms6j5NzaJIEtVVV+YBRuYBUBAGAMDjgYH4V4p8XvitZ"
+    "Qpc2elzxA+WYyIQwaM887V4JbB74yRu6V9f/ABc1CPTfCcCp56yPbiCQMrFQwbI74HzD7wzx"
+    "jqDXV6BC0PwV+zvGpka33xq5DKT5ZVSoYdAQCMLnnPTOOO1C78WeJpZVlF/9nQgsQ5I2jO4g"
+    "YxgFsEHPUDJwM/OEUmqeK9cWcoULyDy0kJ5yWDAkhQTyeB/eOB1B+LdFgn8T+MJPtEEjSvKH"
+    "DI33dgIZCWzlfmUdM/MDjOSPlfwiksnxfla2s2ZILpZDEQCVwclBkZJOeg5PToGNbvhP4Qa3"
+    "rRU3UUywbOhztTcCCuVBHfGeONoyORX058DvhrtsYri53rOWCyy4DSFlJIycYw3J65IbsMZ+"
+    "3/CCvoHg1ZEKo6xtIgbK4XPChjnb2O5sckg4Ayfqb4++Q3wzjjmEbyCAld8QA4AbOMhjn5R2"
+    "++a9r8LfAOKCaG7it5I5blCwbcVYMGA5255z65GWPGcmvTPE/iXSPDdnJJFdQx3ccJkK7lVl"
+    "4Yke4yWJzk5z1Ar5K+PniF9S8WvaWsN3cpJM7Rt5YZhlmHbHGWOegPt1rwb9lOCRvGDSGZWE"
+    "ly5HmgKCf4Sx/i+dj3Ygnq3Br1nR/AHh2wso7dbkhFUDzftKxeae7fd5H/6++a+UPiB8T1vt"
+    "Y823WSSMFwpEjt8u4kdOQOeh6cgdMD0f4KeEIz4V2zaT/aoUqP3it+6bHI4A5PGc88fn6v8A"
+    "HSS2k8Q2019bfa98ZMZXgqDgkduMnA+h4HU+C+Afhjobo3mu0kYWNQpjHLMGck/984wMDn3Y"
+    "Hz7U5JtW8RWtteTO5kBkjkJJdBnBGepztOeR19qZ+1Z4huHsHkkjbypGeNoxIcE5aMHJzwFL"
+    "DH+1XUaHcQt8Exci0QTQwkod3y4LMuMfSMdMHnjHOfddE8AaBpdxcxpZwzOkoJkkDbs7CMj5"
+    "uOPr+XFfRn7P3gnSpfDttfSIjNvxjZ1Xsp5wcY9Afx5rz/8AZ80a3m8YG2vwt0FuTBuCbCVD"
+    "nOcdQdq8e2K+XvBWnRzfHK1sT5QaVw6yeXkRqspwoXOO2T6nnrzXS3L2mkWUKWtjFuWcmMnh"
+    "VO8gnaABztzxjrXuOvXq6RoU1za26faJonnkdudxVSee+cYXOew4r6j+Id+1p8PFeKJCptiV"
+    "VuxYADpjpu/HH419D/HlHPwrS5jkMUpQBio4O8sBweyqduDngD0rgvFHxG1CLTjDBaJDkuSI"
+    "2UI2CAAV28jj8jg5wK+Rvjr4w1o6jctJcZE4JKqAM5Ukbs53DIBwePTFfGemxy3vxAEU8xkC"
+    "OpQuMkZKLn64JGRj8+a8h/ZW08Q+JZ7j7RO3kXLAKW4Uq4XK+md3fPTg14d4v+JuvRJYXUfy"
+    "NPFtIWQrhVChRx1wD/nnPnuieHrbxD5011IY3i2gBY1KgNlgACOMZx+VfaHgbT7bT/DNvzJI"
+    "pJjA+XOQAxJZlJP+swM9AvU16r8f7fOu2Kr5ajySxwmMkhOeCPT/ADzX/9k="),
+    "cmyk420": (  # 41 x 27, CMYK, C at 4:4:4, M, Y, K at 4:2:0, quality 85
+    "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAFAwQEBAMFBAQEBQUFBgcMCAcHBwcPCwsJDBEPEhIR"
+    "DxERExYcFxMUGhURERghGBodHR8fHxMXIiQiHiQcHh8e/8AAFAgAGwApBEMiAE0RAFkRAEsR"
+    "AP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAAB"
+    "fQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2"
+    "Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqi"
+    "o6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5"
+    "+v/aAA4EQwBNAFkASwAAPwDwueXxbrN080Ju1imyok8wRbV9d/OBjaccnoOvJ6zQ/g5rurXx"
+    "kuLdyTIHVg+IQWyOTk9WIwBk9CM9T9W6R4A8M+H7Z0e3t3kt0XcmCxIywTDEjlvl4HGQPpRc"
+    "+L/Deg3CiOO2CIjYU4KZXaQdpO4E7gOO4OT1B6vwpoXhb4OeDE1K/ZZ9UaPgFtzZ2g4HHX8f"
+    "StL4yXKeB/gRYaBbuySzooKjh2J4yD6fz+lSfHnal98NmR2QAx7QR1xjkZ6/wn8a8y8L/s/x"
+    "xRYulbdHmViqgqrZOBjI2nbz25IHqK9S0v4d+GtIWGWSK3eRV3qroGePghxliO+ODwAvUnk+"
+    "YeL/AI8W9vbr5V6MW4Z5EgAfav3VCgHhV7ccnA9RXknif4xaprkiAfvkKqi5DKQrPswqseRk"
+    "5XC8EYbkGvJYx4m+N3jc5Ei6YJgCOcEAjIBHB6UeA7OPwB+z7calO4juL2BmzsIfGOBxjvx+"
+    "fvVn4nqU/aQ8JLmPiNRnjk7em4HPXPT6V9XX/i3w/osTx/ZbeJd5VreKTLzPt6j5RlcAtngD"
+    "AOOlcV/ws7wr/wBB1f8AwJkr5Ouf+El8SXrCOWeRWkyxlIG0BGIL4POMvxxkqRzzT/8AhX/j"
+    "D/n7t/8Av0f/AI3XutlceBPh5YQeH7qCF5Y1yxcgkHA4ye/+NYf7PXgmbXfD1/rtzFlr658z"
+    "JJGevuPWvMf2i2jT4vaxuhikY7Mlo++OvQ12fif4w6tf3Mi2txG6FeEdAuw8kZPGTznngk9y"
+    "cni79/FXip/Ndbu7J2hUR5FypPA4+U4x/F04xgCup8AaLpTXsZawgOIjKAV43bJDnH1RTjp1"
+    "9Tn6C+GGi6VNok1zJYwtNlG3Y7lTn+Zr53vNQ1L4ufEVtNv7jyLSOd9sO47QE5xj3z/nio/2"
+    "hLqXxB8XNK8PynbaRSDjsMEKeOh7enQV33x2k333w5QMzFGjUFj0yOw7fc/lXz14X+EWs6yy"
+    "C9G+RmykRURr8shB6gAH5WzwccDp09f8KfACMbTqtmfLjJkId2AY/eyCdwyQHBwCenoRX0pZ"
+    "6Tp9tpsrQWqqW3MeSRnL84J9h+QrlL6/uotEGyQfMAhyingrKSOR6ivoTxNJYfCP4etFpFhG"
+    "10YQzzAAZyp5HvgHNan7WV5JY6D4d8JWiRpCY0AYLgHA7gf7taHxERpv2lPBluAgaW3BiJHA"
+    "HTnHTp+nvWPovgTwlof+mWYh3GM7lkiB8rPOCxxxjnsOeAAa6DzPDn/QEtP+/kf+NeI6/rms"
+    "DxCkQ1K5CFY5CvmHljGGJPryM49a8N/4TXxZ/wBDBf8A/f018zaPous/EWS81+71g27tNtwB"
+    "nPAPQg469q9W+G6WfhTwDo9jGglRod2TCG5GAepGOn/6uleaftG2163xj1xbC6SDy3WN967t"
+    "2M4r/9k="),
+    "ycck444": (  # 33 x 25, YCCK, 4:4:4, quality 85
+    "/9j/7gAOQWRvYmUAZAAAAAAC/9sAQwAFAwQEBAMFBAQEBQUFBgcMCAcHBwcPCwsJDBEPEhIR"
+    "DxERExYcFxMUGhURERghGBodHR8fHxMXIiQiHiQcHh8e/8AAFAgAGQAhBEMRAE0RAFkRAEsR"
+    "AP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAAB"
+    "fQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2"
+    "Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqi"
+    "o6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5"
+    "+v/aAA4EQwBNAFkASwAAPwDwqA+L/EC2sCRXLRu7umVL7w5IxuAPOBk844wcnOPPvg/8ObrW"
+    "b20v3jRiAJWMJYcgj5RkklRsK+mMda7X9mfw7FYaFZ3skYZAHS4Y5Cp0xgEYJ7c8ccDnj07Q"
+    "RdL8JZZ4pY5M2oZZPlQFCgKjpwMds9cdFbFdZ4Y+DWqarAJb5Z5RKylxjLoRg5BHfHvjnPGc"
+    "V9aeFNG0jw7oCpcgRzDY5l4cEjKnDHkgsM4JxnBHoeS/ai8RqLOSC4ZFUEMm4JtkbcQeB82e"
+    "g4I28dM4r5T8KQlPi80fkzz/AOllrd4yCA+7JwM7SQxVSwxzgdMk+weGvgCqSi51YJG6qJRJ"
+    "wwH3cAnHpnHbrk9z4/8AG34vCGyurXTrhJniidMEusknHGeQCfkxgZDYGffzX9nXRYb7xCrs"
+    "pZFIMsrj5VbGT14P3emBgAdMCvqD9oryofh95k0j2eLcBGHA+7gspA4A4+Y9dueAc16da+Av"
+    "DGmOyqtuYoVGUA+7ggcAuWGFxwSOvYYr5sma78U3TPJcoyyuPLaRXZoiPm5IXg5xnGPlPHbP"
+    "1D8WL0+HvCU9rK0fkiFg+9mIYiMdc9QTnrnr0+avFv2U2J8ZveKiiOQsEcLsZjksEOzLEDb3"
+    "PQAA8mrv2zRv71h/3xHXd/8ACmb7/n31j8x/jXyT/wALGb/oYb7/AL5H/wAVX15/a1j/ANNf"
+    "/Ayes3R/hzoGmpBI0UJniYeWjMN6SBlHXjIzndxjJzgV9X+HtH0nw/pcRgka0kIBgBXHAAXI"
+    "P8JzyQSTg5z0NfY3hrT5dF8HNJshLRFCQx+Z3OQXLHkYJ9sk+/PC6M2fgwfskL7YY8YMTxMj"
+    "ZG1WwpDHITkHPQ9+Jtb8beG9OtJpHWGBCWcyJgtjOQxGMdSRjBJ56gGvJfjR8S9Nt4Lmw0+4"
+    "dk27SkYAO7fgOfmHOdxJ+bqT1wa+Qfjrqkt94ouIIZFbkJGYnwYx8o+62Aep59ee5FfJ/hVL"
+    "f/hb/lyRRSI11I8js5ZSgDLwQCQ3CngBsZxjdivNvGHx3t4re4a3nhXyZTtWQ/KxABGemT8u"
+    "QOeSRyVyPnOzjv8AxhravE15OisTLLHJgvnGcEnK5/vYwehyQWPvP7MXh5rXw813coAs6q8m"
+    "XJJBAG7CnkqS2QfXH3sEfTX7RNzJB8NBJFGI0ELPGEl2lOVIJjwWHTv684JIryXxJ8atZ1Lz"
+    "7i3MsoAO7cOGAf7ygZIPGOvGMnHFfTnwT+F8dlaWt00YiMi+ZIhRgy5UHG4lecgtwvVc5HU8"
+    "9+034kcWNzbKWltyhG2bJjZgcryw65A+Y7evfivDf2Uk3eLnltziAuHgj27FDNgDG0YLcHIy"
+    "M4zngGue/wCFg696XH/fz/7KvbP7I0z/AKCunf8Aft//AIqvlny9Q/6C15/3+X/4qvtTzbL/"
+    "AKBOrf8Afx//AIutnxN8ZtcvpCLNo7aKQDy4tznDZAUY2j1XntnryCfB/jZ8VrCG0Sw09kUx"
+    "sN8cmXLcjcz5yCV5OM4wTz0FffXxj1w6L4VlWa6jRLmzxFGZFx2ymCfmXJ7gnJHqSPK9DtYm"
+    "+F29ENxFHbKA5l4YAgtjHAw3IxjocGuQi1PxX4mnt0cTTvJM0Y82Mja/zsWBxwozyM5PUGvn"
+    "WO1uvGGowzrbyTxrNsjUZxIAqgEDAHJxwegBAHOK+MtOkXWvHcH2kypH5vyjysq4GDkggLyW"
+    "GRzjGM85Pyn4NiXUfjFHdRzoVSdnYMxIlxIwwCCVYZBUDjpjPFdPoPwk13UwRcwvFEI0Dor4"
+    "JxzjLEEnkjnHfsOfpj4QfCq0gsmvri0Zm3Bl3s0YRA25cKOzEZBHpkY4x9seDtOsND8HNc+a"
+    "8aeVkyY+ZDuYqQ2PlJyM/wC9juAv1F8e5PM+GsMStC0ksZMbSpuYrjoW6KDkZBAJA7Hp694J"
+    "+AVvZST3Mtv88ZEhViNpO04ZSRgngk7gMYGRjOPR/HOuafoFgY7QW8CYKSOoBKZ6YIwCC2e2"
+    "cg98Y+RvjtrU+q+ICqxyJJJNhEBckAtxhAA2SRxwAQRjjJrwj9kzzV8XOsskL7pHUgAb8EsB"
+    "tOMtly3OCTg49uq/4Ufa/wBz/wAlq8a/4Wvc/wDP+n/fLf8Axusf+yLj+9pP/fCV9k+TYerf"
+    "lJ/8br5I8K/8eJ/695v/AEKvGPEvW9/64zf0r6P/AGrv+QDc/wC/c/8Ao56828N/8kQP1f8A"
+    "9BNe3eCf+PbTf9yT/wBHJU3wQ/5C9r/18Rf+gxV8+/DL/kL6j/18P/6BLXyx4b/5K3Z/9fEv"
+    "/oK17L4T/wCPJv8AsHf+0mr7c8If8gS2/wCuctfZ0f8AyLKf9dH/AJGvpn4zf8kqj+i/yjr1"
+    "dP8AkH6j/wBc5v5CvGPjh/yL2pfSX/0QtfEHiH/kO33/AF9D/wBDNeGfsVf8lV07/r3H/ota"
+    "zK+dKnr6dr//2Q=="),
+    "ycck420": (  # 39 x 23, YCCK, Y at 4:4:4, Cb, Cr, K at 4:2:0, quality 85
+    "/9j/7gAOQWRvYmUAZAAAAAAC/9sAQwAFAwQEBAMFBAQEBQUFBgcMCAcHBwcPCwsJDBEPEhIR"
+    "DxERExYcFxMUGhURERghGBodHR8fHxMXIiQiHiQcHh8e/8AAFAgAFwAnBEMiAE0RAFkRAEsR"
+    "AP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAAB"
+    "fQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2"
+    "Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqi"
+    "o6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5"
+    "+v/aAA4EQwBNAFkASwAAPwDw6xh8X64lsYIJSI5AsEJOZPvYDkEg5wOhGDuJwOp6Twt8H/Ee"
+    "syBb/wA4NEo/esgQAb+WwMcjdnBznj1AH1ZofgXwz4bTZaWKQkHhrh/lwwUKc5xwcn67s+12"
+    "78X+FPDmnvLby28txEcBEG1g6jOwnGMHHPc7h2Ndd4Y0Hwv8GfBp1PVhHLqci/ebIcnk88c5"
+    "Prn6da0/ivMPA/wL03w9bZjuLyNQxA5JOOvQ9uPw+lJ8fXjgufhs7KGH7pd23bnpyM8H06Dr"
+    "+Xlfhr9n60gEMdzGIJtyCVhHuCljgqxIJ5BAx2GB06+l6X4I0PQEw9vBEyvtmBUFnByTw27H"
+    "XPHP945xjzjxn8dtOs43hsJHkjVcxSL8kmcHaP7uOQeMkk5BOMjx7xL8ZNc1G6+zwyREIBFI"
+    "qnJLBnx82clRyT7f+O+RJF4q+N3jPk3MekeaAxLEALwT/wDq9DTfBkaeAf2c7i+uFEdxfRFU"
+    "dsgkkZ5/E9vfFafxGVV/aU8HeYVDKijI6twCPoeT6/jX1a/i7whotwbUXFuHZPnZ0xGcBfmG"
+    "MEkk+vdfXFFfEcF/4q1VWnlk3BApMMqsFkfGMsG6DBJB6H8hRXvFlongHwtY2+izSWyywJ84"
+    "VQ3OT1Pr/wDWrzb4aeB73xJ4cbWTHJm5uHckQtJnpzkEV5V+0wqv8XtUJu44DhBskKhunup/"
+    "Sur8a/GW81NPMtbiSAz71CpkLD8ysM8AniQZx1I5OMVxd/q/iDXbgDyHjEqpuJnDbd+QSOmO"
+    "QT9STz0oor54+LGq6h4j+Ja6Xqty8tqLvyQi/L8vyj/2Y10n7WFzI3xO0HSmObVQgC7iDzj0"
+    "Nd78eriRj8Oi2DsW3ccY5JA/z/8Arrp/Dfw61XWtVW8mvUCTRMpEjHD4iDAFhlvmwCe3t2r1"
+    "jwd8B7I26xSxxkSxblDTMAPQEDO7O7GSf4QeMCiivovTNMsvBnwuK6DAkDiFn8wqC+drdxj+"
+    "6DW5+1ZI9l8O/D2nW7slvlBtB9AQfzAGa0viZ/yc14Li/hwqdTnCxhhz+n0r2vwd8NdDsLeC"
+    "J4cRlQxjHzbvlIDnJwDx79+mTkoor4t8VeKdf1HxBd3U+qXAkZgTtbA5UH+tev8AwStLWy+G"
+    "ekQwwJs8kNzk8kCvK/2n7m5tvjFqqQzbVIUnKKfbuPQCv//Z"),
+    "rgb444": (  # 35 x 26, RGB-coded, 4:4:4, quality 85
+    "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAFAwQEBAMFBAQEBQUFBgcMCAcHBwcPCwsJDBEPEhIR"
+    "DxERExYcFxMUGhURERghGBodHR8fHxMXIiQiHiQcHh8e/8AAEQgAGgAjA1IRAEcRAEIRAP/E"
+    "AB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQEC"
+    "AwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2Nzg5"
+    "OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Sl"
+    "pqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/a"
+    "AAwDUgBHAEIAAD8A9wEPhDwzllW32sQCDCHBfLNvAznJIYjAJ645Ga9A+LPxKh0ixurG0aJF"
+    "jxKsQY8E84IcAIOT0xwBnHOOY/aT8Sfa9bFqHREz5ceHwFUgYQ4OeAfU/dPbOOX134taJY2o"
+    "jtWMbzxkKqyAqR8xb5kbjLZBB6ck54x8m+Idf1TxTf3c6J5iq6grJIOZME7VHOTlgAN3GM9D"
+    "XSfss6JF9obUTaeXDuZ4JNxDyOWA2MAe49O4GTwteO+Of2hWOJbNAzF/JccD5sDow5YAjr7d"
+    "ck16x8Efhb5l1Ff3gMszs2fnyw4JJXd8ygcnkcEjnIyPQP2ifEcNl4fNgFckQBVieRQrnsRg"
+    "gqAR15GMjj7tec694/17XxJFbE7SGMCzMX3kE5Ax6nsR1ZRxwK+jY7rS/B+mvDKlv9oSFRkZ"
+    "dwyt0IzjClUyTg89/lFfLPwv0f8AtjxAt4iHcSIlDqBwrKflJ45O7JyBzk+tZK6P4ruR58ov"
+    "mkkJZ9kqBQ3cAFxgA8D6cV5RqHxqsre+ngkF1KySFS6TqoPPoVOK+7NAsb+10a1gtYZo4VT5"
+    "UaBSVzzjJcE4JxkjP161qav8QfFPiK5HlTXkYuPLKt5o2qVAbcFBG7kLj8e/T5p8T65e+LNd"
+    "m+wxzv5srKmJMkMcgnjrkEYOR0PPXHwX4qv4PEnjZt7KdjZLJGgVsZbK45baq5P4/Q1NK8Le"
+    "KtfnVyl1GzXAEkJyGJwSOCSCd2cZJ6Hrgkez/BX4aF5or1LdoywWVIpgSXX5flYDO1xgH3Iw"
+    "SeM/YvwL0W08N+GI5rwm3gWDJB7sSuSoz3wOgOMYJ5wPS/DPwE1W+lM0kM8iqisBJCRGgxww"
+    "zwVwCcAtkjnoTX0XdxaT4T0uOQzL9pdElG1/m3DsxB5XBJ6gZJx1NeDftOeIY9U1Geyguo1D"
+    "SAqWk+Y4XDAY69h6HnjOa9i8KfBvRdHSI3KRrLMUJEoYEk5xhThskAggHPH0LfNfxr+J9xe3"
+    "jwK0ki/OcozOsaYI9Mfd3DoCDxnnjZ/ZZ8Oefc/agwVWnEjOrNnJ/izwRnkAZ64x156J/Dem"
+    "xbYkN4qoiqAkOV4UdOOnt2rxK6XxG9w7QPAIifkBB+726E9vc/U19GNPNbMYLfRzNCp+R47S"
+    "NlI7YJWud8L/AAV0HTZTdXkTA9H+0bWCK2CHGfvYGc+oPNe5fBX4W3agavexebCZjJHlMuT9"
+    "4k9Ruypyf4e2eK+IPhHov9veMIrhYDOkbJFHsiWUuCQCATk4bP1yx7DB7CxTw14buED3NnCx"
+    "lYI4XLEk4D7xx95RwOOPy+kbAaP4Q0t4yIk/cbREqoQowc/MowGyeTuPb1xX2Tq1wmh/Dww3"
+    "DeTtgBnNw64C5PIbacnBHPPQZ65HNax8W/Dukr5drNbtF1YFkOyRs7SGBJzlhgf4jPzP8Y/i"
+    "be3cz2FncS+ZcOrOYmCqSvVM5+Y98EgcY6nFfGHj+efxF4vdEkaREkDom9WEeCFJ29f4cAnO"
+    "c8lsmvKvFP7QF/IfLhVDuDl5kOXdRt2tgD5yTjIXGOhI7eYeE/Dmq+LtThYiTbNIVVYpcsq4"
+    "bC7AcgYxgbeuAcDAr60+BeiJp3hyzvbliQSD8smwB8AEDHykqcc85Ct0JIbyzUPil4suLt5b"
+    "Z7jySAF8xUDcADncwOeOpHPWvoHTfg7aQ2MUTxkuow3+iIcHPIyeuDxn2rC8TfEKCw167tWu"
+    "LhCsmdsckTgbgG6kknr6/TA4r7F8cTSw6jMkMrxotvlVRiAOXPGPcD8hXsHwvijXw5EqxoB5"
+    "0K4A7bI+K8f/AGcIYV1m3ZYowTJICQo5ASXA/DA/KvnXxrqOoSlUlvrp1e8jVg0rEEF1BB56"
+    "EcV5d+0pd3UNniG5mjAZsbHIx8hPb3AP4Cvf/jJNLJ4bunkld2WE4LMSRliD+nFeOas7t4gi"
+    "hZmaIqW2E/LkBSDj1ySa+U5Xf+3Jn3tuAcA55GZOa+L/AAM7y+MXkkdndTsVmOSFweM+ntWR"
+    "dgNpF5MwDSGdo955OzcPlz6e1fRXwNijXVrbbGgwqPwP4iJcn6naOfYelfeXg0AeDrMgY3xR"
+    "7v8Aa5g617ZpWj6RJYo8mlWLsWbJa3Qk/MfavpjyovLhPlpkwxk/KOSUBJr5n8UokviG9klR"
+    "ZHaU5Zhkn8a//9k="),
 }
 
 
@@ -2345,9 +2572,47 @@ def run_round(seed: int, kind: str = "round"):
             synth_phase(seed, algo.device)
             pretrained_check(algo, seed, tmp)
             raw_trainer_check(algo, tmp)
+        if kind == "paper_round":
+            sweep_compare(algo)
     del algo
     torch.cuda.empty_cache()
     return counts
+
+
+def sweep_compare(algo) -> None:
+    """The round's two forward sweeps (global_features over the public
+    set, eval over the test set) again after the round: by the parent
+    commit's path (one eager step a batch: chunks of 1) and by chunks of
+    SERVER_SCAN_CHUNK batches (one CUDA graph replay each), in turns
+    (per-batch, chunked, chunked, per-batch). The first chunked run
+    captures its graphs (as each round does once), the second replays
+    them. Wall seconds, host clock around a synchronised sweep."""
+    import time
+
+    from creamfl_tpu_torch.engine import evaluator as E
+    from creamfl_tpu_torch.federation import rounds as R
+
+    chunk = R.SERVER_SCAN_CHUNK
+    runs = {}
+    try:
+        for label, k in (("per-batch", 1), ("chunked", chunk),
+                         ("chunked", chunk), ("per-batch", 1)):
+            R.SERVER_SCAN_CHUNK = E.EXTRACT_CHUNK = k
+            for phase, fn in (("global_features",
+                               algo._extract_global_features),
+                              ("eval", algo.evaluate)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.setdefault(f"{phase} {label}", []).append(
+                    round(time.perf_counter() - t0, 3))
+    finally:
+        R.SERVER_SCAN_CHUNK = E.EXTRACT_CHUNK = chunk
+        algo.server.release_graphs()
+    log(f"[paper_round] sweeps after the round, seconds (per-batch: the "
+        f"parent's path; chunked: {chunk} batches a graph replay, the "
+        f"first run capturing): {json.dumps(runs)}")
 
 
 def real_phase(seed: int):
@@ -2358,6 +2623,364 @@ def real_phase(seed: int):
     decode_phase(seed)
     return {"real_round": run_round(seed, "real_round"),
             "real_cli": run_round(seed, "real_cli")}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the server's chunked sweeps on CUDA graphs
+# ---------------------------------------------------------------------------
+
+# The paper's server (R101 + BERT-base, bf16, 224², max_len 32) in chunks of
+# CHUNK_K batches: train and distill at SERVER_BS, extraction at EXTRACT_BS,
+# eval at the round's --batch_size (64).
+CHUNK_K, CHUNK_EVAL_BS = 8, 64
+CHUNK_KINDS = ("eval", "extract", "train", "distill")
+# A chunk's replay against the same k eager steps from the same state and
+# generator state: held within the server phase's tolerances (losses
+# within TRUNK_LOSS_RTOL, feature rows at cosine >= TRUNK_COSINE) and each
+# parameter's update within UPDATE_DIST in relative Frobenius norm (the CPU
+# tests' bound); dropout agrees when the text features' largest gap is
+# below DROPOUT_SHARE of the gap between two different seeds. The train
+# and distill checks run PyTorch's deterministic algorithms (cuDNN's too;
+# both sides, capture included): with the default ones some gradients are
+# summed in a varying order at these sizes, two eager runs differ, and
+# eight AdamP steps from a random init amplify that to a 4-15 % loss gap
+# and an update distance of ~0.9 (logged as the eager runs' own spread
+# before the check; my chip runs 3-4, PR 11). Deterministic, two eager runs
+# are equal bit for bit, and so must the chunk be.
+UPDATE_DIST, DROPOUT_SHARE = 0.1, 0.1
+
+
+@contextlib.contextmanager
+def _deterministic():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def eager_spread(engine, state, kind, inputs, targets, rows, seed, tag):
+    """Two runs of the k eager steps from the same state and generator
+    state, cuDNN's default algorithms: the largest relative gap of their
+    losses and their parameters' update distance (logged, not held)."""
+    snapshot = copy.deepcopy(state.state_dict())
+    params = list(state.model.parameters())
+    p0 = [p.detach().clone() for p in params]
+    runs = []
+    for _ in range(2):
+        state.load_state_dict(copy.deepcopy(snapshot))
+        torch.manual_seed(seed)
+        losses = _run_chunk(engine, state, kind, inputs, targets, rows, True)
+        runs.append((losses, [p.detach().clone() for p in params]))
+    state.load_state_dict(copy.deepcopy(snapshot))
+    (la, pa), (lb, pb) = runs
+    rel = float(((la - lb).abs() / lb.abs()).max())
+    log(f"[chunks] {tag} {kind}: two runs of {CHUNK_K} eager steps, "
+        f"default cuDNN algorithms: losses' largest rel gap {rel:.3e}, "
+        f"update distance {_update_distance(p0, pb, pa):.3e}")
+    del snapshot, runs, p0
+
+
+def chunk_inputs(seed: int, kind: str, k: int, bs: int, vocab: int, dev):
+    """[k, bs, ...] images, ids, lengths and masks of a chunk of kind
+    ``kind``, made on the device from (seed, kind)."""
+    row0 = {"eval": 0, "extract": 10_000, "train": 20_000,
+            "distill": 30_000}[kind]
+    parts = [synth_text(seed, row0 + i * bs, bs, vocab, dev)
+             for i in range(k)]
+    images = torch.stack([synth_images(seed, row0 + i * bs, bs, IMAGE, dev)
+                          for i in range(k)])
+    ids, lengths, masks = (torch.stack(x) for x in zip(*parts))
+    return images, ids, lengths, masks
+
+
+def _run_chunk(engine, state, kind, inputs, targets, rows, eager: bool):
+    """The chunk's outputs: [k] losses (train, distill) or [k, 2, B, E]
+    features (extract, eval), by the chunk or by k eager steps."""
+    kd = engine.kd_weight
+    flags = (True, True, True, kd)
+    if not eager:
+        if kind == "train":
+            return engine.train_chunk(state, *inputs)[1]
+        if kind == "distill":
+            return engine.distill_chunk(state, *inputs, targets, rows,
+                                        *flags)[1]
+        fn = engine.extract_chunk if kind == "extract" else engine.eval_chunk
+        return torch.stack(fn(state, *inputs), 1)
+    outs = []
+    for i in range(inputs[0].shape[0]):
+        x = [t[i] for t in inputs]
+        if kind == "train":
+            outs.append(engine.train_step(state, *x)[1]["loss"])
+        elif kind == "distill":
+            outs.append(engine.distill_step(state, *x, targets, rows[i],
+                                            *flags)[1])
+        else:
+            fn = (engine.extract_step if kind == "extract"
+                  else engine.eval_step)
+            outs.append(torch.stack(fn(state, *x)))
+    return torch.stack(outs)
+
+
+def _feature_gap(a: torch.Tensor, b: torch.Tensor):
+    """(least row cosine, largest abs difference) of [..., E] features."""
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    cos = float((a * b).sum(1).div(a.norm(dim=1) * b.norm(dim=1)).min())
+    return cos, float((a - b).abs().max())
+
+
+def _update_distance(p0, p_ref, p_got) -> float:
+    """Largest relative Frobenius distance of one run's per-tensor update
+    from the other's."""
+    worst = 0.0
+    for s, r, g in zip(p0, p_ref, p_got):
+        du = (r - s).float()
+        worst = max(worst, float((g.float() - r.float()).norm()
+                                 / du.norm().clamp_min(1e-12)))
+    return worst
+
+
+def check_chunk(engine, state, kind, inputs, targets, rows, seed, tag,
+                count=None):
+    """One chunk (captured now, replayed) against k eager steps from the
+    same state (a deep copy put back in between) and the same generator
+    state. ``count()``, where given, is called just before and just after
+    the eager steps and the chunk's call: launches in a capture count once
+    per replay, so the two runs count the same."""
+    dev = inputs[0].device
+    snapshot = copy.deepcopy(state.state_dict())
+    params = [p for p in state.model.parameters()]
+    p0 = [p.detach().clone() for p in params] if kind in (
+        "train", "distill") else None
+    torch.manual_seed(seed)
+    if count:
+        count()
+    want = _run_chunk(engine, state, kind, inputs, targets, rows, True)
+    torch.cuda.synchronize(dev)
+    if count:
+        count()
+    p_eager = [p.detach().clone() for p in params] if p0 else None
+    state.load_state_dict(copy.deepcopy(snapshot))
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    captures = engine.graphs.captures
+    torch.manual_seed(seed)
+    if count:
+        count()
+    got = _run_chunk(engine, state, kind, inputs, targets, rows, False)
+    torch.cuda.synchronize(dev)
+    if count:
+        count()
+    if engine.graphs.captures != captures + 1:
+        raise AssertionError(f"{tag} {kind}: the chunk was not captured")
+    pool = (torch.cuda.memory_reserved(dev) - reserved) / 2**30
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag} {kind}: chunk outputs {got.shape}, "
+                             f"eager {want.shape}, or not finite")
+    if kind in ("train", "distill"):
+        rel = float(((got - want).abs() / want.abs()).max())
+        dist = _update_distance(p0, p_eager, [p.detach() for p in params])
+        log(f"[chunks] {tag} {kind}_chunk (route {engine.chunk_route}) vs "
+            f"{CHUNK_K} eager steps: losses {got.tolist()} vs "
+            f"{want.tolist()} (largest rel {rel:.3e} <= {TRUNK_LOSS_RTOL}), "
+            f"update distance {dist:.3e} (<= {UPDATE_DIST}; bit for bit: "
+            f"{'yes' if rel == 0 and dist == 0 else 'no'}); graph pool "
+            f"{pool:.2f} GiB")
+        if rel > TRUNK_LOSS_RTOL or dist > UPDATE_DIST:
+            raise AssertionError(f"{tag} {kind}: chunk and eager disagree")
+    else:
+        cos, gap = _feature_gap(got, want)
+        log(f"[chunks] {tag} {kind}_chunk (route {engine.chunk_route}) vs "
+            f"{CHUNK_K} eager steps: least row cosine {cos:.6f} (>= "
+            f"{TRUNK_COSINE}), largest gap {gap:.3e}; graph pool "
+            f"{pool:.2f} GiB")
+        if cos < TRUNK_COSINE:
+            raise AssertionError(f"{tag} {kind}: chunk and eager disagree")
+    del snapshot, p0, p_eager
+
+
+def _time_both(fn_chunk, fn_eager, dev, reps: int = 2):
+    """(event ms, host ms) of one chunk call and of its k eager steps, in
+    turns (eager, chunk, chunk, eager), the lesser of each pair."""
+    def one(fn):
+        import time
+
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end), host
+
+    e1, c1, c2, e2 = one(fn_eager), one(fn_chunk), one(fn_chunk), one(
+        fn_eager)
+    return (min(c1[0], c2[0]), min(c1[1], c2[1])), (min(e1[0], e2[0]),
+                                                    min(e1[1], e2[1]))
+
+
+def chunk_phase(seed: int, dev=torch.device("cuda")):
+    """The four chunks on the paper's server, standard trunk: each captured
+    and replayed against k eager steps (``check_chunk``); the extraction
+    chunk's dropout against reseeded replays; times of a chunk against its
+    k eager steps; the profiler's busy time and idle share of one
+    train_chunk against one eager train_step; the graphs' memory. Then a
+    train_chunk on the fused trunk, its K5/K6 launches counted over its
+    capture and replay (70 each a step, all on the wgmma route: a captured
+    launch counts once per replay), and the GRU branch's route. Returns
+    the K5/K6 launch counts of the fused trunk's chunk."""
+    from creamfl_tpu_torch.config import default_config_path, parse_config
+    from creamfl_tpu_torch.engine.server import ServerEngine
+    from creamfl_tpu_torch.models.bert import BertConfig
+    from creamfl_tpu_torch.models.pcme import PCME
+    from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
+    from creamfl_tpu_torch.ops.l2norm import l2_normalize
+
+    cfg = parse_config(default_config_path("coco.json"),
+                       model__embed_dim=DIM, model__cnn_type=SERVER_CNN)
+    bert = SERVER_BERT or BertConfig()
+    vocab = bert.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    targets = {k: l2_normalize(torch.randn(N_PUB, DIM, generator=gen,
+                                           device=dev))
+               for k in ("img", "txt")}
+    rows = torch.randint(0, N_PUB, (CHUNK_K, SERVER_BS), generator=gen,
+                         device=dev)
+    bs = {"eval": CHUNK_EVAL_BS, "extract": EXTRACT_BS, "train": SERVER_BS,
+          "distill": SERVER_BS}
+    weights = None
+    for trunk in ("standard", "fused"):
+        engine = ServerEngine(cfg, vocab_size=vocab, bert_config=bert,
+                              device=dev)
+        engine.model = PCME(embed_dim=DIM, cnn_type=SERVER_CNN,
+                            vocab_size=vocab, not_bert=False,
+                            bert_config=bert,
+                            dtype=engine.model.img_enc.dtype,
+                            fused_bn=trunk == "fused")
+        state = engine.init_state(seed, state_dict=weights)
+        engine.set_round_lr(state, 0)
+        if weights is None:
+            weights = engine.state_dict_of(state)
+        if engine.chunk_route != "graph":
+            raise AssertionError(f"{trunk}: the BERT server's chunks take "
+                                 f"the {engine.chunk_route} route")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kinds = CHUNK_KINDS if trunk == "standard" else ("train",)
+        for kind in kinds:
+            inputs = chunk_inputs(seed, kind, CHUNK_K, bs[kind], vocab, dev)
+            calls = []
+
+            def count():
+                if len(calls) % 2 == 0:
+                    FK.reset_launch_counts()
+                calls.append((FK.launch_counts(), (
+                    FK.mm_bn_stats_fwd.launches_by_route["wgmma"],
+                    FK.mm_bn_stats_bwd.launches_by_route["wgmma"])))
+
+            learns = kind in ("train", "distill")
+            if learns and trunk == "standard":
+                eager_spread(engine, state, kind, inputs, targets, rows,
+                             seed + 11, trunk)
+            with (_deterministic() if learns
+                  else contextlib.nullcontext()):
+                check_chunk(engine, state, kind, inputs, targets, rows,
+                            seed + 11, trunk, count)
+            if learns:  # times and profiles with the default algorithms
+                engine.release_graphs()
+            (eager, eager_routes), (counts, routes) = calls[1], calls[3]
+            # R101's fused trunk: 70 K5 and 70 K6 launches a train step.
+            want = (70 if SERVER_CNN == "resnet101" else eager[
+                "mm_bn_stats_fwd"] // CHUNK_K) * CHUNK_K * (trunk == "fused")
+            log(f"[chunks] {trunk} {kind}_chunk: K5/K6 launches on its "
+                f"capture and replay {json.dumps(counts)}, on the wgmma "
+                f"route {routes}; {CHUNK_K} eager steps {json.dumps(eager)}")
+            if (tuple(counts.values()) != (want, want) or counts != eager
+                    or routes != (want, want) or routes != eager_routes):
+                raise AssertionError(f"{trunk} {kind}_chunk: K5/K6 "
+                                     f"launches {counts}, not {want} each "
+                                     f"on the wgmma route as {CHUNK_K} "
+                                     f"eager steps")
+            if kind == "extract":
+                runs = []
+                for s in (seed + 21, seed + 21, seed + 22):
+                    torch.manual_seed(s)
+                    runs.append(torch.stack(engine.extract_chunk(
+                        state, *inputs), 1))
+                torch.manual_seed(seed + 21)
+                eager = _run_chunk(engine, state, kind, inputs, targets,
+                                   rows, True)
+                same = torch.equal(runs[0], runs[1])
+                seeds_gap = float((runs[0][:, 1] - runs[2][:, 1]).abs()
+                                  .max())
+                eager_gap = float((runs[0][:, 1] - eager[:, 1]).abs().max())
+                log(f"[chunks] extraction dropout: two replays after one "
+                    f"seed {'equal' if same else 'DIFFER'}; text features, "
+                    f"replay vs eager steps after the same seed: largest "
+                    f"gap {eager_gap:.3e}; two seeds: {seeds_gap:.3e} (the "
+                    f"first below {DROPOUT_SHARE} x the second)")
+                if (not same or seeds_gap == 0.0
+                        or eager_gap > DROPOUT_SHARE * seeds_gap):
+                    raise AssertionError("extract_chunk: dropout does not "
+                                         "follow the generator")
+            if trunk == "standard":
+                def chunk_fn():
+                    _run_chunk(engine, state, kind, inputs, targets, rows,
+                               False)
+
+                def eager_fn():
+                    _run_chunk(engine, state, kind, inputs, targets, rows,
+                               True)
+
+                (c_ev, c_host), (e_ev, e_host) = _time_both(chunk_fn,
+                                                            eager_fn, dev)
+                log(f"[chunks] {kind} k={CHUNK_K} B={bs[kind]}: one chunk "
+                    f"{c_ev:.1f} ms by CUDA events, {c_host:.1f} ms of host "
+                    f"time a call; {CHUNK_K} eager steps {e_ev:.1f} ms, "
+                    f"host {e_host:.1f} ms ({e_ev / c_ev:.2f}x)")
+            if kind == "train" and trunk == "standard":
+                step_in = [t[0] for t in inputs]
+                profile_call(lambda: engine.train_step(state, *step_in),
+                             "standard eager train step")
+                profile_call(lambda: engine.train_chunk(state, *inputs),
+                             f"standard train_chunk of {CHUNK_K} steps")
+        log(f"[chunks] {trunk}: {engine.graphs.captures} captures, "
+            f"{engine.graphs.replays} replays; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+            f"reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
+        engine.release_graphs()
+        del engine, state
+        torch.cuda.empty_cache()
+    # The GRU text branch (--not_bert) packs with host lengths: its chunks
+    # take the eager route on the card, by configuration.
+    gru = ServerEngine(parse_config(default_config_path("coco.json"),
+                                    model__embed_dim=16,
+                                    model__cnn_type="resnet18",
+                                    model__not_bert=True,
+                                    model__word_dim=16),
+                       vocab_size=64, device=dev)
+    gstate = gru.init_state(seed)
+    imgs = synth_images(seed, 0, 2 * 4, 64, dev).view(2, 4, 64, 64, 3)
+    caps = torch.randint(1, 64, (2, 4, 8), device=dev)
+    lens = torch.full((2, 4), 8, dtype=torch.int32)
+    fi, _ = gru.extract_chunk(gstate, imgs, caps, lens)
+    log(f"[chunks] GRU-branch server: route {gru.chunk_route}, "
+        f"extract_chunk {tuple(fi.shape)}, captures {gru.graphs.captures}")
+    if gru.chunk_route != "eager" or gru.graphs.captures:
+        raise AssertionError("the GRU branch's chunks must run eagerly")
+    return counts
 
 
 def main() -> int:
@@ -2379,6 +3002,10 @@ def main() -> int:
                         help="build and run phase 9 (the real-data path on "
                         "the fixtures) alone, then stop without the result "
                         "line")
+    parser.add_argument("--chunks", action="store_true",
+                        help="build and run phase 10 (the server's chunked "
+                        "sweeps on CUDA graphs) alone, then stop without "
+                        "the result line")
     parser.add_argument("--paper-full", action="store_true",
                         help="build and run the paper round at the paper's "
                         "full geometry alone, then stop without the result "
@@ -2400,11 +3027,13 @@ def main() -> int:
     alone = [kind for kind, on in (
         ("round", opts.round), ("stacked", opts.stacked),
         ("paper_round", opts.paper_round), ("paper_full", opts.paper_full),
-        ("real", opts.real_round)) if on]
+        ("real", opts.real_round), ("chunks", opts.chunks)) if on]
     if alone:
         for kind in alone:
             if kind == "real":
                 real_phase(opts.seed)
+            elif kind == "chunks":
+                chunk_phase(opts.seed)
             else:
                 run_round(opts.seed, kind)
         return 0
@@ -2428,6 +3057,7 @@ def main() -> int:
                                  f"not all {paths['slice'][name]} on tc")
     paths["server"] = server_phase(opts.seed)
     log(f"[server] kernels {json.dumps(paths['server'])}")
+    paths["server_chunks"] = chunk_phase(opts.seed)
     paths["round"] = run_round(opts.seed)
     paths["stacked"] = run_round(opts.seed, "stacked")
     paths["paper_round"] = run_round(opts.seed, "paper_round")

@@ -8,14 +8,18 @@
 // rounds its colour conversion otherwise, several levels away from PIL on
 // detailed images. So nvjpegDecode (the default backend: Huffman decoding
 // on the host, the rest on the card) writes each image's planes, at their
-// subsampled sizes, into a scratch buffer (NVJPEG_OUTPUT_YUV), and
-// ycc_to_rgb_kernel then does what libjpeg-turbo does by default (jdsample.c
-// "fancy" upsampling: h2v1, h2v2, h1v2 triangle filters with their biased
-// rounding, edge rows and columns replicated; box replication where libjpeg
-// uses it; jdcolor.c's 16-bit fixed-point YCbCr -> RGB), writing
-// interleaved RGB into each image's slot of one padded [B, Hmax, Wmax, 3]
-// uint8 buffer. What is left between the two decoders is the IDCT's
-// rounding (ISLOW in libjpeg): a level on a few pixels.
+// subsampled sizes, into a scratch buffer (NVJPEG_OUTPUT_YUV for gray and
+// YCbCr files, NVJPEG_OUTPUT_UNCHANGED, the components as they are stored,
+// for RGB-coded, CMYK and YCCK files), and to_rgb_kernel then does what
+// libjpeg-turbo does by default (jdsample.c "fancy" upsampling of each
+// component from its own sampling factors: h2v1, h2v2, h1v2 triangle
+// filters with their biased rounding, edge rows and columns replicated; box
+// replication where libjpeg uses it; jdcolor.c's 16-bit fixed-point YCbCr
+// -> RGB, and for YCCK its ycck_cmyk_convert) and then what PIL's
+// convert("RGB") does to the Adobe-inverted CMYK it reads from libjpeg
+// (cmyk2rgb), writing interleaved RGB into each image's slot of one padded
+// [B, Hmax, Wmax, 3] uint8 buffer. What is left between the two decoders
+// is the IDCT's rounding (ISLOW in libjpeg): a level on a few pixels.
 //
 // Bound: the kernel reads the planes and writes 3 bytes a pixel, a few
 // integer operations each: bytes, a few microseconds a batch of 224-pixel
@@ -37,11 +41,16 @@ nvjpegJpegState_t g_state[kMaxDevices];
 constexpr int kErrPlanes = 102;
 constexpr int kErrDevice = 103;
 
-// Per-image metadata, int64 each (data/jpeg.py:_META).
-enum Meta { kYOff, kCbOff, kCrOff, kW, kH, kCw, kCh, kMode, kHfac, kVfac,
-            kMetaLen };
-// Upsampling modes (data/jpeg.py:_MODES).
-enum Mode { kGray, k444, kH2V1, kH2V2, kH1V2, kBox };
+// Per-image metadata, int64 each (data/jpeg.py:_META): the four planes'
+// offsets, the image's size, colour space and component count, then per
+// component its plane's width and height, upsampling mode and factors.
+constexpr int kMaxComp = 4;
+enum Meta { kOff0, kW = kMaxComp, kH, kColour, kNComp, kComp0 };
+enum CompMeta { kCw, kCh, kMode, kHfac, kVfac, kCompLen };
+constexpr int kMetaLen = kComp0 + kMaxComp * kCompLen;
+// Upsampling modes and colour spaces (data/jpeg.py FULL.., GRAY..).
+enum Mode { kFull, kH2V1, kH2V2, kH1V2, kBox };
+enum Colour { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
 
 int ensure_handle(int device) {
   if (device < 0 || device >= kMaxDevices) return kErrDevice;
@@ -64,11 +73,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The chroma sample at output pixel (x, y) of one plane (cw x ch, row
+// The sample at output pixel (x, y) of one component's plane (cw x ch, row
 // pitch cw), upsampled as libjpeg-turbo's jdsample.c does.
 __device__ int upsample(const uint8_t* p, int cw, int ch, int x, int y,
                         int mode, int hfac, int vfac) {
-  if (mode == k444) return p[y * cw + x];
+  if (mode == kFull) return p[y * cw + x];
   if (mode == kBox) return p[(y / vfac) * cw + (x / hfac)];
   if (mode == kH2V1) {  // h2v1_fancy_upsample
     const uint8_t* row = p + y * cw;
@@ -101,16 +110,32 @@ __device__ int upsample(const uint8_t* p, int cw, int ch, int x, int y,
   return (here * 3 + right + 7) >> 4;
 }
 
-__device__ __forceinline__ uint8_t range_limit(int v) {
-  return static_cast<uint8_t>(clampi(v, 0, 255));
+__device__ __forceinline__ int range_limit(int v) { return clampi(v, 0, 255); }
+
+// jdcolor.c build_ycc_rgb_table / ycc_rgb_convert, SCALEBITS 16:
+// FIX(1.40200) = 91881, FIX(1.77200) = 116130, FIX(0.71414) = 46802,
+// FIX(0.34414) = 22554; right shifts are arithmetic (floor). The same
+// tables give ycck_cmyk_convert's 255 - R, 255 - G, 255 - B.
+__device__ __forceinline__ void ycc_rgb(int y, int cb, int cr, int* rgb) {
+  const int half = 1 << 15;
+  int xcb = cb - 128, xcr = cr - 128;
+  rgb[0] = range_limit(y + ((91881 * xcr + half) >> 16));
+  rgb[1] = range_limit(y + ((-22554 * xcb + half - 46802 * xcr) >> 16));
+  rgb[2] = range_limit(y + ((116130 * xcb + half) >> 16));
+}
+
+// PIL's MULDIV255: round(a * b / 255) in integers.
+__device__ __forceinline__ int muldiv255(int a, int b) {
+  int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
 }
 
 // One thread per output pixel of image blockIdx.z; pixels past the image
 // keep the buffer's zeros.
-__global__ void ycc_to_rgb_kernel(const uint8_t* __restrict__ planes,
-                                  const long long* __restrict__ meta,
-                                  uint8_t* __restrict__ out,
-                                  long long image_stride, int pitch) {
+__global__ void to_rgb_kernel(const uint8_t* __restrict__ planes,
+                              const long long* __restrict__ meta,
+                              uint8_t* __restrict__ out,
+                              long long image_stride, int pitch) {
   const long long* m = meta + blockIdx.z * kMetaLen;
   int w = static_cast<int>(m[kW]), h = static_cast<int>(m[kH]);
   int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -118,27 +143,42 @@ __global__ void ycc_to_rgb_kernel(const uint8_t* __restrict__ planes,
   if (x >= w || y >= h) return;
   uint8_t* o = out + blockIdx.z * image_stride + static_cast<long long>(y) *
                                                     pitch + 3 * x;
-  int yy = planes[m[kYOff] + static_cast<long long>(y) * w + x];
-  int mode = static_cast<int>(m[kMode]);
-  if (mode == kGray) {
-    o[0] = o[1] = o[2] = static_cast<uint8_t>(yy);
-    return;
+  int n = static_cast<int>(m[kNComp]);
+  int c[kMaxComp] = {0, 0, 0, 0};
+  for (int i = 0; i < n; ++i) {
+    const long long* cm = m + kComp0 + i * kCompLen;
+    c[i] = upsample(planes + m[kOff0 + i], static_cast<int>(cm[kCw]),
+                    static_cast<int>(cm[kCh]), x, y,
+                    static_cast<int>(cm[kMode]), static_cast<int>(cm[kHfac]),
+                    static_cast<int>(cm[kVfac]));
   }
-  int cw = static_cast<int>(m[kCw]), ch = static_cast<int>(m[kCh]);
-  int hfac = static_cast<int>(m[kHfac]), vfac = static_cast<int>(m[kVfac]);
-  int cb = upsample(planes + m[kCbOff], cw, ch, x, y, mode, hfac, vfac);
-  int cr = upsample(planes + m[kCrOff], cw, ch, x, y, mode, hfac, vfac);
-  // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert, SCALEBITS 16:
-  // FIX(1.40200) = 91881, FIX(1.77200) = 116130, FIX(0.71414) = 46802,
-  // FIX(0.34414) = 22554; right shifts are arithmetic (floor).
-  const int half = 1 << 15;
-  int xcb = cb - 128, xcr = cr - 128;
-  int r = yy + ((91881 * xcr + half) >> 16);
-  int g = yy + ((-22554 * xcb + half - 46802 * xcr) >> 16);
-  int b = yy + ((116130 * xcb + half) >> 16);
-  o[0] = range_limit(r);
-  o[1] = range_limit(g);
-  o[2] = range_limit(b);
+  int rgb[3];
+  switch (static_cast<int>(m[kColour])) {
+    case kGray:
+      rgb[0] = rgb[1] = rgb[2] = c[0];
+      break;
+    case kYCbCr:
+      ycc_rgb(c[0], c[1], c[2], rgb);
+      break;
+    case kRGB:
+      rgb[0] = c[0], rgb[1] = c[1], rgb[2] = c[2];
+      break;
+    default: {
+      // CMYK: PIL reads the ink as 255 - stored and gives nk - nk * ink /
+      // 255 with nk = 255 - K = the stored K. YCCK: libjpeg first makes
+      // the ink 255 - (Y, Cb, Cr -> R, G, B), which PIL reads as R, G, B.
+      int ink[3];
+      if (static_cast<int>(m[kColour]) == kCMYK) {
+        ink[0] = 255 - c[0], ink[1] = 255 - c[1], ink[2] = 255 - c[2];
+      } else {
+        ycc_rgb(c[0], c[1], c[2], ink);
+      }
+      for (int i = 0; i < 3; ++i) rgb[i] = c[3] - muldiv255(ink[i], c[3]);
+    }
+  }
+  o[0] = static_cast<uint8_t>(range_limit(rgb[0]));
+  o[1] = static_cast<uint8_t>(range_limit(rgb[1]));
+  o[2] = static_cast<uint8_t>(range_limit(rgb[2]));
 }
 
 }  // namespace
@@ -148,7 +188,7 @@ extern "C" {
 // Decode n JPEG files (host bytes datas[i] of lengths[i]). meta_host and
 // meta_dev hold the same [n][kMetaLen] int64 metadata (on the host and on
 // the card): each image's plane offsets in the scratch buffer planes, its
-// size, its chroma planes' size and its upsampling mode. nvJPEG writes the
+// size and colour space, and each component's plane size and upsampling. nvJPEG writes the
 // planes (tight rows), then one kernel writes RGB into out, image i at
 // out + i * image_stride with rows pitch bytes apart, over an hmax x wmax
 // grid. Returns 0, or an nvJPEG status / one of the codes above with
@@ -175,23 +215,25 @@ int jpeg_decode(int device, int n, const unsigned char* const* datas,
       *failed = i;
       return static_cast<int>(st);
     }
-    bool gray = m[kMode] == kGray;
-    if (n_comp != (gray ? 1 : 3) || w[0] != m[kW] || h[0] != m[kH] ||
-        (!gray && (w[1] != m[kCw] || h[1] != m[kCh] || w[2] != m[kCw] ||
-                   h[2] != m[kCh]))) {
+    int n_meta = static_cast<int>(m[kNComp]);
+    bool planar = n_meta == 1 || m[kColour] == kYCbCr;
+    bool same = n_comp == n_meta;
+    for (int c = 0; same && c < n_meta; ++c) {
+      const long long* cm = m + kComp0 + c * kCompLen;
+      same = w[c] == cm[kCw] && h[c] == cm[kCh];
+    }
+    if (!same) {
       *failed = i;
       return kErrPlanes;
     }
     nvjpegImage_t img = {};
-    img.channel[0] = planes + m[kYOff];
-    img.pitch[0] = static_cast<size_t>(m[kW]);
-    if (!gray) {
-      img.channel[1] = planes + m[kCbOff];
-      img.channel[2] = planes + m[kCrOff];
-      img.pitch[1] = img.pitch[2] = static_cast<size_t>(m[kCw]);
+    for (int c = 0; c < n_meta; ++c) {
+      img.channel[c] = planes + m[kOff0 + c];
+      img.pitch[c] = static_cast<size_t>(m[kComp0 + c * kCompLen + kCw]);
     }
     st = nvjpegDecode(handle, state, datas[i], lengths[i],
-                      NVJPEG_OUTPUT_YUV, &img, stream);
+                      planar ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_UNCHANGED,
+                      &img, stream);
     if (st != NVJPEG_STATUS_SUCCESS) {
       *failed = i;
       return static_cast<int>(st);
@@ -199,8 +241,8 @@ int jpeg_decode(int device, int n, const unsigned char* const* datas,
   }
   dim3 block(32, 8);
   dim3 grid((wmax + 31) / 32, (hmax + 7) / 8, n);
-  ycc_to_rgb_kernel<<<grid, block, 0, stream>>>(planes, meta_dev, out,
-                                                image_stride, pitch);
+  to_rgb_kernel<<<grid, block, 0, stream>>>(planes, meta_dev, out,
+                                            image_stride, pitch);
   cudaError_t cerr = cudaGetLastError();
   return cerr == cudaSuccess ? 0 : 200 + static_cast<int>(cerr);
 }

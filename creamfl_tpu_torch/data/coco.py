@@ -13,8 +13,12 @@ carries its recipe: ``image_src`` (the image id, whose file
 from the source's size, read from its JPEG header. ``DeviceImages``
 (``data/device_images.py``) decodes and transforms a batch's images on
 the device. The draws run first and then the caption drop, from the same
-per-sample rng, in the JAX package's order; captions go through its
-Python tokenizer (``caption_to_ids``).
+per-sample rng, in the JAX package's order. Captions go through the native
+tokenizer (``data/native.py``, built with g++ at first use), as the JAX
+package's do once its native library is built: with caption drops, its
+``mt19937_64`` is seeded by ``rng.getrandbits(63)``. ``native=False``
+takes the Python tokenizer (``caption_to_ids``) instead, the JAX
+package's path without its library.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ class CocoCaptionsCap:
                  bert_tokenizer=None,
                  bert_max_len: int = 64,
                  seed: int = 2021,
-                 allow_missing_ids: bool = False):
+                 allow_missing_ids: bool = False,
+                 native: bool = True):
         self.image_root = image_root
         self.vocab = vocab
         self.train = train
@@ -107,6 +112,11 @@ class CocoCaptionsCap:
         self.n_images = len({anns[i]["image_id"] for i in self.ids
                              if i in anns})
         self.iid_to_cls = None  # PMRP class mode unused by CreamFL
+        self._native_vocab = None
+        if native and vocab is not None:
+            from creamfl_tpu_torch.data.native import NativeVocab
+
+            self._native_vocab = NativeVocab(vocab)
 
     def __len__(self):
         return len(self.ids)
@@ -131,15 +141,24 @@ class CocoCaptionsCap:
         w, h = self.image_size(image_id)
         params = imagenet_params(w, h, self.train, rng,
                                  random_erasing_prob=self.random_erasing_prob)
-        ids = caption_to_ids(caption, self.vocab, self.caption_drop_prob,
-                             rng)[: self.max_len]
-        tokens = np.zeros((self.max_len,), np.int32)
-        tokens[: len(ids)] = ids
+        if self._native_vocab is not None:
+            toks, lens = self._native_vocab.tokenize_batch(
+                [str(caption)], self.max_len, self.caption_drop_prob,
+                seed=rng.getrandbits(63) if self.caption_drop_prob > 0
+                else 0)
+            tokens, n_ids = toks[0], int(lens[0])
+        else:
+            ids = caption_to_ids(caption, self.vocab,
+                                 self.caption_drop_prob,
+                                 rng)[: self.max_len]
+            tokens = np.zeros((self.max_len,), np.int32)
+            tokens[: len(ids)] = ids
+            n_ids = len(ids)
         sample = {
             "image_src": np.int64(image_id),
             "image_params": params,
             "captions": tokens,
-            "lengths": np.int32(len(ids)),
+            "lengths": np.int32(n_ids),
             "ann_ids": np.int64(ann_id),
             "image_ids": np.int64(image_id),
             "index": np.int64(index),

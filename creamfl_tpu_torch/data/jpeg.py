@@ -14,11 +14,17 @@ The JAX package opens every image with PIL on the host
   the CPU (the tests) it is PIL, imported at the first call, and its
   absence raises. ``decode`` gives the same images as a list.
 
-Grayscale files come out as RGB with the gray value in every channel, as
-PIL's ``convert("RGB")`` gives. A file that the decoder cannot read (not a
-JPEG, CMYK, a size that differs from its header's) raises an error that
-names it. ``decode_batch.images_by_route`` counts the images decoded by
-``"nvjpeg"`` and by ``"pil"``.
+Every image comes out as PIL's ``convert("RGB")`` gives it. The colour
+space is the one libjpeg-turbo reads from the markers
+(jdapimin.c:default_decompress_parms): gray; YCbCr; RGB-coded (an Adobe
+marker with transform 0, or the component ids R, G, B without JFIF or
+Adobe markers); CMYK and YCCK (4 components; PIL reads them as
+Adobe-inverted CMYK, and YCCK is turned into CMYK as libjpeg does first).
+Each component is upsampled from its own sampling factors. A file that the
+decoder cannot read (not a JPEG, 2 components, fractional sampling, a size
+that differs from its header's) raises an error that names it.
+``decode_batch.images_by_route`` counts the images decoded by ``"nvjpeg"``
+and by ``"pil"``.
 """
 
 from __future__ import annotations
@@ -57,13 +63,15 @@ class JpegError(ValueError):
 
 
 class JpegInfo(NamedTuple):
-    """What the frame header says: the size, the components' sampling
-    factors (h, v) and the Adobe colour transform (-1 without APP14)."""
+    """What the markers say: the size, the components' sampling factors
+    (h, v) and ids, the Adobe colour transform (-1 without APP14) and
+    whether a JFIF marker (APP0) came before the frame header."""
     width: int
     height: int
     factors: Tuple[Tuple[int, int], ...]
     component_ids: Tuple[int, ...]
     adobe_transform: int
+    jfif: bool = False
 
 
 def jpeg_size(data: bytes, name: str = "<bytes>") -> Tuple[int, int]:
@@ -77,7 +85,7 @@ def jpeg_info(data: bytes, name: str = "<bytes>") -> JpegInfo:
     if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError(f"{name}: not a JPEG file (no SOI marker)")
     i, n = 2, len(data)
-    adobe = -1
+    adobe, jfif = -1, False
     while i < n:
         if data[i] != 0xFF:
             raise JpegError(f"{name}: corrupt JPEG header at byte {i}")
@@ -92,7 +100,13 @@ def jpeg_info(data: bytes, name: str = "<bytes>") -> JpegInfo:
         if marker == 0xD9 or i + 2 > n:  # EOI, or cut short
             break
         length = (data[i] << 8) | data[i + 1]
-        if marker == 0xEE and data[i + 2:i + 7] == b"Adobe" and length >= 12:
+        # As libjpeg-turbo's jdmarker.c:get_interesting_appn: APP0 of at
+        # least 14 data bytes opening with "JFIF\0", APP14 of at least 12
+        # opening with "Adobe" (the transform is its 12th byte).
+        if marker == 0xE0 and data[i + 2:i + 7] == b"JFIF\0" \
+                and length >= 16:
+            jfif = True
+        if marker == 0xEE and data[i + 2:i + 7] == b"Adobe" and length >= 14:
             adobe = data[i + 13]
         if marker in _SOF:
             ncomp = data[i + 7] if i + 8 <= n else 0
@@ -103,7 +117,7 @@ def jpeg_info(data: bytes, name: str = "<bytes>") -> JpegInfo:
             comps = [data[i + 8 + 3 * c:i + 11 + 3 * c] for c in range(ncomp)]
             return JpegInfo(w, h, tuple((c[1] >> 4, c[1] & 15)
                                         for c in comps),
-                            tuple(c[0] for c in comps), adobe)
+                            tuple(c[0] for c in comps), adobe, jfif)
         if marker == 0xDA:  # start of scan before any frame header
             break
         i += length
@@ -158,39 +172,65 @@ def _pil_rgb(data: bytes, name: str) -> np.ndarray:
         raise JpegError(f"{name}: PIL cannot decode it ({e})") from e
 
 
+def colour_space(info: JpegInfo, name: str = "<bytes>") -> int:
+    """The colour space libjpeg-turbo reads from the markers
+    (jdapimin.c:default_decompress_parms)."""
+    n = len(info.factors)
+    if n == 1:
+        return GRAY
+    if n == 3:
+        if info.jfif:
+            return YCBCR
+        if info.adobe_transform >= 0:
+            return RGB if info.adobe_transform == 0 else YCBCR
+        return RGB if info.component_ids == (82, 71, 66) else YCBCR
+    if n == 4:
+        return YCCK if info.adobe_transform > 0 else CMYK
+    raise JpegError(f"{name}: {n} colour components; JPEG files have 1, 3 "
+                    "or 4")
+
+
 def _plane_meta(info: JpegInfo, name: str) -> List[int]:
-    """[y_off, cb_off, cr_off, w, h, cw, ch, mode, hfac, vfac] with the
-    offsets 0, and the upsampling mode libjpeg-turbo picks
-    (jdsample.c:jinit_upsampler, with its default fancy upsampling)."""
+    """The image's row of ``_META``, with the plane offsets 0: its size, its
+    colour space, and per component its plane's size and the upsampling
+    libjpeg-turbo picks for it (jdsample.c:jinit_upsampler, with its
+    default fancy upsampling)."""
     w, h, f = info.width, info.height, info.factors
     if w < 1 or h < 1 or any(not 1 <= x <= 4 for fac in f for x in fac):
         raise JpegError(f"{name}: bad frame header (size {w} x {h}, "
                         f"sampling factors {f})")
-    if len(f) == 1:
-        return [0, 0, 0, w, h, 0, 0, GRAY, 1, 1]
-    if len(f) != 3:
-        raise JpegError(f"{name}: {len(f)} colour components (CMYK or "
-                        "YCCK); the decoder takes gray and YCbCr files")
-    if info.adobe_transform == 0 or info.component_ids == (82, 71, 66):
-        raise JpegError(f"{name}: RGB-coded JPEG; the decoder takes gray "
-                        "and YCbCr files")
-    (h0, v0), (h1, v1) = f[0], f[1]
-    if f[2] != f[1] or h0 % h1 or v0 % v1 or max(a for a, _ in f) != h0 \
-            or max(b for _, b in f) != v0:
-        raise JpegError(f"{name}: sampling factors {f} are not supported")
-    hfac, vfac = h0 // h1, v0 // v1
-    cw, ch = -(-w * h1 // h0), -(-h * v1 // v0)
-    mode = {(1, 1): YCC444, (2, 1): H2V1, (1, 2): H1V2,
-            (2, 2): H2V2}.get((hfac, vfac), BOX)
-    if mode in (H2V1, H2V2) and cw <= 2:
-        mode = BOX
-    return [0, 0, 0, w, h, cw, ch, mode, hfac, vfac]
+    colour = colour_space(info, name)
+    hmax, vmax = max(a for a, _ in f), max(b for _, b in f)
+    comps = []
+    for hc, vc in f:
+        if hmax % hc or vmax % vc:
+            raise JpegError(f"{name}: sampling factors {f} are fractional "
+                            "(libjpeg refuses them too)")
+        hfac, vfac = hmax // hc, vmax // vc
+        cw, ch = -(-w * hc // hmax), -(-h * vc // vmax)
+        mode = {(1, 1): FULL, (2, 1): H2V1, (1, 2): H1V2,
+                (2, 2): H2V2}.get((hfac, vfac), BOX)
+        if mode in (H2V1, H2V2) and cw <= 2:
+            mode = BOX
+        comps += [cw, ch, mode, hfac, vfac]
+    comps += [0] * (_COMP_LEN * _MAX_COMPONENTS - len(comps))
+    return [0] * _MAX_COMPONENTS + [w, h, colour, len(f)] + comps
 
 
-# Upsampling modes (csrc/jpeg.cu Mode) and the metadata's columns.
-GRAY, YCC444, H2V1, H2V2, H1V2, BOX = range(6)
-_META = ("y_off", "cb_off", "cr_off", "w", "h", "cw", "ch", "mode", "hfac",
-         "vfac")
+# Upsampling of one component (csrc/jpeg.cu Mode): at the image's size, the
+# fancy triangle filters, or replication.
+FULL, H2V1, H2V2, H1V2, BOX = range(5)
+# Colour spaces (csrc/jpeg.cu Colour).
+GRAY, YCBCR, RGB, CMYK, YCCK = range(5)
+# The metadata's columns: the planes' offsets, the image's size, colour
+# space and component count, then per component its plane's size and its
+# upsampling.
+_MAX_COMPONENTS = 4
+_COMP = ("cw", "ch", "mode", "hfac", "vfac")
+_COMP_LEN = len(_COMP)
+_META = (tuple(f"off{c}" for c in range(_MAX_COMPONENTS))
+         + ("w", "h", "colour", "ncomp")
+         + tuple(f"{k}{c}" for c in range(_MAX_COMPONENTS) for k in _COMP))
 _PLANE_ALIGN = 256
 
 
@@ -245,11 +285,12 @@ def _decode_cuda(datas, names, meta: np.ndarray,
     n = len(datas)
     if n == 0:
         return torch.zeros(0, dtype=torch.uint8, device=out.device)
-    w, h, cw, ch = (meta[:, _META.index(k)] for k in ("w", "h", "cw", "ch"))
-    sizes = np.stack([w * h, cw * ch, cw * ch], 1)
+    sizes = np.stack([meta[:, _META.index(f"cw{c}")]
+                      * meta[:, _META.index(f"ch{c}")]
+                      for c in range(_MAX_COMPONENTS)], 1)
     sizes = -(-sizes // _PLANE_ALIGN) * _PLANE_ALIGN
     offsets = np.cumsum(sizes.reshape(-1)) - sizes.reshape(-1)
-    meta[:, :3] = offsets.reshape(n, 3)
+    meta[:, :_MAX_COMPONENTS] = offsets.reshape(n, _MAX_COMPONENTS)
     dev = out.device
     planes = torch.empty(int(sizes.sum()), dtype=torch.uint8, device=dev)
     host = torch.from_numpy(meta.copy()).pin_memory()
@@ -299,22 +340,27 @@ def plain_rgb(planes: torch.Tensor, meta: np.ndarray) -> List[torch.Tensor]:
     metadata (``_decode``): [h, w, 3] uint8 each."""
     out = []
     for m in meta.tolist():
-        y_off, cb_off, cr_off, w, h, cw, ch, mode, hfac, vfac = m
-        y = planes[y_off:y_off + w * h].view(h, w)
-        cb = planes[cb_off:cb_off + cw * ch].view(ch, cw)
-        cr = planes[cr_off:cr_off + cw * ch].view(ch, cw)
-        out.append(ycc_to_rgb(y, cb, cr, mode, hfac, vfac))
+        row = dict(zip(_META, m))
+        w, h = row["w"], row["h"]
+        comps = []
+        for c in range(row["ncomp"]):
+            cw, ch, mode, hfac, vfac = (row[f"{k}{c}"] for k in _COMP)
+            off = row[f"off{c}"]
+            plane = planes[off:off + cw * ch].view(ch, cw)
+            comps.append(_upsample(plane.int(), w, h, mode, hfac, vfac))
+        out.append(to_rgb(row["colour"], comps))
     return out
 
 
 def _upsample(p: torch.Tensor, w: int, h: int, mode: int, hfac: int,
               vfac: int) -> torch.Tensor:
-    """libjpeg-turbo's upsampling of one chroma plane to [h, w] (int32)."""
+    """libjpeg-turbo's upsampling of one component's plane to [h, w]
+    (int32)."""
     ch, cw = p.shape
     dev = p.device
     x = torch.arange(w, device=dev)
     y = torch.arange(h, device=dev)
-    if mode == YCC444:
+    if mode == FULL:
         return p[:h, :w]
     if mode == BOX:
         return p[(y // vfac)][:, x // hfac]
@@ -344,19 +390,42 @@ def _upsample(p: torch.Tensor, w: int, h: int, mode: int, hfac: int,
     return torch.where((x & 1) == 0, even, odd)
 
 
-def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-               mode: int, hfac: int = 1, vfac: int = 1) -> torch.Tensor:
-    """[h, w, 3] uint8 RGB from a luma plane [h, w] and chroma planes
-    [ch, cw], as libjpeg-turbo upsamples and converts (jdsample.c,
-    jdcolor.c); ``mode`` GRAY copies the luma into every channel."""
-    h, w = y.shape
-    yy = y.int()
-    if mode == GRAY:
-        return y[..., None].expand(h, w, 3).contiguous()
-    cb, cr = (_upsample(p.int(), w, h, mode, hfac, vfac) - 128
-              for p in (cb, cr))
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
+               ) -> torch.Tensor:
+    """[h, w, 3] int32 RGB in [0, 255] from upsampled Y, Cb, Cr planes
+    (int32), as libjpeg-turbo's jdcolor.c converts (16-bit fixed point,
+    arithmetic right shifts)."""
+    cb, cr = cb - 128, cr - 128
     half = 1 << 15
-    r = yy + ((91881 * cr + half) >> 16)
-    g = yy + ((-22554 * cb + half - 46802 * cr) >> 16)
-    b = yy + ((116130 * cb + half) >> 16)
-    return torch.stack([r, g, b], -1).clamp(0, 255).to(torch.uint8)
+    r = y + ((91881 * cr + half) >> 16)
+    g = y + ((-22554 * cb + half - 46802 * cr) >> 16)
+    b = y + ((116130 * cb + half) >> 16)
+    return torch.stack([r, g, b], -1).clamp(0, 255)
+
+
+def _muldiv255(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """PIL's MULDIV255: round(a * b / 255) in integers."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def to_rgb(colour: int, comps: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[h, w, 3] uint8 from a colour space's upsampled components (int32
+    [h, w] each), as PIL's ``convert("RGB")`` of libjpeg's output gives
+    it. CMYK: PIL reads Adobe-inverted ink (255 - c) and
+    ``cmyk2rgb`` gives nk - nk * ink / 255 with nk = 255 - K, that is
+    c3 - c3 * (255 - c) / 255 from the stored values; YCCK: libjpeg's
+    ycck_cmyk_convert (255 minus the YCbCr -> RGB of the first three)
+    first, so the ink PIL reads is that RGB."""
+    if colour == GRAY:
+        rgb = comps[0][..., None].expand(*comps[0].shape, 3)
+    elif colour == YCBCR:
+        rgb = ycc_to_rgb(*comps)
+    elif colour == RGB:
+        rgb = torch.stack(comps, -1)
+    else:
+        k = comps[3][..., None]
+        ink = (255 - torch.stack(comps[:3], -1) if colour == CMYK
+               else ycc_to_rgb(*comps[:3]))
+        rgb = k - _muldiv255(ink, k)
+    return rgb.clamp(0, 255).to(torch.uint8).contiguous()

@@ -11,7 +11,10 @@ positive (ties to the lower index) -- a stable descending sort's position,
 computed as a masked reduction over query blocks on the features' device.
 Feature extraction keeps the reference's semantics: images deduped by
 image_id in first-seen order, captions grouped by their image's position
-(eval_coco.py:119-223). The multi-device (sharded) ranking is not ported.
+(eval_coco.py:119-223), in chunks of batches where the caller gives a
+chunk step. ``retrieve`` lists the top-k gallery items per query;
+``evaluate_two_tower`` scores separate image and caption models. The
+multi-device (sharded) ranking is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import numpy as np
 import torch
 
 from creamfl_tpu_torch.losses.mcsoft import match_prob
+
+# Batches per ``extract_chunk_fn`` call (the JAX package's chunk of 8).
+EXTRACT_CHUNK = 8
 
 
 @torch.no_grad()
@@ -118,23 +124,43 @@ class RetrievalEvaluator:
         self._sims_fn = sims
 
     # -- feature extraction (dedup and alignment on the host) ----------
-    def extract_features(self, loader, extract_fn: Callable) -> Dict:
+    def extract_features(self, loader, extract_fn: Callable,
+                         extract_chunk_fn: Optional[Callable] = None
+                         ) -> Dict:
         """Dedup images by image_id (first-seen order) and group captions
         by their image's position, vectorised (the reference keeps the
         same semantics with Python dicts, eval_coco.py:119-223). Features
-        stay on their device; ids and labels are numpy."""
+        stay on their device; ids and labels are numpy.
+
+        ``extract_chunk_fn(batches) -> (fi, fc)`` (flat [k * B, E]) takes
+        runs of ``EXTRACT_CHUNK`` uniform batches at once (the server's
+        ``eval_chunk``: one CUDA graph replay on the card); single and
+        ragged batches take ``extract_fn``."""
+        from creamfl_tpu_torch.federation.stacked import (_chunks,
+                                                          _uniform_batches)
+
         fi_parts, fc_parts, id_parts, ann_parts, valids = ([], [], [], [],
                                                            [])
-        for batch in loader:
-            fi, fc = extract_fn(batch)
+
+        def accumulate(fi, fc, batches):
             fi_parts.append(fi)
             fc_parts.append(fc)
-            n = len(np.asarray(batch["image_ids"]))
-            valid = np.asarray(batch.get("valid",
-                                         np.ones(n, bool))).astype(bool)
-            valids.append(valid)
-            id_parts.append(np.asarray(batch["image_ids"])[valid])
-            ann_parts.append(np.asarray(batch["ann_ids"])[valid])
+            for batch in batches:
+                n = len(np.asarray(batch["image_ids"]))
+                valid = np.asarray(batch.get("valid", np.ones(n, bool))
+                                   ).astype(bool)
+                valids.append(valid)
+                id_parts.append(np.asarray(batch["image_ids"])[valid])
+                ann_parts.append(np.asarray(batch["ann_ids"])[valid])
+
+        groups = (([b] for b in loader) if extract_chunk_fn is None
+                  else _chunks(iter(loader), EXTRACT_CHUNK))
+        for group in groups:
+            if len(group) == 1 or not _uniform_batches(group):
+                for batch in group:
+                    accumulate(*extract_fn(batch), [batch])
+            else:
+                accumulate(*extract_chunk_fn(group), group)
         rows = torch.from_numpy(np.flatnonzero(np.concatenate(valids)))
         all_img = torch.cat(fi_parts)
         all_img = all_img[rows.to(all_img.device)]
@@ -215,9 +241,42 @@ class RetrievalEvaluator:
                        for k in folds[0]}
                 for task, folds in per_task.items()}
 
+    def retrieve(self, q_features, g_features, q_ids, g_ids,
+                 topk: int = 10):
+        """Top-k retrieval lists per query (reference eval_coco.py:226-271):
+        ({q_id: [g_id, ...]}, {q_id: [score, ...]}), the gallery in a
+        stable descending order of similarity (dot product, or the
+        matching_prob scorer)."""
+        q = torch.as_tensor(q_features).float()
+        g = torch.as_tensor(g_features).float().to(q.device)
+        sims = (self._sims_fn(q, g) if self._sims_fn is not None
+                else q @ g.T).cpu().numpy()
+        order = np.argsort(-sims, axis=1, kind="stable")[:, :topk]
+        g_ids = np.asarray(g_ids)
+        q_ids = np.asarray(q_ids)
+        items = {qid: g_ids[order[i]].tolist() for i, qid in enumerate(q_ids)}
+        scores = {qid: sims[i, order[i]].tolist()
+                  for i, qid in enumerate(q_ids)}
+        return items, scores
+
+    def evaluate_two_tower(self, loader, image_fn: Callable,
+                           caption_fn: Callable,
+                           n_crossfolds: Optional[int] = None) -> Dict:
+        """Two-tower evaluation (reference ``mm_eval.COCOEvaluator``):
+        separate image and caption models, ``image_fn(batch) -> [B, d]``
+        and ``caption_fn(batch) -> [B, d]``; dedup, alignment or class
+        grouping, crossfolds and recalls as in ``evaluate``."""
+
+        def extract_fn(batch):
+            return image_fn(batch), caption_fn(batch)
+
+        return self.evaluate(loader, extract_fn, n_crossfolds)
+
     def evaluate(self, loader, extract_fn: Callable,
-                 n_crossfolds: Optional[int] = None) -> Dict:
-        feats = self.extract_features(loader, extract_fn)
+                 n_crossfolds: Optional[int] = None,
+                 extract_chunk_fn: Optional[Callable] = None) -> Dict:
+        feats = self.extract_features(loader, extract_fn,
+                                      extract_chunk_fn=extract_chunk_fn)
         scores: Dict = {}
         n_crossfolds = (self.n_crossfolds if n_crossfolds is None
                         else n_crossfolds)

@@ -14,6 +14,9 @@ Port of the JAX package's ``engine/server.py`` (reference
   ``rows``; the mm-client term counts both modalities a second time, as
   the reference does (`MMFL.py:371-378`);
 * ``eval_step``: eval-mode forward;
+* ``extract_chunk``, ``eval_chunk``, ``train_chunk``, ``distill_chunk``:
+  k stacked batches as k steps, on the card one CUDA graph replay
+  (``chunk_route``);
 * ``load_pretrained``: torchvision ResNet, HF BERT and GloVe weights from
   local files; ``save_models`` / ``load_models``: the engine bundle that
   ``engine.pretrain.RawTrainer`` writes.
@@ -33,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from creamfl_tpu_torch.engine.graphs import GraphCache
 from creamfl_tpu_torch.engine.state import EngineState
 from creamfl_tpu_torch.losses.mcsoft import (MCSoftContrastiveConfig,
                                              MCSoftCriterion)
@@ -85,6 +89,7 @@ class ServerEngine:
         self.lr_schedule = cosine_annealing_schedule(self.learning_rate,
                                                      self.t_max)
         self.kd_weight = 0.3  # overridden by federation from CLI args
+        self.graphs = GraphCache(self.device)
 
     # -- state ---------------------------------------------------------
     def init_state(self, seed: int = 0,
@@ -194,17 +199,21 @@ class ServerEngine:
         return report
 
     # -- steps ---------------------------------------------------------
-    def _forward(self, state: EngineState, images, captions, lengths,
-                 bert_mask) -> Dict[str, torch.Tensor]:
-        """``lengths`` stay where they are: the GRU branch packs on the
-        host, the BERT branch reads the mask."""
+    # Each step is host staging (``stage``: loader arrays onto the device)
+    # and a compute on device tensors alone (``_train``, ``_distill``,
+    # ``_features``), which a CUDA graph can hold (``engine/graphs.py``).
+    def stage(self, images, captions, lengths, bert_mask=None):
+        """(images, captions, lengths, bert_mask) of a batch, or of a chunk
+        of k stacked batches, as the compute takes them: float32 images,
+        int64 ids and the mask on the engine's device; ``lengths`` stay on
+        the host (the GRU branch packs with host lengths, the BERT branch
+        reads the mask)."""
         dev = self.device
-        return state.model(
-            torch.as_tensor(images, dtype=torch.float32, device=dev),
-            torch.as_tensor(captions, dtype=torch.long, device=dev),
-            torch.as_tensor(lengths),
-            None if bert_mask is None else torch.as_tensor(bert_mask,
-                                                           device=dev))
+        return (torch.as_tensor(images, dtype=torch.float32, device=dev),
+                torch.as_tensor(captions, dtype=torch.long, device=dev),
+                torch.as_tensor(lengths),
+                None if bert_mask is None else torch.as_tensor(bert_mask,
+                                                               device=dev))
 
     def _update(self, state: EngineState) -> None:
         """Clip the model's gradients, then AdamP over model and
@@ -215,50 +224,38 @@ class ServerEngine:
                     p.grad = torch.zeros_like(p)
         clip_grad_global_norm(state.model.parameters(), self.grad_clip)
         state.optimizer.step()
-        state.step += 1
 
-    def train_step(self, state: EngineState, images, captions, lengths,
-                   bert_mask=None
-                   ) -> Tuple[EngineState, Dict[str, torch.Tensor]]:
+    def _train(self, state: EngineState, images, captions, lengths,
+               bert_mask) -> Dict[str, torch.Tensor]:
+        """One train step on staged inputs; the loss dict is taken before
+        the update (``shift`` and ``negative_scale`` are the values the
+        loss used, as in the JAX package)."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = self._forward(state, images, captions, lengths, bert_mask)
+        out = state.model(images, captions, lengths, bert_mask)
         loss, ldict = state.criterion(out["image_features"],
                                       out["caption_features"])
         loss.backward()
+        ldict = {k: v.detach().clone() for k, v in ldict.items()}
         self._update(state)
-        return state, {k: v.detach() for k, v in ldict.items()}
+        return ldict
 
     @torch.no_grad()
-    def extract_step(self, state: EngineState, images, captions, lengths,
-                     bert_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Train-mode feature pass; the BatchNorm running stats it moves
-        stay in ``state.model``. Returns (img_feats, txt_feats)."""
-        state.model.train()
-        out = self._forward(state, images, captions, lengths, bert_mask)
+    def _features(self, state: EngineState, train: bool, images, captions,
+                  lengths, bert_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+        state.model.train(train)
+        out = state.model(images, captions, lengths, bert_mask)
         return out["image_features"], out["caption_features"]
 
-    @torch.no_grad()
-    def eval_step(self, state: EngineState, images, captions, lengths,
-                  bert_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval-mode forward for retrieval evaluation."""
-        state.model.eval()
-        out = self._forward(state, images, captions, lengths, bert_mask)
-        return out["image_features"], out["caption_features"]
-
-    def distill_step(self, state: EngineState, images, captions, lengths,
-                     bert_mask, aggregated: Dict[str, torch.Tensor],
-                     rows, use_img: bool, use_txt: bool, use_mm: bool,
-                     kd_weight: float) -> Tuple[EngineState, torch.Tensor]:
-        """``aggregated``: {'img': [N, d], 'txt': [N, d]} con_w ensembles
-        (a modality no term reads may be None); ``rows`` [B] indexes this
-        batch's targets."""
+    def _distill(self, state: EngineState, images, captions, lengths,
+                 bert_mask, aggregated: Dict[str, torch.Tensor],
+                 rows: torch.Tensor, use_img: bool, use_txt: bool,
+                 use_mm: bool, kd_weight: float) -> torch.Tensor:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = self._forward(state, images, captions, lengths, bert_mask)
+        out = state.model(images, captions, lengths, bert_mask)
         img_f = out["image_features"].float()
         txt_f = out["caption_features"].float()
-        rows = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         t_img = (aggregated["img"].index_select(0, rows)
                  if use_img or use_mm else None)
         t_txt = (aggregated["txt"].index_select(0, rows)
@@ -276,4 +273,132 @@ class ServerEngine:
         if terms:
             loss.backward()
         self._update(state)
-        return state, loss.detach()
+        return loss.detach()
+
+    def train_step(self, state: EngineState, images, captions, lengths,
+                   bert_mask=None
+                   ) -> Tuple[EngineState, Dict[str, torch.Tensor]]:
+        ldict = self._train(state, *self.stage(images, captions, lengths,
+                                               bert_mask))
+        state.step += 1
+        return state, ldict
+
+    def extract_step(self, state: EngineState, images, captions, lengths,
+                     bert_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train-mode feature pass; the BatchNorm running stats it moves
+        stay in ``state.model``. Returns (img_feats, txt_feats)."""
+        return self._features(state, True, *self.stage(
+            images, captions, lengths, bert_mask))
+
+    def eval_step(self, state: EngineState, images, captions, lengths,
+                  bert_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Eval-mode forward for retrieval evaluation."""
+        return self._features(state, False, *self.stage(
+            images, captions, lengths, bert_mask))
+
+    def distill_step(self, state: EngineState, images, captions, lengths,
+                     bert_mask, aggregated: Dict[str, torch.Tensor],
+                     rows, use_img: bool, use_txt: bool, use_mm: bool,
+                     kd_weight: float) -> Tuple[EngineState, torch.Tensor]:
+        """``aggregated``: {'img': [N, d], 'txt': [N, d]} con_w ensembles
+        (a modality no term reads may be None); ``rows`` [B] indexes this
+        batch's targets."""
+        rows = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        loss = self._distill(state, *self.stage(images, captions, lengths,
+                                                bert_mask), aggregated,
+                             rows, use_img, use_txt, use_mm, kd_weight)
+        state.step += 1
+        return state, loss
+
+    # -- chunked sweeps -------------------------------------------------
+    # Each ``*_chunk`` runs k stacked batches ([k, B, ...]) as k steps in
+    # order, with the JAX package's signatures and results. On the card,
+    # on the BERT branch, the k steps are one replay of one CUDA graph
+    # (``chunk_route`` "graph"): the host work of a step (a few thousand
+    # launches, most of them AdamP's) is paid once, at capture. On the CPU
+    # and on the GRU branch (whose packing reads host lengths, which a
+    # graph cannot) they run eagerly ("eager").
+    @property
+    def chunk_route(self) -> str:
+        """"graph" on the card with the BERT text branch, else "eager":
+        fixed by the configuration, never by a failed capture."""
+        if self.device.type == "cuda" and not self.model.not_bert:
+            return "graph"
+        return "eager"
+
+    def release_graphs(self) -> None:
+        """Drop the captured graphs and their memory pools (the round does
+        so at its end)."""
+        self.graphs.clear()
+
+    def _chunk(self, kind: str, state: EngineState, inputs, step,
+               flags=()):
+        """Run ``step(*staged inputs of batch i)`` for i < k and stack its
+        outputs. ``inputs``: (images, captions, lengths, bert_mask, *more)
+        stacked over the chunk, ``more`` device tensors or arrays;
+        ``flags``: the static arguments, part of a graph's key."""
+        images, captions, lengths, bert_mask, *more = inputs
+        staged = list(self.stage(images, captions, lengths, bert_mask))
+        more = [torch.as_tensor(x, device=self.device) for x in more]
+        k = staged[0].shape[0]
+
+        def body(*xs):
+            outs = [step(*(None if x is None else x[i] for x in xs))
+                    for i in range(k)]
+            return tuple(torch.stack(o) for o in zip(*outs))
+
+        if self.chunk_route == "eager":
+            return body(*staged, *more)
+        staged[2] = None  # host lengths: unused on the BERT branch
+        key = (kind, flags) + tuple(
+            None if x is None else (tuple(x.shape), x.dtype)
+            for x in staged + more)
+        return self.graphs.run(key, state, staged + more, body)
+
+    def extract_chunk(self, state: EngineState, images, captions, lengths,
+                      bert_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``extract_step`` over k stacked batches; the BatchNorm running
+        stats move from step to step as the per-batch loop moves them.
+        Returns ([k, B, E] img, [k, B, E] txt)."""
+        return self._chunk(
+            "extract", state, (images, captions, lengths, bert_mask),
+            lambda *x: self._features(state, True, *x))
+
+    def eval_chunk(self, state: EngineState, images, captions, lengths,
+                   bert_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``eval_step`` over k stacked batches: ([k, B, E], [k, B, E])."""
+        return self._chunk(
+            "eval", state, (images, captions, lengths, bert_mask),
+            lambda *x: self._features(state, False, *x))
+
+    def train_chunk(self, state: EngineState, images, captions, lengths,
+                    bert_mask=None) -> Tuple[EngineState, torch.Tensor]:
+        """``train_step`` over k stacked batches: step t + 1 sees the state
+        step t left (params, AdamP moments and steps, BatchNorm stats).
+        Returns (state, [k] losses)."""
+        (losses,) = self._chunk(
+            "train", state, (images, captions, lengths, bert_mask),
+            lambda *x: (self._train(state, *x)["loss"],))
+        state.step += len(losses)
+        return state, losses
+
+    def distill_chunk(self, state: EngineState, images, captions, lengths,
+                      bert_mask, aggregated: Dict[str, torch.Tensor],
+                      rows, use_img: bool, use_txt: bool, use_mm: bool,
+                      kd_weight: float) -> Tuple[EngineState, torch.Tensor]:
+        """``distill_step`` over k stacked batches; ``rows`` is [k, B].
+        Returns (state, [k] losses). A captured graph reads ``aggregated``
+        at its addresses, which are part of its key."""
+        flags = (use_img, use_txt, use_mm, kd_weight) + tuple(
+            None if aggregated.get(m) is None else aggregated[m].data_ptr()
+            for m in ("img", "txt"))
+        (losses,) = self._chunk(
+            "distill", state,
+            (images, captions, lengths, bert_mask,
+             torch.as_tensor(rows, dtype=torch.long)),
+            lambda *x: (self._distill(state, *x[:4], aggregated, x[4],
+                                      use_img, use_txt, use_mm,
+                                      kd_weight),),
+            flags)
+        state.step += len(losses)
+        return state, losses

@@ -59,6 +59,11 @@ from creamfl_tpu_torch.utils.helper import save_checkpoint
 from creamfl_tpu_torch.utils.logging import NoOpTracker, PythonLogger
 from creamfl_tpu_torch.utils.profiling import StepTimer
 
+# Batches per chunk in the server's forward-only sweeps (global features,
+# eval): one CUDA graph replay each on the card (the JAX package's
+# ``SERVER_SCAN_CHUNK``, one dispatch each).
+SERVER_SCAN_CHUNK = 8
+
 class ClientHandle:
     """One federated client: family engine + its own state + data."""
 
@@ -246,21 +251,43 @@ class MMFL:
             self.logger.log(f"server epoch loss "
                             f"{float(torch.stack(losses).mean()):.2f}")
 
+    def _stack_server_chunk(self, group):
+        """k batches -> the server's stacked [k, B, ...] inputs: images
+        stacked where they lie (on the device when the loader made them
+        there), the text fields on the host."""
+        imgs = [b["images"] for b in group]
+        images = (torch.stack(imgs) if isinstance(imgs[0], torch.Tensor)
+                  else np.stack(imgs))
+        caps, lens, masks = zip(*(self.server.text_inputs(b)
+                                  for b in group))
+        bert_mask = np.stack(masks) if masks[0] is not None else None
+        return images, np.stack(caps), np.stack(lens), bert_mask
+
     def _extract_global_features(self) -> None:
         """Train-mode feature pass over the public eval loader (the
-        reference extracts in train() mode, MMFL.py:189-218). The loader
-        keeps a ragged last batch and pads nothing, so the valid rows are
-        a prefix of the concatenation."""
+        reference extracts in train() mode, MMFL.py:189-218), in chunks of
+        ``SERVER_SCAN_CHUNK`` batches (``ServerEngine.extract_chunk``, a
+        CUDA graph replay on the card); a ragged last batch takes the
+        per-batch step. The loader keeps that batch and pads nothing, so
+        the valid rows are a prefix of the concatenation."""
         img_parts, txt_parts, index_parts = [], [], []
         n_valid = 0
-        for batch in self.datasets["pub_eval"]:
-            img_f, txt_f = self.server.extract_step(
-                self.server_state, *self._server_inputs(batch))
-            valid = np.asarray(batch["valid"])
-            n_valid += suffix_valid(valid)
-            img_parts.append(img_f)
-            txt_parts.append(txt_f)
-            index_parts.append(np.asarray(batch["index"])[valid])
+        for group in stacked._chunks(iter(self.datasets["pub_eval"]),
+                                     SERVER_SCAN_CHUNK):
+            if len(group) == 1 or not stacked._uniform_batches(group):
+                feats = [self.server.extract_step(
+                    self.server_state, *self._server_inputs(batch))
+                    for batch in group]
+            else:
+                img_f, txt_f = self.server.extract_chunk(
+                    self.server_state, *self._stack_server_chunk(group))
+                feats = list(zip(img_f, txt_f))
+            for batch, (img_f, txt_f) in zip(group, feats):
+                valid = np.asarray(batch["valid"])
+                n_valid += suffix_valid(valid)
+                img_parts.append(img_f)
+                txt_parts.append(txt_f)
+                index_parts.append(np.asarray(batch["index"])[valid])
         self.global_img_feature = torch.cat(img_parts)[:n_valid]
         self.global_txt_feature = torch.cat(txt_parts)[:n_valid]
         self.distill_index = np.concatenate(index_parts).astype(np.int64)
@@ -379,9 +406,17 @@ class MMFL:
         return self.server.eval_step(self.server_state,
                                      *self._server_inputs(batch))
 
+    def _extract_eval_chunk(self, group):
+        """k uniform batches -> flat [k * B, E] eval features
+        (``ServerEngine.eval_chunk``)."""
+        fi, ft = self.server.eval_chunk(self.server_state,
+                                        *self._stack_server_chunk(group))
+        return fi.flatten(0, 1), ft.flatten(0, 1)
+
     def evaluate(self) -> Dict:
-        return self.evaluator.evaluate(self.datasets["test"],
-                                       self._extract_eval)
+        return self.evaluator.evaluate(
+            self.datasets["test"], self._extract_eval,
+            extract_chunk_fn=self._extract_eval_chunk)
 
     def _seed_round(self, round_n: int) -> random.Random:
         """Re-seed every per-round randomness source as a function of
@@ -482,7 +517,9 @@ class MMFL:
                 self._distill(img_vecs, txt_vecs)
 
         with self.timer.phase("eval"):
-            return self.evaluate()
+            scores = self.evaluate()
+        self.server.release_graphs()
+        return scores
 
     def _report(self, round_n: int, scores: Dict) -> float:
         n_fold = scores.get("n_fold", {"i2t": {"recall_1": 0.0},

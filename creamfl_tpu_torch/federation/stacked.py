@@ -24,8 +24,11 @@ members frozen with a masked select (``_select_state``) on pad slots;
 nothing here needs either, so there are no pad slots: ``--stack_bucket``
 (``stack_pad``) only bounds XLA recompiles in the JAX package, and the
 port reports its pad count and runs none. ``SCAN_CHUNK`` and
-``_stack_chunk`` amortise XLA dispatch and have no counterpart; their math
-is the per-batch math here. Nor has ``parallel/client_parallel.py``: each
+``_stack_chunk`` amortise XLA dispatch and have no counterpart for the
+clients; their math is the per-batch math here. ``_chunks`` and
+``_uniform_batches`` cut the server's sweeps into chunks
+(``federation/rounds.py``, ``engine/evaluator.py``). Nor has
+``parallel/client_parallel.py``: each
 client keeps its own ``EngineState``, and ``stack_states`` /
 ``unstack_states`` existed to build one stacked pytree for a jitted
 program.
@@ -43,6 +46,32 @@ import torch
 
 from creamfl_tpu_torch.data.loaders import suffix_valid
 from creamfl_tpu_torch.losses.contrast import inter_modal_loss
+
+
+def _uniform_batches(group) -> bool:
+    """True iff every batch in the group has the same leading dim: the
+    bare ragged last batch of a public loader takes the per-batch step
+    even inside a full chunk."""
+    def rows(b):
+        for v in b.values():
+            if hasattr(v, "shape") and getattr(v, "ndim", 0) >= 1:
+                return v.shape[0]
+        return None
+
+    first = rows(group[0])
+    return all(rows(b) == first for b in group[1:])
+
+
+def _chunks(iterable, k: int):
+    """Lists of k consecutive items (the last one shorter)."""
+    buf = []
+    for x in iterable:
+        buf.append(x)
+        if len(buf) == k:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
 
 
 def stack_pad(n_members: int, policy: str) -> int:

@@ -36,10 +36,15 @@ from creamfl_tpu_torch.ops.l2norm import l2_normalize
 
 
 def compute_dtype(dtype: torch.dtype, device: torch.device):
-    """bf16 autocast on ``device`` for a bf16 module, else nothing."""
+    """bf16 autocast on ``device`` for a bf16 module, else nothing. The
+    weight casts are not cached: a CUDA graph of the server's steps
+    (``engine/graphs.py``) replays them, and a cached cast would be read
+    stale after an optimizer step (each weight is cast once a forward
+    either way)."""
     if dtype == torch.float32:
         return contextlib.nullcontext()
-    return torch.autocast(device_type=device.type, dtype=dtype)
+    return torch.autocast(device_type=device.type, dtype=dtype,
+                          cache_enabled=False)
 
 
 class MLPHead(nn.Module):

@@ -1,11 +1,13 @@
-"""Build a kernel source of ``csrc/`` with nvcc and load it with ctypes.
+"""Build a source of ``csrc/`` into a shared library loaded with ctypes.
 
 Each source is compiled on its own, at first use, into
 ``creamfl_tpu_torch/_build/<hash>/lib<name>.so`` (the directory is
 git-ignored), where the hash covers the source, every ``*.cuh`` header
 beside it (which the source may include), the flags and the source's link
 flags (``-lnvjpeg`` for ``csrc/jpeg.cu``): a changed source or header gets
-a new library and an unchanged one is built once. The libraries have a
+a new library and an unchanged one is built once. The kernels are built
+with nvcc (``NVCC_FLAGS``); the host-only caption tokenizer
+(``csrc/native.cpp``) with g++ (``GXX_FLAGS``). The libraries have a
 plain C interface: no PyTorch headers, so a build takes seconds.
 """
 
@@ -24,6 +26,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 
 def nvcc() -> str:
@@ -45,35 +48,46 @@ def toolkit_lib_dir() -> str:
     return os.path.join(os.path.dirname(os.path.dirname(nvcc())), "lib64")
 
 
-def library_path(source: Path, link: Sequence[str] = ()) -> Path:
-    """Where the library built from ``source`` (linked with ``link``)
-    lives."""
+def library_path(source: Path, link: Sequence[str] = (),
+                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Where the library built from ``source`` with ``flags`` (linked with
+    ``link``) lives."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     if link:
         h.update(" ".join(link).encode())
     digest = h.hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{source.stem}.so"
 
 
-def build(source: Path, link: Sequence[str] = ()) -> Tuple[Path, float, str]:
-    """Compile ``source`` (linked with the flags ``link``) unless a library
-    for this exact source and these flags exists. Returns (library path,
-    build seconds, compiler output). Raises if nvcc fails."""
-    lib = library_path(source, link)
+def build(source: Path, link: Sequence[str] = (), compiler: str = "nvcc",
+          flags: Sequence[str] = NVCC_FLAGS) -> Tuple[Path, float, str]:
+    """Compile ``source`` with ``compiler`` ("nvcc": the toolkit's, found
+    by ``nvcc()``; else a command on the PATH) and ``flags`` (linked with
+    ``link``) unless a library for this exact source and these flags
+    exists. The library is written under a temporary name and renamed, so
+    that a concurrent process never loads half of it. Returns (library
+    path, build seconds, compiler output). Raises if the compiler fails or
+    is missing."""
+    lib = library_path(source, link, flags)
     if lib.exists():
         return lib, 0.0, ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so")
+    exe = nvcc() if compiler == "nvcc" else compiler
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source),
-                           *link], capture_output=True, text=True)
+    try:
+        proc = subprocess.run([exe, *flags, "-o", str(tmp), str(source),
+                               *link], capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{compiler} cannot run to build "
+                           f"{source.name}: {e}") from e
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} "
+        raise RuntimeError(f"{compiler} failed on {source.name} "
                            f"({proc.returncode}):\n{log}")
     os.replace(tmp, lib)
     return lib, seconds, log

@@ -17,6 +17,15 @@ tables. One-dimensional parameters are never projected.
 
 Each parameter keeps its own step count (``state["step"]``), as the
 reference's does. A parameter whose ``.grad`` is None is skipped.
+
+The step counts and the learning rate are float64 tensors on the
+parameters' device, and the bias corrections are computed there: a step
+reads no host number that changes from step to step, so it can be captured
+in a CUDA graph and replayed (``engine/graphs.py``); ``set_learning_rate``
+fills the lr tensor in place. The arithmetic is the host-float version's
+(float64 corrections, each rounded to float32 where it meets a float32
+tensor), bit for bit on the CPU. A state dict of the earlier format (an
+int step, a float lr) loads and is converted at the next step.
 """
 
 from __future__ import annotations
@@ -81,38 +90,77 @@ class AdamP(torch.optim.Optimizer):
                 self._update(group, params)
         return loss
 
+    @staticmethod
+    def _lr(group, device: torch.device) -> torch.Tensor:
+        """The group's lr as a float64 tensor on ``device``, made from a
+        float once (a new group, or a state dict of the float format)."""
+        lr = group["lr"]
+        if not isinstance(lr, torch.Tensor):
+            lr = group["lr"] = torch.tensor(float(lr), dtype=torch.float64,
+                                            device=device)
+        return lr
+
+    def _state(self, p: torch.Tensor):
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float64,
+                                        device=p.device)
+            state["exp_avg"] = torch.zeros_like(p)
+            state["exp_avg_sq"] = torch.zeros_like(p)
+        elif not isinstance(state["step"], torch.Tensor):  # an int step
+            state["step"] = torch.tensor(float(state["step"]),
+                                         dtype=torch.float64,
+                                         device=p.device)
+        return state
+
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Make every parameter's state and every group's lr tensor now
+        (zero moments and step: what the first step would make), so that
+        a step captured in a CUDA graph allocates none of them."""
+        for group in self.param_groups:
+            if group["params"]:
+                self._lr(group, group["params"][0].device)
+            for p in group["params"]:
+                self._state(p)
+
     def _update(self, group, params) -> None:
         """One step over ``params``. The elementwise moments and updates
         run as multi-tensor (foreach) kernels, a few launches for the whole
         list; the projection is per parameter."""
         b1, b2 = group["betas"]
-        lr, eps = group["lr"], group["eps"]
+        eps = group["eps"]
+        lr = self._lr(group, params[0].device)
         grads = [p.grad for p in params]
-        states = [self.state[p] for p in params]
-        for p, state in zip(params, states):
-            if not state:
-                state["step"] = 0
-                state["exp_avg"] = torch.zeros_like(p)
-                state["exp_avg_sq"] = torch.zeros_like(p)
-            state["step"] += 1
+        states = [self._state(p) for p in params]
+        steps = [st["step"] for st in states]
+        torch._foreach_add_(steps, 1.0)
         ms = [st["exp_avg"] for st in states]
         vs = [st["exp_avg_sq"] for st in states]
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, grads, alpha=1 - b1)
         torch._foreach_mul_(vs, b2)
         torch._foreach_addcmul_(vs, grads, grads, value=1 - b2)
-        denom = torch._foreach_div(vs, [1.0 - b2 ** st["step"]
-                                        for st in states])
+        denom = torch._foreach_div(vs, _one_minus_pow(b2, steps))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
         perturb = list(torch._foreach_div(ms, denom))
+        lr_wd = lr * group["weight_decay"]
         for i, (p, g) in enumerate(zip(params, grads)):
-            wd = 1.0  # a 0-d tensor where projected
+            wd = None  # a float32 0-d tensor where projected
             if p.dim() > 1:
                 perturb[i], wd = _project(p, g, perturb[i], group["delta"],
                                           group["wd_ratio"], eps)
             if group["weight_decay"] > 0:
-                p.mul_(1.0 - lr * group["weight_decay"] * wd)
-        torch._foreach_mul_(perturb, [-lr / (1.0 - b1 ** st["step"])
-                                      for st in states])
+                p.mul_(1.0 - (lr_wd if wd is None else lr_wd.float() * wd))
+        torch._foreach_mul_(perturb, torch._foreach_div(
+            [torch.neg(lr)] * len(params), _one_minus_pow(b1, steps)))
         torch._foreach_add_(params, perturb)
+
+
+def _one_minus_pow(beta: float, steps):
+    """[1 - beta ** step] as float64 tensors, one a step tensor."""
+    out = torch._foreach_pow(beta, steps)
+    torch._foreach_neg_(out)
+    torch._foreach_add_(out, 1.0)
+    return out

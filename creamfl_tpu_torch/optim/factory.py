@@ -101,5 +101,10 @@ def make_client_sgd(params: Iterable[torch.nn.Parameter],
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's lr; a tensor lr (AdamP's, which a captured CUDA
+    graph reads at its address) is filled in place."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr

@@ -8,7 +8,12 @@ Ranks, R@k, medr and meanr must be equal -- tolerance none -- in both
 ``eval_method``s (matching_prob with shift 0.5 and negative_scale 1, where
 the sigmoid's arguments stay far apart), with the n-fold split, in the
 class mode (``iid_to_cls``), and for ``best_positive_ranks`` alone at
-several block sizes.
+several block sizes. ``retrieve``'s top-k lists and scores and
+``evaluate_two_tower``'s scores equal the JAX package's (tolerance none;
+matching_prob's retrieval scores within float32 rounding, rtol 1e-6);
+``extract_features`` through a chunk function (``extract_chunk_fn``, runs
+of 8 uniform batches, single and ragged batches per batch) equals the
+unchunked extraction and the JAX package's chunked one bit for bit.
 """
 
 import jax.numpy as jnp
@@ -129,3 +134,65 @@ def test_unknown_eval_method_raises():
         T.RetrievalEvaluator(eval_method="cosine")
     with pytest.raises(ValueError):
         T.RetrievalEvaluator(eval_method="matching_prob")
+
+
+@pytest.mark.parametrize("method", ["matmul", "matching_prob"])
+def test_retrieve_equals_jax(data, method):
+    img, cap, _, _ = data
+    jev, tev = _evaluators(method)
+    for q, g in ((img, cap), (cap, img[::-1].copy())):
+        q_ids, g_ids = np.arange(len(q)) + 7, np.arange(len(g)) + 1000
+        want = jev.retrieve(q, g, q_ids, g_ids, topk=5)
+        got = tev.retrieve(torch.tensor(q), torch.tensor(g), q_ids, g_ids,
+                           topk=5)
+        assert got[0] == want[0]
+        assert got[1].keys() == want[1].keys()
+        for qid, scores in want[1].items():
+            # Dot products are exact here; the sigmoid of matching_prob
+            # rounds in each framework's own way (float32 ulps).
+            np.testing.assert_allclose(got[1][qid], scores, atol=0,
+                                       rtol=0 if method == "matmul" else 1e-6)
+
+
+def test_two_tower_equals_jax(data):
+    jev, tev = _evaluators("matmul")
+    jfn, tfn = _extract(data, jnp.asarray), _extract(data, torch.tensor)
+    want = jev.evaluate_two_tower(data[3], lambda b: jfn(b)[0],
+                                  lambda b: jfn(b)[1])
+    got = tev.evaluate_two_tower(data[3], lambda b: tfn(b)[0],
+                                 lambda b: tfn(b)[1])
+    assert got == want == tev.evaluate(data[3], tfn)
+
+
+def test_chunked_extraction_equals_unchunked(data):
+    img, cap, order, _ = data
+    n_cap = len(order)
+    batches = [{"image_ids": (order[s:s + 7] // CPI).astype(np.int64) + 100,
+                "ann_ids": order[s:s + 7].astype(np.int64) + 1000,
+                "rows": np.arange(s, min(s + 7, n_cap))}
+               for s in range(0, n_cap, 7)]  # 8 of 7, then a ragged 4
+    calls = []
+
+    def chunk_fn(to, fn):
+        def run(group):
+            calls.append(len(group))
+            parts = [fn(b) for b in group]
+            cat = jnp.concatenate if to is jnp.asarray else torch.cat
+            return cat([a for a, _ in parts]), cat([c for _, c in parts])
+        return run
+
+    jev, tev = _evaluators("matmul")
+    jfn, tfn = _extract(data, jnp.asarray), _extract(data, torch.tensor)
+    want = jev.extract_features(batches, jfn,
+                                extract_chunk_fn=chunk_fn(jnp.asarray, jfn))
+    plain = tev.extract_features(batches, tfn)
+    calls.clear()
+    got = tev.extract_features(batches, tfn,
+                               extract_chunk_fn=chunk_fn(torch.tensor, tfn))
+    assert calls == [8]  # the ragged last batch went per batch
+    assert sorted(got) == sorted(want) == sorted(plain)
+    for key, val in want.items():
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(val),
+                                      err_msg=key)
+        np.testing.assert_array_equal(np.asarray(got[key]),
+                                      np.asarray(plain[key]), err_msg=key)

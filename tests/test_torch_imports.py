@@ -55,10 +55,35 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "creamfl_tpu_torch.federation.stacked",
                  "creamfl_tpu_torch.utils.checkpoint",
                  "creamfl_tpu_torch.utils.serialize",
-                 "creamfl_tpu_torch.engine.evaluator"):
+                 "creamfl_tpu_torch.engine.evaluator",
+                 "creamfl_tpu_torch.engine.graphs",
+                 "creamfl_tpu_torch.data.native"):
         assert name in result["imported"], name
     bad = [m for m in result["loaded"] if _is_forbidden(m)]
     assert not bad, bad
+
+
+def test_port_reads_nothing_under_native():
+    """The native tokenizer is the port's own: its source is under
+    ``creamfl_tpu_torch/csrc/`` and its library under the package's
+    ``_build/``; no file of the port or ``chip_smoke.py`` names the JAX
+    package's ``native/`` directory or its library."""
+    from pathlib import Path
+
+    from creamfl_tpu_torch.data import native
+    from creamfl_tpu_torch.ops import build
+
+    pkg = Path(REPO, "creamfl_tpu_torch")
+    assert native.SOURCE.parent == pkg / "csrc" == build.CSRC
+    assert build.BUILD_ROOT.parent == pkg
+    files = [Path(REPO, "chip_smoke.py")] + [
+        f for ext in ("*.py", "*.cpp", "*.cu", "*.cuh")
+        for f in pkg.rglob(ext)]
+    for path in files:
+        text = path.read_text()
+        for needle in ("native/", '"native"', "'native'",
+                       "libcreamfl_native", "creamfl_native.cpp"):
+            assert needle not in text, (path, needle)
 
 
 def test_forbidden_name_check():

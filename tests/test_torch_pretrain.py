@@ -14,7 +14,19 @@ rounding may step the other way in one framework; here the total loss
 after one update read 2.2e-4 apart); the parameters after training held
 through their update, per tensor within 0.1 in relative Frobenius norm of
 the JAX package's. The GRU branch has no dropout. The validation recalls within one rank step (100 / number of
-queries). Then the checkpoints: both written, restorable into a fresh
+queries).
+
+The positive/negative split of the loss after an update is held under SGD
+(``test_loss_split_under_sgd``): with AdamP the split at step 2 read 1.1 %
+apart, against the port's own 4e-4 under a 1e-7 perturbation of its
+start; with SGD in both packages (lr 0.05, the same model-only clip) every
+term of every step agrees within 4e-4 (read: at most 1.2e-4). So the gap
+under AdamP comes from AdamP's +-lr sign steps on entries whose gradient
+is zero up to rounding, not from MCSoft's forward or backward. The same
+test holds ``shift`` and ``negative_scale`` in the loss dict: the values
+the loss used, taken before the update, as the JAX package reports them
+(SGD moves them by O(1), where AdamP's 2e-4 hid a dict that read them
+after the update). Then the checkpoints: both written, restorable into a fresh
 state, step counts equal. Last, the port's trainer over a public loader
 whose images are synthesized on the device (``DeviceImageBatches``).
 """
@@ -23,6 +35,7 @@ import os
 
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -194,6 +207,46 @@ def test_raw_trainer_checkpoints_restore(trained):
                                    rtol=0, atol=0)
     meta = torch.load(tmp / "best.pth", weights_only=True)["metadata"]
     assert meta["best_epoch"] in (1, 2) and meta["best_score"] > 0
+
+
+SGD_LR, SPREAD = 0.05, 4e-4
+SPLIT = ("loss", "i2t_pos_loss", "i2t_neg_loss", "t2i_pos_loss",
+         "t2i_neg_loss", "shift", "negative_scale")
+
+
+def test_loss_split_under_sgd():
+    """Three train steps of both engines with SGD in place of AdamP (the
+    model-only clip kept): every loss term within the port's own spread."""
+    jengine, jstate, jds, _ = _jax_side()
+    start = _start_weights(jstate)
+
+    def model_only(params):
+        return {k: jax.tree.map(lambda _: k == "model", v)
+                for k, v in params.items()}
+
+    jengine.tx = optax.chain(
+        optax.masked(optax.clip_by_global_norm(2.0), model_only),
+        optax.sgd(SGD_LR))
+    jstate = jstate.replace(opt_state=jengine.tx.init(jstate.params))
+    ds = SyntheticCaptionDataset(n_captions=16, image_size=32, max_len=8)
+    engine, state = _port_engine(start, len(ds.vocab))
+    state.optimizer = torch.optim.SGD(
+        [*state.model.parameters(), *state.criterion.parameters()],
+        lr=SGD_LR)
+    jbatches = list(JArrayLoader(jds, batch_size=8, drop_last=True,
+                                 shuffle=True))
+    batches = list(ArrayLoader(ds, batch_size=8, drop_last=True,
+                               shuffle=True))
+    for i in range(3):
+        jb, b = jbatches[i % 2], batches[i % 2]
+        jstate, want = jengine.train_step(
+            jstate, jb["images"], jb["captions"], jb["lengths"], None,
+            jax.random.PRNGKey(0))
+        state, got = engine.train_step(state, b["images"], b["captions"],
+                                       b["lengths"])
+        for key in SPLIT:
+            np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                       rtol=SPREAD, err_msg=f"step {i} {key}")
 
 
 def test_raw_trainer_requires_val_key(trained):

@@ -4,10 +4,11 @@
   with the arguments of ``tests/test_real_data.py``; for every loader,
   batch by batch over two epochs, every field is equal, images included:
   the port decodes with PIL on the CPU (the same pixels as the JAX
-  package's) and transforms in torch, bit for bit (tolerance: none). The
-  JAX side runs its Python tokenizer (``native.available`` patched to
-  False): its optional native library draws caption drops from another
-  stream, and the port follows the Python path.
+  package's) and transforms in torch, bit for bit (tolerance: none). Both
+  sides run their Python tokenizers: the JAX side with
+  ``native.available`` patched to False, the port's COCO readers with
+  ``native=False`` (``tests/test_torch_native.py`` holds the two native
+  tokenizers and the bundle with both on).
 * **Frozen artifacts.** The port's copies are byte-equal to the JAX
   package's (sha256); the frozen loaders give the same arrays, the same
   regenerated subset and the same refusal at paper scale; partitions
@@ -19,6 +20,7 @@
   roots reaches its scores on a real (not synthetic) bundle.
 """
 
+import functools
 import hashlib
 import os
 import pickle
@@ -35,7 +37,7 @@ from creamfl_tpu.data import partition as jpartition
 from creamfl_tpu.data.flickr30k import F30kCaptionsCap as JF30k
 from creamfl_tpu.data.pipelines import build_real_datasets as j_build
 from creamfl_tpu.data.vocab import Vocabulary as JVocabulary
-from creamfl_tpu_torch.data import frozen, partition
+from creamfl_tpu_torch.data import coco, frozen, partition
 from creamfl_tpu_torch.data.flickr30k import F30kCaptionsCap
 from creamfl_tpu_torch.data.pipelines import build_real_datasets
 from creamfl_tpu_torch.data.vocab import Vocabulary
@@ -88,6 +90,8 @@ def _partition_dir(tmp):
 def bundles(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(coco, "CocoCaptionsCap",
+                   functools.partial(coco.CocoCaptionsCap, native=False))
         jtmp = tmp_path_factory.mktemp("jax")
         ttmp = tmp_path_factory.mktemp("port")
         jax_ds = j_build(_args(jtmp), None,
