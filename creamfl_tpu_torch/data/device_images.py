@@ -91,6 +91,9 @@ class DeviceImages:
     def set_round(self, round_n: int) -> None:
         self.base.set_round(round_n)
 
+    def skip_epoch(self) -> None:
+        self.base.skip_epoch()
+
     def __len__(self) -> int:
         return len(self.base)
 

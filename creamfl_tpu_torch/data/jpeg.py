@@ -20,11 +20,16 @@ space is the one libjpeg-turbo reads from the markers
 marker with transform 0, or the component ids R, G, B without JFIF or
 Adobe markers); CMYK and YCCK (4 components; PIL reads them as
 Adobe-inverted CMYK, and YCCK is turned into CMYK as libjpeg does first).
-Each component is upsampled from its own sampling factors. A file that the
-decoder cannot read (not a JPEG, 2 components, fractional sampling, a size
-that differs from its header's) raises an error that names it.
-``decode_batch.images_by_route`` counts the images decoded by ``"nvjpeg"``
-and by ``"pil"``.
+Each component is upsampled from its own sampling factors.
+
+A file is read by its magic bytes, whatever its name: a PNG or a GIF (as
+the JAX package's PIL reads them under a ``.jpg`` name) is decoded on the
+host by ``data/png_gif.py``, on either device, and lands in its slot like a
+JPEG; a JPEG never takes that path. A file that no reader can read (none of
+JPEG, PNG or GIF, 2 JPEG components, fractional sampling, a size that
+differs from its header's) raises an error that names it.
+``decode_batch.images_by_route`` counts the images decoded by ``"nvjpeg"``,
+by ``"pil"`` and by ``"png_gif"`` (PNG and GIF, on the host).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from creamfl_tpu_torch.data import png_gif
 from creamfl_tpu_torch.ops import build as builder
 
 SOURCE = builder.CSRC / "jpeg.cu"
@@ -124,16 +130,28 @@ def jpeg_info(data: bytes, name: str = "<bytes>") -> JpegInfo:
     raise JpegError(f"{name}: no frame header (SOF) found")
 
 
+def image_size(data: bytes, name: str = "<bytes>") -> Tuple[int, int]:
+    """(width, height) of a JPEG, PNG or GIF file's bytes, from its
+    header."""
+    kind = png_gif.image_format(data)
+    if kind in ("png", "gif"):
+        return png_gif.size(data, name)
+    if kind is None:
+        raise JpegError(f"{name}: not a JPEG, PNG or GIF file")
+    return jpeg_size(data, name)
+
+
 def read_size(path: str) -> Tuple[int, int]:
-    """(width, height) of a JPEG file, reading its header only."""
+    """(width, height) of a JPEG, PNG or GIF file, reading its header
+    only."""
     with open(path, "rb") as f:
         head = f.read(HEADER_BYTES)
         try:
-            return jpeg_size(head, path)
+            return image_size(head, path)
         except JpegError:
             if len(head) < HEADER_BYTES:
                 raise
-            return jpeg_size(head + f.read(), path)
+            return image_size(head + f.read(), path)
 
 
 # ---------------------------------------------------------------------------
@@ -247,9 +265,16 @@ def decode_batch(datas: Sequence[bytes], device,
 
 def _decode(datas, device: torch.device, names):
     """``decode_batch``, plus, on the card, (planes, meta): nvJPEG's
-    planes and their metadata (``_META``), for ``plain_rgb``."""
+    planes and their metadata (``_META``), for ``plain_rgb``, of the
+    batch's JPEG files."""
     names = list(names) if names is not None else [
         f"<image {i}>" for i in range(len(datas))]
+    kinds = [png_gif.image_format(d) for d in datas]
+    for kind, name in zip(kinds, names):
+        if kind is None:
+            raise JpegError(f"{name}: not a JPEG, PNG or GIF file")
+    if any(kind != "jpeg" for kind in kinds):
+        return _decode_mixed(datas, device, names, kinds)
     infos = [jpeg_info(d, nm) for d, nm in zip(datas, names)]
     meta = np.asarray([_plane_meta(i, nm) for i, nm in zip(infos, names)],
                       np.int64).reshape(-1, len(_META))
@@ -273,8 +298,34 @@ def _decode(datas, device: torch.device, names):
     return out, sizes, None
 
 
+def _decode_mixed(datas, device: torch.device, names, kinds):
+    """``_decode`` of a batch that holds PNG or GIF files: those decoded on
+    the host (``png_gif``) and copied into their slots, the JPEG files
+    decoded together as a batch of their own and copied into theirs."""
+    images = {b: png_gif.decode(d, nm) for b, (d, nm, kind)
+              in enumerate(zip(datas, names, kinds)) if kind != "jpeg"}
+    jpegs = [b for b, kind in enumerate(kinds) if kind == "jpeg"]
+    sizes = np.zeros((len(datas), 2), np.int64)
+    for b, img in images.items():
+        sizes[b] = img.shape[1], img.shape[0]
+    planes = None
+    if jpegs:
+        sub, sizes[jpegs], planes = _decode(
+            [datas[b] for b in jpegs], device, [names[b] for b in jpegs])
+    out = torch.zeros((len(datas), int(sizes[:, 1].max()),
+                       int(sizes[:, 0].max()), 3), dtype=torch.uint8,
+                      device=device)
+    if jpegs:
+        out[jpegs, :sub.shape[1], :sub.shape[2]] = sub
+    for b, img in images.items():
+        out[b, :img.shape[0], :img.shape[1]] = torch.from_numpy(img).to(
+            device)
+    decode_batch.images_by_route["png_gif"] += len(images)
+    return out, sizes, planes
+
+
 # Images decoded on each route, and launches of the colour kernel.
-decode_batch.images_by_route = {"nvjpeg": 0, "pil": 0}
+decode_batch.images_by_route = {"nvjpeg": 0, "pil": 0, "png_gif": 0}
 decode_batch.launches = 0
 
 

@@ -122,6 +122,14 @@ class ArrayLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
+    def skip_epoch(self) -> None:
+        """Advance the epoch stream as one full iteration would, without
+        making a batch: a rank of a mesh that runs none of a family's
+        members keeps its loaders where the others' are."""
+        self._next_epoch_id()
+        if self.shuffle and self._round is None:
+            self.rng.shuffle(list(range(len(self.dataset))))
+
     def _stack(self, samples: List[dict], n_valid: int) -> Dict[str, Any]:
         return stack_samples(samples, n_valid)
 
@@ -222,6 +230,9 @@ class PrefetchLoader:
     def set_round(self, round_n: int) -> None:
         self.loader.set_round(round_n)
 
+    def skip_epoch(self) -> None:
+        self.loader.skip_epoch()
+
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         sentinel = object()
@@ -296,6 +307,9 @@ class ProjectedLoader:
 
     def __len__(self):
         return len(self.loader)
+
+    def skip_epoch(self) -> None:
+        self.loader.skip_epoch()
 
     def __iter__(self):
         from creamfl_tpu_torch.data.device_images import DeviceImages

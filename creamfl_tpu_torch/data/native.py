@@ -1,5 +1,8 @@
 """The native caption tokenizer (``csrc/native.cpp``), bound with ctypes.
 
+The same library holds the PNG and GIF pixel work of ``data/png_gif.py``
+(``png_decode``, ``gif_decode``), bound here too.
+
 Port of the JAX package's ``data/native.py``, its tokenizer part. The JAX
 package's COCO reader tokenizes through its native library whenever that
 library is built, and the library draws caption drops from a
@@ -42,6 +45,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
         ctypes.c_int32, ctypes.c_float, ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.png_decode.restype = i
+    lib.png_decode.argtypes = [p, i64, i64, i64, i, i, i, p, i, p]
+    lib.gif_decode.restype = i
+    lib.gif_decode.argtypes = [p, i64, i, i64, i64, i64, i64, i64, i64, i,
+                               p, i, i, p]
     return lib
 
 

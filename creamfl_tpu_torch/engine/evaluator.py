@@ -1,7 +1,7 @@
 """Cross-modal retrieval evaluator (reference `src/algorithms/eval_coco.py`).
 
-Port of the JAX package's ``engine/evaluator.py`` (``RetrievalEvaluator``)
-on one device. Metric contract: R@1/5/10, medr and meanr for i2t and t2i,
+Port of the JAX package's ``engine/evaluator.py`` (``RetrievalEvaluator``).
+Metric contract: R@1/5/10, medr and meanr for i2t and t2i,
 on n-fold crossfolds plus the full gallery; rsum = R@1 + R@5 + R@10 per
 direction.
 
@@ -13,8 +13,12 @@ Feature extraction keeps the reference's semantics: images deduped by
 image_id in first-seen order, captions grouped by their image's position
 (eval_coco.py:119-223), in chunks of batches where the caller gives a
 chunk step. ``retrieve`` lists the top-k gallery items per query;
-``evaluate_two_tower`` scores separate image and caption models. The
-multi-device (sharded) ranking is not ported.
+``evaluate_two_tower`` scores separate image and caption models.
+
+On a mesh of ranks (``mesh``) the ranking shards its query rows over the
+ranks, the gallery whole on every rank, and gathers the ranks in order
+(``best_positive_ranks_sharded``); the caller's extraction gives every rank
+the whole batch's features, so dedup and grouping see one order.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from creamfl_tpu_torch.losses.mcsoft import match_prob
+from creamfl_tpu_torch.parallel import mesh as M
 
 # Batches per ``extract_chunk_fn`` call (the JAX package's chunk of 8).
 EXTRACT_CHUNK = 8
@@ -62,6 +67,34 @@ def best_positive_ranks(q_features: torch.Tensor, g_features: torch.Tensor,
     return torch.cat(ranks)
 
 
+@torch.no_grad()
+def best_positive_ranks_sharded(q_features: torch.Tensor,
+                                g_features: torch.Tensor,
+                                q_labels: torch.Tensor,
+                                g_labels: torch.Tensor, mesh,
+                                block_size: int = 1024,
+                                sims_fn: Optional[Callable] = None
+                                ) -> torch.Tensor:
+    """``best_positive_ranks`` with the query rows split over the mesh's
+    ranks in contiguous blocks of ceil(n / world) (the last ones shorter or
+    empty), the gallery whole on every rank, and the ranks gathered in rank
+    order onto every rank. A query's rank depends on its own row alone, so
+    the split changes no result; the JAX function's padding to world x
+    block_size would change none either and is left out."""
+    if not M.active(mesh):
+        return best_positive_ranks(q_features, g_features, q_labels,
+                                   g_labels, block_size, sims_fn)
+    n = q_features.shape[0]
+    per = -(-n // mesh.world)
+    lo, hi = min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
+    ranks = (best_positive_ranks(q_features[lo:hi], g_features,
+                                 q_labels[lo:hi], g_labels, block_size,
+                                 sims_fn) if hi > lo
+             else torch.zeros(0, dtype=torch.long,
+                              device=q_features.device))
+    return M.gather_ragged(mesh, ranks)
+
+
 def _recall_scores(ranks: np.ndarray) -> Dict[str, float]:
     if len(ranks) == 0:
         raise ValueError("empty eval set: no valid query features "
@@ -91,8 +124,11 @@ class RetrievalEvaluator:
                  eval_method: str = "matmul",
                  criterion_params: Optional[Dict[str, torch.Tensor]] = None,
                  iid_to_cls=None,
+                 mesh=None,
                  logger=None):
         self.n_crossfolds = n_crossfolds
+        # The ranks the ranking's query rows split over (None: one).
+        self.mesh = mesh
         self.n_images_per_crossfold = n_images_per_crossfold
         self.n_captions_per_crossfold = n_captions_per_crossfold
         self.eval_batch_size = eval_batch_size
@@ -217,10 +253,10 @@ class RetrievalEvaluator:
         g_features = torch.as_tensor(g_features)
         dev = q_features.device
         block = min(self.eval_batch_size, max(1, len(q_features)))
-        ranks = best_positive_ranks(
+        ranks = best_positive_ranks_sharded(
             q_features, g_features.to(dev),
             torch.as_tensor(np.asarray(q_labels), device=dev),
-            torch.as_tensor(np.asarray(g_labels), device=dev),
+            torch.as_tensor(np.asarray(g_labels), device=dev), self.mesh,
             block_size=block, sims_fn=self._sims_fn)
         return _recall_scores(ranks.cpu().numpy())
 

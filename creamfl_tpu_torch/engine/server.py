@@ -21,6 +21,18 @@ Port of the JAX package's ``engine/server.py`` (reference
   local files; ``save_models`` / ``load_models``: the engine bundle that
   ``engine.pretrain.RawTrainer`` writes.
 
+On a mesh of ranks (``mesh``; ``parallel/mesh.py``) each step is the step
+on the whole batch, as XLA partitions the JAX package's: each rank runs its
+rows (``shard_rows``) with BatchNorm's statistics over all of them, the
+features are gathered in rank order, so that the MCSoft loss pairs every
+image with every caption of the batch and the distill MSE is the mean over
+the whole batch, and the model's gradients are summed over the ranks
+before ``clip_grad_global_norm`` (the criterion's are whole on every rank
+already). A batch whose rows do not divide by the ranks runs whole on
+every rank, BatchNorm on its own rows, and its gradients are rank 0's
+(broadcast, so that no rank's update differs by a nondeterministic
+kernel). The chunks run eagerly there, per batch.
+
 bf16 as in the JAX package: trunk and BERT compute in bf16 (autocast inside
 the encoders), params, heads and the criterion in fp32. The fused trunk is
 reached through the model's own field: replace ``self.model`` by
@@ -31,6 +43,7 @@ unused one, as in the JAX package's optax update.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -43,10 +56,12 @@ from creamfl_tpu_torch.losses.mcsoft import (MCSoftContrastiveConfig,
 from creamfl_tpu_torch.models import convert
 from creamfl_tpu_torch.models.bert import BertConfig
 from creamfl_tpu_torch.models.pcme import PCME, init_pcme
+from creamfl_tpu_torch.models.resnet import set_batchnorm_mesh
 from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
                                              cosine_annealing_schedule,
                                              make_server_optimizer,
                                              set_learning_rate)
+from creamfl_tpu_torch.parallel import mesh as M
 from creamfl_tpu_torch.utils.device import resolve_device
 from creamfl_tpu_torch.utils.helper import save_checkpoint
 from creamfl_tpu_torch.utils.serialize import flatten_dict
@@ -57,7 +72,10 @@ StateDict = Dict[str, torch.Tensor]
 class ServerEngine:
     def __init__(self, config, vocab_size: int, mlp_local: bool = False,
                  bert_config: Optional[BertConfig] = None,
-                 use_bf16: Optional[bool] = None, device="cuda"):
+                 use_bf16: Optional[bool] = None, device="cuda",
+                 mesh: Optional[M.Mesh] = None):
+        """``mesh``: the ranks that share each batch (None or world 1: this
+        process alone)."""
         model_cfg = config.model
         if use_bf16 is None:
             use_bf16 = bool(config.train.get("use_bf16", False))
@@ -90,6 +108,7 @@ class ServerEngine:
                                                      self.t_max)
         self.kd_weight = 0.3  # overridden by federation from CLI args
         self.graphs = GraphCache(self.device)
+        self.mesh = mesh if M.active(mesh) else None
 
     # -- state ---------------------------------------------------------
     def init_state(self, seed: int = 0,
@@ -106,6 +125,7 @@ class ServerEngine:
                 module.load_state_dict({k[len(prefix):]: v
                                         for k, v in state_dict.items()
                                         if k.startswith(prefix)})
+        set_batchnorm_mesh(model, self.mesh)
         model.to(self.device)
         criterion.to(self.device)
         if self.device.type == "cuda":
@@ -215,15 +235,52 @@ class ServerEngine:
                 None if bert_mask is None else torch.as_tensor(bert_mask,
                                                                device=dev))
 
-    def _update(self, state: EngineState) -> None:
+    def _update(self, state: EngineState, n_rows: int) -> None:
         """Clip the model's gradients, then AdamP over model and
-        criterion; an unused parameter gets a zero gradient."""
+        criterion; an unused parameter gets a zero gradient. On a mesh the
+        model's gradients of a batch of ``n_rows`` split over the ranks are
+        summed over them first; those of a batch run whole on every rank
+        are rank 0's."""
         for group in state.optimizer.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        if M.sharded(self.mesh, n_rows):
+            M.all_reduce_grads(self.mesh, state.model.parameters())
+        elif self.mesh is not None:
+            M.broadcast_tensors(self.mesh, [
+                p.grad for g in state.optimizer.param_groups
+                for p in g["params"]], src=0)
         clip_grad_global_norm(state.model.parameters(), self.grad_clip)
         state.optimizer.step()
+
+    def _forward(self, state: EngineState, images, captions, lengths,
+                 bert_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(image features, caption features) of the whole batch: on a mesh
+        this rank's rows through the model, then every rank's gathered in
+        rank order (a batch that does not split runs whole, BatchNorm on
+        this rank's rows alone)."""
+        n = images.shape[0]
+        if not M.sharded(self.mesh, n):
+            with self._local_batchnorm():
+                out = state.model(images, captions, lengths, bert_mask)
+            return out["image_features"], out["caption_features"]
+        rows = M.shard_rows(self.mesh, n)
+        with M.batch_rows(n, rows):
+            out = state.model(images[rows], captions[rows], lengths[rows],
+                              None if bert_mask is None else bert_mask[rows])
+        return (M.all_gather_rows(self.mesh, out["image_features"]),
+                M.all_gather_rows(self.mesh, out["caption_features"]))
+
+    @contextlib.contextmanager
+    def _local_batchnorm(self):
+        """BatchNorm on this rank's rows alone while open (a batch run whole
+        on every rank)."""
+        set_batchnorm_mesh(self.model, None)
+        try:
+            yield
+        finally:
+            set_batchnorm_mesh(self.model, self.mesh)
 
     def _train(self, state: EngineState, images, captions, lengths,
                bert_mask) -> Dict[str, torch.Tensor]:
@@ -232,20 +289,19 @@ class ServerEngine:
         loss used, as in the JAX package)."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = state.model(images, captions, lengths, bert_mask)
-        loss, ldict = state.criterion(out["image_features"],
-                                      out["caption_features"])
+        img_f, txt_f = self._forward(state, images, captions, lengths,
+                                     bert_mask)
+        loss, ldict = state.criterion(img_f, txt_f)
         loss.backward()
         ldict = {k: v.detach().clone() for k, v in ldict.items()}
-        self._update(state)
+        self._update(state, images.shape[0])
         return ldict
 
     @torch.no_grad()
     def _features(self, state: EngineState, train: bool, images, captions,
                   lengths, bert_mask) -> Tuple[torch.Tensor, torch.Tensor]:
         state.model.train(train)
-        out = state.model(images, captions, lengths, bert_mask)
-        return out["image_features"], out["caption_features"]
+        return self._forward(state, images, captions, lengths, bert_mask)
 
     def _distill(self, state: EngineState, images, captions, lengths,
                  bert_mask, aggregated: Dict[str, torch.Tensor],
@@ -253,9 +309,9 @@ class ServerEngine:
                  use_mm: bool, kd_weight: float) -> torch.Tensor:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = state.model(images, captions, lengths, bert_mask)
-        img_f = out["image_features"].float()
-        txt_f = out["caption_features"].float()
+        img_f, txt_f = self._forward(state, images, captions, lengths,
+                                     bert_mask)
+        img_f, txt_f = img_f.float(), txt_f.float()
         t_img = (aggregated["img"].index_select(0, rows)
                  if use_img or use_mm else None)
         t_txt = (aggregated["txt"].index_select(0, rows)
@@ -272,7 +328,7 @@ class ServerEngine:
             loss = loss + kd_weight * torch.mean(torch.square(pred - target))
         if terms:
             loss.backward()
-        self._update(state)
+        self._update(state, images.shape[0])
         return loss.detach()
 
     def train_step(self, state: EngineState, images, captions, lengths,
@@ -320,9 +376,10 @@ class ServerEngine:
     # graph cannot) they run eagerly ("eager").
     @property
     def chunk_route(self) -> str:
-        """"graph" on the card with the BERT text branch, else "eager":
-        fixed by the configuration, never by a failed capture."""
-        if self.device.type == "cuda" and not self.model.not_bert:
+        """"graph" on the card with the BERT text branch off a mesh, else
+        "eager": fixed by the configuration, never by a failed capture."""
+        if (self.device.type == "cuda" and not self.model.not_bert
+                and self.mesh is None):
             return "graph"
         return "eager"
 

@@ -1,7 +1,8 @@
 """Federated orchestration: the CreamFL round loop.
 
 Port of the JAX package's ``federation/rounds.py`` (``MMFL``; reference
-`src/algorithms/MMFL.py`) on one device. Per round (``MMFL.train``):
+`src/algorithms/MMFL.py`), on one card or on a mesh of ranks. Per round
+(``MMFL.train``):
 
   1. the server trains one epoch on the public set;
   2. global image/text features are extracted over the public eval loader
@@ -33,8 +34,22 @@ a resumed run continues a straight one. Weights are drawn from
 branches. ``--resnet_ckpt``, ``--bert_ckpt`` and ``--glove_path`` load the
 server's pretrained weights from local files, ``--client_resnet_ckpt`` and
 ``--glove_path`` the clients' (a client trunk whose shapes differ from the
-file's is logged and skipped, as in the JAX package). Not ported yet, and
-refused rather than ignored: a multi-GPU mesh (ROADMAP queue 1).
+file's is logged and skipped, as in the JAX package).
+
+On a mesh (``parallel/mesh.py``: one process per card, every rank running
+this program with the same seeds, loaders and sampled clients; the JAX
+package's ``use_mesh``, engaged whenever the process group has more than
+one rank and ``--no_mesh`` is off): the server's phases are data-parallel,
+each batch's rows split over the ranks (``engine/server.py``), per batch
+(no chunk graphs, as the JAX round keeps per-batch programs on its mesh);
+global features and eval features are gathered per batch, so every rank
+holds them whole; each family's members are split over the ranks
+(``client_slots``; on the sequential branch client k of the sampled list
+goes to rank k mod world), a rank trains its own and every member's state
+is then broadcast from its owner; the uploads stay where they were made
+and con_w runs over the client axis (``federation/aggregation.py``); the
+ranking shards its queries (``engine/evaluator.py``). Only rank 0 logs
+and writes files; every rank restores from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ from creamfl_tpu_torch.engine.evaluator import RetrievalEvaluator
 from creamfl_tpu_torch.engine.server import ServerEngine
 from creamfl_tpu_torch.federation import stacked
 from creamfl_tpu_torch.federation.aggregation import aggregate_modalities
+from creamfl_tpu_torch.parallel import mesh as M
 from creamfl_tpu_torch.utils.checkpoint import RoundCheckpointer
 from creamfl_tpu_torch.utils.device import resolve_device
 from creamfl_tpu_torch.utils.helper import save_checkpoint
@@ -80,7 +96,7 @@ class ClientHandle:
 class MMFL:
     def __init__(self, args, datasets: Dict, server_config, mm_config=None,
                  tracker=None, logger=None, bert_config=None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[M.Mesh] = None):
         """datasets: the bundle of ``data.pipelines.build_synthetic_datasets``
         or ``build_real_datasets`` (pub_train / pub_eval / test loaders,
         per-family client loader lists, img/txt test loaders, vocab, class
@@ -88,25 +104,34 @@ class MMFL:
         device (``DeviceImages``, ``DeviceImageBatches``) and are used
         there.
         ``device``: where everything runs; CUDA unless the caller asks for
-        the CPU."""
+        the CPU. ``mesh``: the ranks this run spans; by default the
+        initialized process group's (``parallel/mesh.py:make_mesh``)
+        unless ``--no_mesh``. A mesh of one rank is no mesh."""
         self.device = resolve_device(device)
-        n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
-        n_mesh = min(n_dev, getattr(args, "mesh_devices", 0) or n_dev)
-        if n_mesh > 1 and getattr(args, "use_mesh", True):
-            raise NotImplementedError(
-                f"a mesh of {n_mesh} devices is not ported yet (ROADMAP "
-                "queue 1, multi-GPU); pass --no_mesh or --mesh_devices 1")
+        if mesh is None and getattr(args, "use_mesh", True):
+            mesh = M.make_mesh(self.device)
+        self.mesh = mesh if M.active(mesh) else None
         self.args = args
         self.datasets = datasets
         self.logger = logger or PythonLogger()
         self.tracker = tracker or NoOpTracker()
+        if self.mesh is not None:
+            self.logger.log(f"mesh: {self.mesh.world} ranks "
+                            f"({self.mesh.backend})")
+        elif (self.device.type == "cuda" and torch.cuda.device_count() > 1
+                and getattr(args, "use_mesh", True)):
+            self.logger.log(f"{torch.cuda.device_count()} cards visible; "
+                            f"this process runs on {self.device} alone "
+                            "(main.run starts one process per card)")
+
+        if self.mesh is not None:
+            self._check_same_data()
 
         vocab_size = len(datasets["vocab"])
         self.server = ServerEngine(server_config, vocab_size,
                                    mlp_local=args.mlp_local,
                                    bert_config=bert_config,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self.server.kd_weight = args.kd_weight
         self.evaluator = RetrievalEvaluator(
             n_crossfolds=datasets.get("n_crossfolds", 5),
@@ -114,7 +139,7 @@ class MMFL:
                                                 1000),
             n_captions_per_crossfold=datasets.get(
                 "n_captions_per_crossfold", 5000),
-            logger=self.logger)
+            mesh=self.mesh, logger=self.logger)
 
         self.clients: List[ClientHandle] = []
         self._build_clients(mm_config, vocab_size)
@@ -144,6 +169,24 @@ class MMFL:
         self.checkpointer = (RoundCheckpointer(ckpt_dir,
                                                map_location=self.device)
                              if ckpt_dir else None)
+
+    def _check_same_data(self) -> None:
+        """The ranks must read the same data: rank 0's digest of the first
+        public batch's text fields against this rank's. (The synthetic BERT
+        ids hash words with ``hash()``: the ranks need one
+        ``PYTHONHASHSEED``.)"""
+        import hashlib
+
+        fields = ("captions", "bert_ids", "index")
+        batch = next(iter(ProjectedLoader(self.datasets["pub_train"],
+                                          fields)))
+        digest = hashlib.sha256(b"".join(
+            np.ascontiguousarray(np.asarray(batch[k])).tobytes()
+            for k in fields if k in batch)).hexdigest()
+        if M.broadcast_object(self.mesh, digest, 0) != digest:
+            raise ValueError(
+                f"rank {self.mesh.rank} reads other public batches than "
+                "rank 0 (another PYTHONHASHSEED or other data roots?)")
 
     def _init_seed(self, k: int) -> int:
         """Weight seed of the server (k = 0) and of client k (its global
@@ -268,12 +311,14 @@ class MMFL:
         reference extracts in train() mode, MMFL.py:189-218), in chunks of
         ``SERVER_SCAN_CHUNK`` batches (``ServerEngine.extract_chunk``, a
         CUDA graph replay on the card); a ragged last batch takes the
-        per-batch step. The loader keeps that batch and pads nothing, so
-        the valid rows are a prefix of the concatenation."""
+        per-batch step, and so does every batch on a mesh (each rank its
+        rows, the features gathered). The loader keeps that batch and pads
+        nothing, so the valid rows are a prefix of the concatenation."""
         img_parts, txt_parts, index_parts = [], [], []
         n_valid = 0
+        chunk = 1 if self.mesh is not None else SERVER_SCAN_CHUNK
         for group in stacked._chunks(iter(self.datasets["pub_eval"]),
-                                     SERVER_SCAN_CHUNK):
+                                     chunk):
             if len(group) == 1 or not stacked._uniform_batches(group):
                 feats = [self.server.extract_step(
                     self.server_state, *self._server_inputs(batch))
@@ -320,21 +365,35 @@ class MMFL:
 
     # -- client execution ---------------------------------------------
     def _run_group(self, kind: str, members: List[ClientHandle],
-                   round_n: int, img_vecs: List, txt_vecs: List) -> None:
+                   round_n: int, img_vecs: List, txt_vecs: List,
+                   owners: Optional[List[int]] = None) -> None:
         """One family's local training and uploads (the JAX package's
         ``_run_group``): per local epoch each member's task epoch, then one
         contrast epoch of the whole family; the local test (img/txt) before
         the reps sweep, which advances BN running stats that the test must
-        not see; reps appended in member order."""
+        not see; reps appended in member order.
+
+        On a mesh, ``owners`` (default ``client_slots``) gives each
+        member's rank: a rank runs its own members, then every member's
+        state is broadcast from its owner; a member's reps stay on its
+        owner (None in the others' lists)."""
         args = self.args
         engine = members[0].engine
+        owners = owners or M.client_slots(self.mesh, len(members))
+        rank = self.mesh.rank if self.mesh is not None else 0
+        mine = [c for c, o in zip(members, owners) if o == rank]
         policy = getattr(args, "stack_bucket", "even")
         pad = stacked.stack_pad(len(members), policy)
-        if pad:
+        if self.mesh is not None:
+            pad = (-len(members)) % self.mesh.world
+            self.logger.log(
+                f"{kind} family: client axis {len(members)}+{pad} pad slots "
+                f"over {self.mesh.world} ranks, owners {owners}")
+        elif pad:
             self.logger.log(
                 f"{kind} family: client axis {len(members)}+{pad} pad slots "
                 f"(stack bucket {policy}); the port runs no pad slot")
-        old_models = [engine.snapshot(c.state) for c in members]
+        old_models = [engine.snapshot(c.state) for c in mine]
         for c in members:
             engine.set_round_lr(c.state, round_n)
         do_inter = args.contrast_local_inter
@@ -344,35 +403,68 @@ class MMFL:
                     "txt": {"same": txt, "other": img},
                     "mm": {"img": img, "txt": txt}}[kind]
         for _ in range(args.local_epochs):
-            stacked.task_epoch(engine, members, mm=kind == "mm")
+            stacked.task_epoch(engine, mine, mm=kind == "mm")
             if do_inter or do_intra:
                 stacked.contrast_epoch(
-                    engine, members, old_models, self._pub("pub_train", kind),
+                    engine, mine, old_models, self._pub("pub_train", kind),
                     globals_, self._batch_rows, do_inter, do_intra)
         if kind == "mm":
-            img, txt = stacked.mm_reps(engine, members,
+            img, txt = stacked.mm_reps(engine, mine,
                                        self._pub("pub_eval", "mm"))
-            img_vecs.extend(img)
-            txt_vecs.extend(txt)
+            self._share_members(members, owners)
+            img_vecs.extend(self._slots(owners, img))
+            txt_vecs.extend(self._slots(owners, txt))
             return
-        self._local_test(kind, members)
-        reps, order = stacked.uni_reps(engine, members,
+        self._local_test(kind, members, owners)
+        reps, order = stacked.uni_reps(engine, mine,
                                        self._pub("pub_eval", kind))
-        assert np.array_equal(order, self.distill_index), \
+        assert order is None or np.array_equal(order, self.distill_index), \
             "public-set iteration order changed between phases"
-        (img_vecs if kind == "img" else txt_vecs).extend(reps)
+        self._share_members(members, owners)
+        (img_vecs if kind == "img" else txt_vecs).extend(
+            self._slots(owners, reps))
 
-    def _local_test(self, kind: str, members: List[ClientHandle]) -> None:
+    def _slots(self, owners: List[int], own_values) -> List:
+        """Per member, this rank's value for it (``own_values`` in member
+        order over this rank's members), or None where another rank owns
+        it."""
+        rank = self.mesh.rank if self.mesh is not None else 0
+        values = iter(own_values)
+        return [next(values) if o == rank else None for o in owners]
+
+    def _share_members(self, members: List[ClientHandle],
+                       owners: List[int]) -> None:
+        """Every member's state (model, optimizer, step) from its owner to
+        every rank."""
+        if self.mesh is None:
+            return
+        for client, owner in zip(members, owners):
+            M.broadcast_state(self.mesh, client.state, owner)
+
+    def _local_test(self, kind: str, members: List[ClientHandle],
+                    owners: List[int]) -> None:
         """Top-1/top-k on the family's local test set: counts stay on the
-        device, one fetch per client."""
+        device, one fetch for the family. On a mesh each member's owner
+        tests it (another rank advances the test loader as that pass
+        would), and the counts are summed over the ranks for rank 0's
+        log."""
         test_loader = self.datasets.get(f"{kind}_test")
         if test_loader is None:
             return
-        for client in members:
-            counts = torch.stack([
-                torch.stack(client.engine.test_step(client.state, batch))
-                for batch in test_loader]).sum(0).tolist()
-            c1, ck, n = counts
+        rank = self.mesh.rank if self.mesh is not None else 0
+        counts = torch.zeros((len(members), 3), dtype=torch.float64,
+                             device=self.device)
+        for i, (client, owner) in enumerate(zip(members, owners)):
+            if owner != rank:
+                test_loader.skip_epoch()
+                continue
+            parts = [torch.stack(client.engine.test_step(client.state,
+                                                         batch))
+                     for batch in test_loader]
+            if parts:
+                counts[i] = torch.stack(parts).sum(0).double()
+        M.all_reduce_sum(self.mesh, counts)
+        for client, (c1, ck, n) in zip(members, counts.tolist()):
             if n:
                 self.logger.log(
                     f"client {client.client_idx} ({kind}) "
@@ -381,12 +473,20 @@ class MMFL:
     # -- distillation ---------------------------------------------------
     def _distill(self, img_vecs: List[torch.Tensor],
                  txt_vecs: List[torch.Tensor]) -> None:
+        """con_w, then one distillation epoch. Off a mesh ``img_reps`` and
+        ``txt_reps`` hold the uploads stacked; on one, the lists of this
+        rank's uploads with None in the others' slots."""
         args = self.args
-        self.img_reps = torch.stack(img_vecs) if img_vecs else None
-        self.txt_reps = torch.stack(txt_vecs) if txt_vecs else None
+
+        def gather(vecs):
+            if not vecs:
+                return None
+            return vecs if self.mesh is not None else torch.stack(vecs)
+
+        self.img_reps, self.txt_reps = gather(img_vecs), gather(txt_vecs)
         img_agg, txt_agg = aggregate_modalities(
             self.img_reps, self.txt_reps, self.global_img_feature,
-            self.global_txt_feature)
+            self.global_txt_feature, mesh=self.mesh)
         self.img_vec, self.txt_vec = img_agg, txt_agg
         use_img = args.num_img_clients > 0 and img_agg is not None
         use_txt = args.num_txt_clients > 0 and txt_agg is not None
@@ -414,9 +514,12 @@ class MMFL:
         return fi.flatten(0, 1), ft.flatten(0, 1)
 
     def evaluate(self) -> Dict:
+        """Retrieval eval over the test loader; in chunks off a mesh, per
+        batch on one (each rank its rows, the features gathered)."""
+        chunk_fn = self._extract_eval_chunk if self.mesh is None else None
         return self.evaluator.evaluate(
             self.datasets["test"], self._extract_eval,
-            extract_chunk_fn=self._extract_eval_chunk)
+            extract_chunk_fn=chunk_fn)
 
     def _seed_round(self, round_n: int) -> random.Random:
         """Re-seed every per-round randomness source as a function of
@@ -499,13 +602,17 @@ class MMFL:
                      f"{[c.client_idx for c in members]} "
                      f"(stacked x{len(members)})")
                     for kind, members in groups.items()]
+            runs = [(kind, members, message, None)
+                    for kind, members, message in runs]
         else:
+            world = self.mesh.world if self.mesh is not None else 1
             runs = [(c.kind, [c], f"Training Client {c.client_idx} "
-                     f"({c.kind})!") for c in cur]
-        for kind, members, message in runs:
+                     f"({c.kind})!", [k % world]) for k, c in enumerate(cur)]
+        for kind, members, message, owners in runs:
             self.logger.log(message)
             with self.timer.phase(f"clients_{kind}"):
-                self._run_group(kind, members, round_n, img_vecs, txt_vecs)
+                self._run_group(kind, members, round_n, img_vecs, txt_vecs,
+                                owners)
         if getattr(args, "save_client", False):
             self._save_clients(cur, round_n)
 
@@ -574,10 +681,12 @@ class MMFL:
         ``round_n``'s checkpoint."""
         if self.checkpointer is None:
             return None
-        return self.checkpointer.save(round_n, {
+        path = self.checkpointer.save(round_n, {
             "server": self.server_state.state_dict(),
             "clients": [c.state.state_dict() for c in self.clients],
             "meta": {"best_score": self.best_score, "round": round_n}})
+        M.barrier(self.mesh)  # rank 0 has written it
+        return path
 
     def resume(self) -> int:
         """Restore the latest round checkpoint; returns the next round to

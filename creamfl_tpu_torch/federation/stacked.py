@@ -1,10 +1,14 @@
 """A client family's local epochs and uploads, its members side by side.
 
-Port of the JAX package's ``federation/stacked.py`` on one device: the
-lowering the JAX package picks without a mesh ("scan", ``_lowering_for``),
-where each member's step stays a plain per-client program. Here that is a
-Python loop over the members. Clients of one family share an architecture
-and see the same public batches, so:
+Port of the JAX package's ``federation/stacked.py``: the lowering the JAX
+package picks without a mesh ("scan", ``_lowering_for``), where each
+member's step stays a plain per-client program, is a Python loop over the
+members here. On a mesh (its "vmap" lowering over the ``client`` axis) the
+round gives each rank its own members (``parallel/mesh.py:client_slots``)
+and calls these functions with those alone; a rank with none still
+advances the shared public loader as one pass would (``skip_epoch``), so
+that its later families see the batches the other ranks see. Clients of one
+family share an architecture and see the same public batches, so:
 
 - ``contrast_epoch`` walks the shared public loader once for the whole
   family: per batch, every member's forward (and its frozen pre-round
@@ -134,6 +138,9 @@ def contrast_epoch(engine, members: Sequence, old_models: Sequence,
     """One public-set contrast epoch of the family: ``contrast_batch`` per
     batch of the shared loader; ``batch_rows(batch)`` gives a batch's rows
     in the global features."""
+    if not members:
+        pub_loader.skip_epoch()
+        return
     states = [c.state for c in members]
     for batch in pub_loader:
         contrast_batch(engine, states, old_models, batch,
@@ -145,7 +152,10 @@ def uni_reps(engine, members: Sequence, pub_loader
              ) -> Tuple[List[torch.Tensor], np.ndarray]:
     """Each member's [N, d] train-mode features over the public eval
     loader (its BN running-stat updates persist, ClientTrainer.py:552),
-    and the dataset index of each of the N rows."""
+    and the dataset index of each of the N rows (None without members)."""
+    if not members:
+        pub_loader.skip_epoch()
+        return [], None
     parts: List[List[torch.Tensor]] = [[] for _ in members]
     idx_parts = []
     for batch in pub_loader:
@@ -162,6 +172,9 @@ def mm_reps(engine, members: Sequence, pub_loader
             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Each member's eval-mode [N, d] image and caption features over the
     public eval loader."""
+    if not members:
+        pub_loader.skip_epoch()
+        return [], []
     img_parts: List[List[torch.Tensor]] = [[] for _ in members]
     txt_parts: List[List[torch.Tensor]] = [[] for _ in members]
     for batch in pub_loader:

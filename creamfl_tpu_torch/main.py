@@ -3,8 +3,22 @@
 Port of the JAX package's ``main.py``: the same flag surface
 (``add_args``), ``build_configs``, ``build_datasets`` and ``run``. Runs on
 the card (``--device N`` picks it) unless ``--no-cuda`` asks for the CPU;
-without a card and without ``--no-cuda`` it raises, as does a mesh of more
-than one card. Without ``--synthetic`` it reads MS-COCO, CIFAR-100,
+without a card and without ``--no-cuda`` it raises.
+
+Several cards make a mesh, as the JAX CLI takes every device
+(``--no_mesh`` and ``--mesh_devices N`` keep their meaning): with more than
+one card visible, ``run`` starts one process per card (NCCL) and each runs
+the round as a rank of the mesh (``parallel/mesh.py``); under torchrun
+(``torchrun --nproc_per_node N -m creamfl_tpu_torch.main ...``) each
+process joins the group and runs on the card ``LOCAL_RANK`` names; inside
+a process group already initialized, ``run`` is that group's rank. On the
+CPU, ``--no-cuda --mesh_devices N`` starts N gloo processes (the JAX
+tests' virtual CPU devices); without it the CPU runs one. Every rank takes
+rank 0's ``--seed``; the synthetic BERT ids hash words with ``hash()``,
+so the ranks need one ``PYTHONHASHSEED`` (``run`` sets it for the
+processes it starts; under torchrun export it).
+
+Without ``--synthetic`` it reads MS-COCO, CIFAR-100,
 AG_NEWS and Flickr30k (``--coco_root``, ``--cifar_root``,
 ``--agnews_root``, ``--f30k_root``; defaults under ``$HOME/data``) with the
 packaged frozen artifacts, and decodes and transforms their images on the
@@ -278,13 +292,92 @@ def _run_device(args):
     return resolve_device("cpu" if args.no_cuda else f"cuda:{args.device}")
 
 
+def _spawn_world(args) -> int:
+    """Processes ``run`` starts itself: one per visible card (at most
+    ``--mesh_devices``), or ``--mesh_devices`` on the CPU; 0 inside a
+    process group, under torchrun, with ``--no_mesh`` or for one."""
+    import torch
+    import torch.distributed as dist
+
+    if (not getattr(args, "use_mesh", True) or dist.is_initialized()
+            or "WORLD_SIZE" in os.environ):
+        return 0
+    cap = getattr(args, "mesh_devices", 0) or 0
+    if args.no_cuda:
+        world = cap
+    else:
+        n = torch.cuda.device_count()
+        world = min(n, cap or n)
+    return world if world > 1 else 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, args, world: int, init_method: str) -> None:
+    """A process ``run`` started: rank ``rank`` of ``world``, on card
+    ``rank`` (NCCL) or the CPU (gloo)."""
+    import torch.distributed as dist
+
+    from creamfl_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(init_method, world, rank,
+                     device="cpu" if args.no_cuda else f"cuda:{rank}")
+    try:
+        run(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(args):
+    """This process's mesh: the initialized group's, or torchrun's (joined
+    here); None outside both."""
+    import torch
+    import torch.distributed as dist
+
+    from creamfl_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        if int(os.environ["WORLD_SIZE"]) > 1 and not getattr(
+                args, "use_mesh", True):
+            raise ValueError("--no_mesh runs one process; start it without "
+                             "torchrun")
+        init_distributed(device="cpu" if args.no_cuda else "cuda")
+    if not dist.is_initialized():
+        return None
+    device = ("cpu" if args.no_cuda
+              else f"cuda:{torch.cuda.current_device()}")
+    mesh = make_mesh(device)
+    return mesh if mesh.world > 1 else None
+
+
 def run(args):
-    """One federated run; returns the ``MMFL`` it drove."""
+    """One federated run; returns the ``MMFL`` it drove, or None where it
+    started one process per card (or per CPU rank) and waited for them."""
+    import torch.multiprocessing as mp
+
     from creamfl_tpu_torch.federation.rounds import MMFL
+    from creamfl_tpu_torch.parallel.mesh import broadcast_object
     from creamfl_tpu_torch.utils.helper import set_seed
     from creamfl_tpu_torch.utils.logging import PythonLogger, get_tracker
 
-    device = _run_device(args)
+    world = _spawn_world(args)
+    if world:
+        # The children inherit it: one hash() of a word on every rank.
+        os.environ.setdefault("PYTHONHASHSEED", str(args.seed))
+        mp.spawn(_rank_main, args=(args, world,
+                                   f"tcp://localhost:{_free_port()}"),
+                 nprocs=world, join=True)
+        return None
+    mesh = _mesh(args) if getattr(args, "use_mesh", True) else None
+    device = mesh.device if mesh is not None else _run_device(args)
+    if mesh is not None:
+        args.seed = broadcast_object(mesh, args.seed, 0)
     # Seed the global python/numpy/torch generators like the reference
     # (main.py:122 -> helper.set_seed).
     set_seed(args.seed)
@@ -296,7 +389,8 @@ def run(args):
     datasets = build_datasets(args, device)
 
     algo = MMFL(args, datasets, server_cfg, mm_cfg, tracker=tracker,
-                logger=logger, bert_config=bert_cfg, device=device)
+                logger=logger, bert_config=bert_cfg, device=device,
+                mesh=mesh)
     start_round = algo.resume() if args.resume else 0
     for round_n in range(start_round, args.comm_rounds):
         algo.train(round_n)

@@ -9,7 +9,9 @@ HuggingFace ``BertModel`` parameter names, so a ``bert-base-uncased``
 Semantics as in the JAX package: separate q/k/v projections, an additive
 mask bias of -1e9 cast to the scores' dtype, softmax in fp32, exact GELU,
 LayerNorm eps 1e-12, and dropout at the four places HF puts it (embeddings,
-attention probabilities, attention output, FFN output).
+attention probabilities, attention output, FFN output). Dropout draws its
+keep mask for the whole batch (``parallel/mesh.py:row_dropout``), so that a
+rank of a mesh running its rows of a batch gets world 1's masks for them.
 """
 
 from __future__ import annotations
@@ -41,11 +43,25 @@ class BertConfig:
                    num_heads=2, intermediate_size=128, max_position=64)
 
 
-def _dropout(rate: float) -> Optional[nn.Dropout]:
-    return nn.Dropout(rate) if rate else None
+class _RowDropout(nn.Module):
+    """Inverted dropout at ``rate`` in train mode, its mask drawn for the
+    whole batch (``row_dropout``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.p = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from creamfl_tpu_torch.parallel.mesh import row_dropout
+
+        return row_dropout(x, self.p) if self.training else x
 
 
-def _apply(drop: Optional[nn.Dropout], x: torch.Tensor) -> torch.Tensor:
+def _dropout(rate: float) -> Optional[_RowDropout]:
+    return _RowDropout(rate) if rate else None
+
+
+def _apply(drop: Optional[_RowDropout], x: torch.Tensor) -> torch.Tensor:
     return x if drop is None else drop(x)
 
 

@@ -10,6 +10,16 @@ in train mode the running stats move as ``0.9 * old + 0.1 * batch`` with
 the BIASED batch variance. ``nn.BatchNorm2d`` would use the unbiased one,
 a factor n/(n-1) apart (6.7 % at batch 4 on a 2 x 2 grid).
 
+Under a mesh of ranks (``set_batchnorm_mesh``) a BatchNorm in train mode
+takes its statistics over the whole batch, every rank's rows, as XLA
+partitions the JAX package's BatchNorm over a batch sharded on its mesh:
+the per-channel sum and the count all-reduced in fp32, then the sum of
+squares about that mean (two passes, as cuDNN's statistics: E[x^2] -
+E[x]^2 in fp32 loses a relative 1e-7 * mean^2 / var of the variance,
+which the backward of a deep trunk magnifies); in its backward the sums
+of dy and dy * x_hat. The running stats come out identical on every rank.
+Without a mesh it is unchanged.
+
 ``ResNetBackbone(fused_bn=True)`` runs each Bottleneck as a
 ``FusedBottleneck``: its 1x1 convs and their BatchNorms go through
 ``ops.fused_bn_mm.mm_bn_stats`` (kernels K5/K6 on the card). Both blocks
@@ -34,8 +44,11 @@ class BatchNorm(nn.Module):
 
     Parameter and buffer names are torchvision's (weight, bias,
     running_mean, running_var, num_batches_tracked), so its checkpoints
-    load with ``strict=True``.
+    load with ``strict=True``. ``mesh`` (``set_batchnorm_mesh``): the ranks
+    whose rows share one batch's statistics; None for this rank's alone.
     """
+
+    mesh = None
 
     def __init__(self, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -53,6 +66,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.mesh is not None and self.mesh.world > 1:
+            return self._synced(x)
         with torch.no_grad():
             # Stats in fp32 whatever the compute dtype, as flax takes them.
             dims = (0,) if x.dim() == 2 else (0, 2, 3)
@@ -64,6 +79,86 @@ class BatchNorm(nn.Module):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the mesh's batch: the mean from the all-reduced
+        sums and count, then the biased variance from the all-reduced sums
+        of squares about it."""
+        from creamfl_tpu_torch.parallel.mesh import all_reduce_sum
+
+        with torch.no_grad():
+            dims = (0,) if x.dim() == 2 else (0, 2, 3)
+            c = x.shape[1]
+            xf = x.float()
+            sums = all_reduce_sum(self.mesh, torch.cat([
+                xf.sum(dims), xf.new_full((1,), x.numel() / c)]))
+            n = sums[-1]
+            mean = sums[:c] / n
+            d = xf - _channel_view(mean, x)
+            var = all_reduce_sum(self.mesh, (d * d).sum(dims)) / n
+            del xf, d
+            self.running_mean.mul_(self.momentum).add_(
+                mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(
+                var, alpha=1 - self.momentum)
+            self.num_batches_tracked.add_(1)
+        return _SyncedNorm.apply(x, self.weight, self.bias, mean, var,
+                                 self.eps, self.mesh)
+
+
+def _channel_view(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector shaped to broadcast over ``x`` ([B, C] or
+    [B, C, H, W])."""
+    return v.view(1, -1) if x.dim() == 2 else v.view(1, -1, 1, 1)
+
+
+class _SyncedNorm(torch.autograd.Function):
+    """y = (x - mean) * rsqrt(var + eps) * weight + bias with the mesh's
+    batch statistics. Backward: dx from the mesh-wide sums of dy and
+    dy * x_hat (all-reduced); the weight and bias gradients are this rank's
+    sums, which the server's gradient all-reduce adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, eps, mesh):
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh = mesh
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from creamfl_tpu_torch.parallel.mesh import all_reduce_sum
+
+        x, weight, mean, invstd = ctx.saved_tensors
+        dims = (0,) if x.dim() == 2 else (0, 2, 3)
+        c = x.shape[1]
+        dyf = dy.float()
+        xhat = (x.float() - _channel_view(mean, x)) * _channel_view(invstd,
+                                                                    x)
+        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        total = all_reduce_sum(ctx.mesh, local.clone())
+        n = x.numel() / c * ctx.mesh.world
+        dx = _channel_view(weight.float() * invstd, x) * (
+            dyf - _channel_view(total[:c] / n, x)
+            - xhat * _channel_view(total[c:] / n, x))
+        return (dx.to(x.dtype), local[c:].to(weight.dtype),
+                local[:c].to(weight.dtype), None, None, None, None)
+
+
+def set_batchnorm_mesh(module: nn.Module, mesh) -> None:
+    """Give every BatchNorm under ``module`` the mesh its train-mode
+    statistics span (None: each rank's rows alone). The fused trunk takes
+    its BatchNorm statistics inside K5 and has no mesh variant: it raises
+    under a mesh of more than one rank (ROADMAP queue 1)."""
+    for m in module.modules():
+        if (isinstance(m, FusedBottleneck) and mesh is not None
+                and mesh.world > 1):
+            raise NotImplementedError(
+                "the fused trunk (fused_bn=True) takes its BatchNorm "
+                "statistics inside K5 and has no mesh variant (ROADMAP "
+                "queue 1); run the standard trunk on a mesh")
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:

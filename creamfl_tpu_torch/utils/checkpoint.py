@@ -8,7 +8,9 @@ payload (``MMFL.save_round``) is the server's and every client's
 ``torch.save`` with every tensor on the host (no Orbax), and ``restore``
 loads it onto ``map_location``. A round is written into a temporary
 directory and renamed into place, so a run killed while saving leaves the
-previous rounds whole.
+previous rounds whole. In a process group only rank 0 writes (the JAX
+package's ``process_index() == 0``); every rank restores from the same
+files.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from creamfl_tpu_torch.parallel.mesh import is_main
 from creamfl_tpu_torch.utils.serialize import to_host
 
 _STATE = "state.pt"
@@ -38,8 +41,11 @@ class RoundCheckpointer:
 
     def save(self, round_n: int, payload: Dict[str, Any]) -> str:
         """payload: {'server': ..., 'clients': [...], 'meta': {...}} of
-        state dicts and plain values."""
+        state dicts and plain values. Writes nothing on a rank other than
+        0; returns the round's path on every rank."""
         path = self._path(round_n)
+        if not is_main():
+            return path
         tmp = os.path.join(self.directory, f".round_{round_n:05d}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)

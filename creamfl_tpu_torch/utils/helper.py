@@ -13,6 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from creamfl_tpu_torch.parallel.mesh import is_main
 from creamfl_tpu_torch.utils.serialize import to_host
 
 
@@ -41,8 +42,10 @@ def get_save_dirs(exp_dir: str, name: str) -> Dict[str, str]:
 
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> str:
     """``torch.save`` of ``payload`` (state dicts and plain values) with
-    every tensor copied to the host; returns ``path``. Round checkpoints
-    are ``utils.checkpoint``'s."""
+    every tensor copied to the host; returns ``path``. In a process group
+    only rank 0 writes. Round checkpoints are ``utils.checkpoint``'s."""
+    if not is_main():
+        return path
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(to_host(payload), path)
     return path

@@ -3,7 +3,9 @@
 The port's own copy of the JAX package's ``utils/logging.py``. Provides
 the reference's logger surface (`src/utils/logger.py:87-139`):
 ``PythonLogger`` with ``.log()``, ``.report()`` and ``.log_dict()`` that emit
-step-prefixed metric lines, optionally teeing to a file.
+step-prefixed metric lines, optionally teeing to a file. In a process
+group only rank 0 prints and writes its file; the other ranks' loggers are
+silent.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ def _build_logger(name: str, output_file: Optional[str]) -> logging.Logger:
     logger.propagate = False
     # Re-entrant construction (tests, notebooks): reset handlers.
     logger.handlers.clear()
+    from creamfl_tpu_torch.parallel.mesh import is_main
+
+    if not is_main():
+        logger.addHandler(logging.NullHandler())
+        return logger
     fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%H:%M:%S")
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)

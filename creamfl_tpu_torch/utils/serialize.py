@@ -4,8 +4,10 @@ The port's own copy of the JAX package's ``utils/serialize.py``:
 ``flatten_dict`` matches the reference's pandas-json_normalize-based
 flattening of nested score dicts (`src/utils/serialize_utils.py:9`);
 ``to_host`` copies the tensors of a nested payload (state dicts,
-optimizer states) to the host before ``torch.save``. One device holds
-everything, so there is no counterpart of ``tree_to_numpy``'s mesh gather.
+optimizer states) to the host before ``torch.save``. On a mesh every rank
+holds every state whole (``parallel/mesh.py``), so there is no counterpart
+of ``tree_to_numpy``'s mesh gather; rank 0 alone writes
+(``utils/helper.py:save_checkpoint``, ``utils/checkpoint.py``).
 """
 
 from __future__ import annotations

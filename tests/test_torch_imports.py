@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "creamfl_tpu_torch.utils.serialize",
                  "creamfl_tpu_torch.engine.evaluator",
                  "creamfl_tpu_torch.engine.graphs",
-                 "creamfl_tpu_torch.data.native"):
+                 "creamfl_tpu_torch.data.native",
+                 "creamfl_tpu_torch.data.png_gif",
+                 "creamfl_tpu_torch.parallel.mesh"):
         assert name in result["imported"], name
     bad = [m for m in result["loaded"] if _is_forbidden(m)]
     assert not bad, bad

@@ -317,8 +317,8 @@ def test_unported_options_raise(tmp_path):
     image clients' trunks in bf16) and the pretrained-weight files
     (--resnet_ckpt, --bert_ckpt, --glove_path, --client_resnet_ckpt), as
     are the stacked branch, round checkpoints, --resume and --save_client
-    (test_torch_stacked.py, test_torch_resume.py). A mesh of more than one
-    card stays refused (it needs more than one card to reach)."""
+    (test_torch_stacked.py, test_torch_resume.py), and the mesh
+    (test_torch_mesh.py)."""
     from creamfl_tpu_torch.models.resnet import ResNetBackbone
 
     trunk = ResNetBackbone("resnet10").state_dict()
