@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked |
                                       --paper-round | --paper-full |
                                       --real-round | --chunks | --mesh |
-                                      --mesh-cards N]
+                                      --mesh-cards N | --rest]
 
 Phases (any failure exits non-zero):
 
@@ -134,6 +134,28 @@ Phases (any failure exits non-zero):
    their gap to step 8's, each rank's phases and peak memory.
    ``--mesh-cards N`` runs (c) over NCCL on N >= 2 cards instead, one
    rank each (not in the default run: the default machine has one card).
+12. The rest (``--rest`` runs the build and this step alone). (a) The worker
+   loader (``data/grain_loaders.py``): one epoch of every loader of step 9's
+   real bundle with ``--data_backend grain --num_workers 2`` equal to the
+   array backend's by per-batch sha256, seconds an epoch of both; then step
+   9's real round on the array backend and on the worker loader under
+   deterministic algorithms, each path's K3/K4 launches counted and on tc,
+   their end states (every model, the global features, the aggregates) and
+   scores equal bit for bit (or within a second array round's spread), the
+   loader time and share of both printed. (b) ``remat`` at the server's
+   width (R101 + BERT-base, bf16, batch 128 at 224²): one train step's
+   loss, gradients and running stats for "none", "none", "block" and
+   "dots" from the same weights and inputs under deterministic algorithms,
+   the later ones within the two "none" steps' spread, every BatchNorm's
+   count moved once; ms and peak GiB of a train step each; a train_chunk
+   of k = 2 captured with "block" against its eager steps. (c) The s2d stem
+   against conv7 (R101, batch 128 at 224², fp32, TF32 off): largest
+   relative gap and ms of each stem and trunk. (d) CUB's fixture JPEGs by
+   nvJPEG against PIL's decode statistics, the reader's batches through
+   ``DeviceImages`` on the card against the CPU, the class-mode evaluator
+   card against CPU. (e) ``UncertaintyModule`` at PCME's image widths, card
+   against CPU within 1e-4. (f) The APNG whose default image stands
+   outside its animation is among step 9's PNG_GIF_FILES.
 
 Each path runs with the launch counts zeroed just before it and read just
 after. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -1416,6 +1438,10 @@ REAL_CLI_ARGS = REAL_DATA_ARGS + (
     "--agg_method", "con_w", "--contrast_local_intra",
     "--contrast_local_inter", "--kd_weight", "0.3", "--interintra_weight",
     "0.5", "--feature_dim", "16", "--not_bert")
+# Phase 12 (a): the real round with its batches assembled in two worker
+# processes (data/grain_loaders.py).
+GRAIN_ARGS = ("--data_backend", "grain", "--num_workers", "2")
+REAL_GRAIN_ARGS = REAL_ROUND_ARGS + GRAIN_ARGS
 # nvJPEG + the colour kernel against PIL: per image, per-channel mean and
 # std and the four quadrants' per-channel means of PIL's decode (the CPU
 # test tests/test_torch_jpeg.py keeps the table true), each within
@@ -1786,7 +1812,10 @@ EXTRA_JPEGS = {
 # sha256 of PIL's Image.open(...).convert("RGB") array, taken on a CPU
 # host with Pillow 12.1.0, the file in base64). Made with Pillow and the
 # PNG encoder of tests/test_torch_images.py: an RGB PNG, a 4-bit palette
-# PNG with tRNS, interlaced (Adam7), a 16-bit gray PNG, an interlaced GIF.
+# PNG with tRNS, interlaced (Adam7), a 16-bit gray PNG, an interlaced GIF,
+# and (phase 12 (f)) an animated PNG whose default image, the IDAT one,
+# stands outside its animation (Pillow's ``default_image=True``: its IDAT
+# comes before the first fcTL).
 PNG_GIF_FILES = {
     "png_rgb": (
         24, 20,
@@ -1859,6 +1888,37 @@ PNG_GIF_FILES = {
         "plcBCQhAGAcJFHDYBQxl0MAFGRiAGwYhVVBBALURJ5Vqvg3A1AUASBBBBQMUYEFI"
         "UFGwQAEcKBAiTwCguIEDFQCwAAISGDARB4ktwIADFDBwJAQ3NnVAASw5hwEFCvD2"
         "VEoMWKCQAwEBADs="),
+    "apng_default_image": (
+        12, 10,
+        "da4f0f7f2a54bb36c364948b2fc431ea6138dc1afa2b71c7755f5c420b4cdfe4",
+        "iVBORw0KGgoAAAANSUhEUgAAAAwAAAAKCAIAAAAPTiitAAAACGFjVEwAAAACAAAA"
+        "APONk3AAAAF9SURBVHicAXIBjf4AvDRd5elfY93/09rRCRv12rnMyxG+Op/PGoAk"
+        "8RMm7kLL9GcrAfpXwxm8x3W5Swx/HSrho9yb3ofWCRNRTYR640hAFR8uHlI6CgAS"
+        "BOghnxQc/Hm8fNn3u0pJFf2iemkYTNAESZzm368YFW/EU6gBBR8zaz79zvuqyv33"
+        "oYY5B4218gAsu0v2Touq2cSp3tgz8Ry2AX5n92rLxHqe7yd83oPx7HNb+EO4Qnc/"
+        "kQHUWg0ETo1fo9RZ2QIHTbcSND0IkQ5ThAHCtcPm6nTzbOB5IBxJLYy3+c2e3vnH"
+        "l6QBrlg8RRtdYybCDxFVav/wKLosKOU/psET6zjoALcnbUH2i3PgAtpsn5n0wT/z"
+        "9QxACDvLQvBHYmJFJLaKIKTuMNzANunY8P6FCgEEVaAXOYgjLx9muJ7cCTTSJCtu"
+        "cxFq2r04gQ6/lg497/+jMfsBPTjga303qegU4BFJ61IpXeluFtKVpDAuEhWJNUkB"
+        "GWBnKURgjoawCr4GiUAAAAAaZmNUTAAAAAAAAAAMAAAACgAAAAAAAAAAAAAAAQAA"
+        "gpXAQAAAAYFmZEFUAAAAAXicAXIBjf4BRHuSrOMt1Tw/W6ixm/eIBAXEEQQamD6p"
+        "80kLnKS8PCAV4Kq2AoQjH/0BNTIs7hfYQ+5kwfYNeiedrjvlCC9AW2glDc49xYFV"
+        "9ATu3qEDsxGqKIcTeDwbQvvjQh5fcTBNzDa6RfV0yX/a/eH6P8MC8W0MgOAtkutW"
+        "0Nt74ok2B+ba4hsd3u3s2HhGrhmfV32zH9VBAti9McbSv8GbI7wGvLjJ/z+Zu53a"
+        "Qh9+06eCONDm0vyNcqZDtwErPu4E90e59IYDaQ/Va76/TfTa38LZ75XLZEJVMxQT"
+        "oetPSpYAiv3bN3443Gw7juy65zH/dfFCyIZAtptNtejs5OVhiAn590MRAexMW3A3"
+        "Ptw1yk7lcA7S2f4kzvNBM8DHBabfDim1WYNyt4/vvQHQri/rz//X3VxjA8rLzc6m"
+        "9aknMycZlArRWiqht98S2E8UcyYB3mLJo10D80E51Op8er0dGdm35GoKWK0NQsqd"
+        "BzevjkUzxU3d/re8+WO5pBAAAAAaZmNUTAAAAAIAAAAMAAAACgAAAAAAAAAAAAAA"
+        "AQAAbwMTqQAAAYFmZEFUAAAAA3icAXIBjf4B2F9dGyx/0S/ITcxVEfrJmhWaAItn"
+        "Y4Wxf61hzMYxCJcR3bRfAMtZWdbzPTAV5IiyS6Brqc1S7l7DawcFxA+SZHtUSycI"
+        "RNXIiAQOGzIstUT5Yapn9g3Bi06/wSNBdZQ8jvyXydj8aS4qEIEfzgIClQveKXD6"
+        "KQsazgFxZZYvLzYmsy4i/Ai0XyEGHcZVrmtOq+QOAkaAyo8PU6Mkdio9VSQ9GPhM"
+        "/PKjM4AM1EqRLdUZ74Tm+1faowGLm91qOiAbpesk2c1kvgrofv2XNtNC5y9I+7Ww"
+        "AK7+taV82IoCUvXCpWGSfOFyD8AyuvTU+v22b/5OyAEmkNgDPxsQExsBu4ONAXdE"
+        "KbYeDV+O8VyLYag3llg5OJJXzzUtxPYT4f0I/Lx29/+zmQQHO/7HuDajAwrr/BKG"
+        "9brfq8uKSnc5nqyIRr9LaJakC0N6gwMAirTwaVf53Xa5Vlv6Ua1g8rpRAgvthMRt"
+        "FsJgviyZutjNL6xDueqwpY2wxfAAAAAASUVORK5CYII="),
 }
 
 
@@ -1902,19 +1962,22 @@ def png_gif_phase(dev=torch.device("cuda")) -> None:
 class _HostLoaderTime:
     """Seconds the round's thread waits for loader batches: each ``next``
     of the outermost loader it iterates (``ArrayLoader``, ``PrefetchLoader``,
-    ``DeviceImageBatches`` or ``DeviceImages``), so rendering and stacking
+    ``GrainLoader`` (its workers' start included), ``DeviceImageBatches``
+    or ``DeviceImages``), so rendering and stacking
     on that thread, a prefetch queue's wait, the enqueueing of on-device
     synthesis and the reading and decoding of real images; and,
     apart (``thread_seconds``), what ``ArrayLoader`` spends producing
     batches on prefetch threads, which overlaps the round."""
 
     def __init__(self):
-        from creamfl_tpu_torch.data import device_images, device_synth, loaders
+        from creamfl_tpu_torch.data import (device_images, device_synth,
+                                           grain_loaders, loaders)
 
         self.producer = loaders.ArrayLoader
         self.orig = {cls: cls.__iter__ for cls in (
             loaders.ArrayLoader, loaders.PrefetchLoader,
-            device_synth.DeviceImageBatches, device_images.DeviceImages)}
+            grain_loaders.GrainLoader, device_synth.DeviceImageBatches,
+            device_images.DeviceImages)}
         self.seconds = self.thread_seconds = 0.0
         self.depth = 0
         self.lock = threading.Lock()
@@ -2615,7 +2678,7 @@ def real_args(tmp: str, bert: bool):
     return extra
 
 
-def run_round(seed: int, kind: str = "round"):
+def run_round(seed: int, kind: str = "round", keep=None):
     """``round_phase`` with the launch counts zeroed just before it and read
     just after: K3 (with the K1 and K2 launches inside it) as
     ``expected_gallery_launches`` says; K4 once per upload and modality,
@@ -2630,7 +2693,10 @@ def run_round(seed: int, kind: str = "round"):
     synth, ``load_pretrained`` and ``RawTrainer`` checks), "real_round" /
     "real_cli" (the fixture datasets, stacked, at the paper's widths or
     with the CLI's --smoke configs; every real image batch on the card,
-    every JPEG decoded by nvJPEG). Returns the round's launch counts."""
+    every JPEG decoded by nvJPEG), "real_grain" (phase 12: "real_round"
+    with ``--data_backend grain --num_workers 2``). ``keep``, a dict, takes
+    the round's end state (``_round_state``). Returns the round's launch
+    counts."""
     import tempfile
 
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
@@ -2643,14 +2709,16 @@ def run_round(seed: int, kind: str = "round"):
                   "paper_round": PAPER_ROUND_ARGS,
                   "paper_full": PAPER_FULL_ARGS,
                   "real_round": REAL_ROUND_ARGS,
+                  "real_grain": REAL_GRAIN_ARGS,
                   "real_cli": REAL_CLI_ARGS}[kind]
+    full_width = kind in ("real_round", "real_grain")
     with tempfile.TemporaryDirectory() as tmp:
         extra = ("--ckpt_dir", tmp) if kind == "stacked" else ()
         if real:
-            extra = real_args(tmp, bert=kind == "real_round")
+            extra = real_args(tmp, bert=full_width)
         watch = (_PaperWatch() if paper else _RealWatch() if real
                  else contextlib.nullcontext())
-        configs = (_FullWidthConfigs() if kind == "real_round"
+        configs = (_FullWidthConfigs() if full_width
                    else contextlib.nullcontext())
         K.reset_launch_counts()
         FK.reset_launch_counts()
@@ -2715,6 +2783,8 @@ def run_round(seed: int, kind: str = "round"):
             f"{json.dumps(errs)}")
         if kind == "stacked":
             resume_check(algo)
+        if keep is not None:
+            keep.update(_round_state(algo))
         if paper:
             synth_phase(seed, algo.device)
             pretrained_check(algo, seed, tmp)
@@ -2912,6 +2982,7 @@ def check_chunk(engine, state, kind, inputs, targets, rows, seed, tag,
     the eager steps and the chunk's call: launches in a capture count once
     per replay, so the two runs count the same."""
     dev = inputs[0].device
+    k = inputs[0].shape[0]
     snapshot = copy.deepcopy(state.state_dict())
     params = [p for p in state.model.parameters()]
     p0 = [p.detach().clone() for p in params] if kind in (
@@ -2946,7 +3017,7 @@ def check_chunk(engine, state, kind, inputs, targets, rows, seed, tag,
         rel = float(((got - want).abs() / want.abs()).max())
         dist = _update_distance(p0, p_eager, [p.detach() for p in params])
         log(f"[chunks] {tag} {kind}_chunk (route {engine.chunk_route}) vs "
-            f"{CHUNK_K} eager steps: losses {got.tolist()} vs "
+            f"{k} eager steps: losses {got.tolist()} vs "
             f"{want.tolist()} (largest rel {rel:.3e} <= {TRUNK_LOSS_RTOL}), "
             f"update distance {dist:.3e} (<= {UPDATE_DIST}; bit for bit: "
             f"{'yes' if rel == 0 and dist == 0 else 'no'}); graph pool "
@@ -2956,7 +3027,7 @@ def check_chunk(engine, state, kind, inputs, targets, rows, seed, tag,
     else:
         cos, gap = _feature_gap(got, want)
         log(f"[chunks] {tag} {kind}_chunk (route {engine.chunk_route}) vs "
-            f"{CHUNK_K} eager steps: least row cosine {cos:.6f} (>= "
+            f"{k} eager steps: least row cosine {cos:.6f} (>= "
             f"{TRUNK_COSINE}), largest gap {gap:.3e}; graph pool "
             f"{pool:.2f} GiB")
         if cos < TRUNK_COSINE:
@@ -3707,6 +3778,534 @@ def mesh_phase(seed: int, cards: int = 0):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest (the worker loader, remat, the s2d stem, CUB, the
+# uncertainty head)
+# ---------------------------------------------------------------------------
+
+# (b) remat at the server's width: one train step per mode from the same
+# weights, inputs and generator state; a train_chunk of REMAT_CHUNK_K steps
+# captured with remat="block".
+REMAT_MODES = ("none", "none", "block", "dots")
+REMAT_CHUNK_K = 2
+# (c) the s2d stem against conv7 in fp32, TF32 off: the stem outputs'
+# largest gap relative to their largest entry (the two sum the same
+# products in another order).
+S2D_RTOL = 1e-5
+# (d) CUB's fixture JPEGs by nvJPEG against PIL: within the largest gap in
+# the decode statistics (levels) that step 9's files have shown on the
+# card.
+CUB_DECODE_GAP = 0.055
+# (e) UncertaintyModule at PCME's image widths (the R101 grid: 49 tokens of
+# 2048, the pooled 2048, d_hidden 1024, out DIM), card vs CPU in fp32.
+UNC_TOKENS, UNC_IN, UNC_HIDDEN, UNC_ATOL = 49, 2048, 1024, 1e-4
+
+
+def _round_state(algo) -> dict:
+    """The round's end state on the host: every model's parameters and
+    buffers (the server's and each client's), the global features, the
+    aggregates and the scores."""
+    tensors = {f"server.{k}": v.detach().cpu().clone()
+               for k, v in algo.server_state.model.state_dict().items()}
+    for c in algo.clients:
+        tensors.update({f"client{c.client_idx}.{k}": v.detach().cpu().clone()
+                        for k, v in c.state.model.state_dict().items()})
+    for k in ("global_img_feature", "global_txt_feature", "img_vec",
+              "txt_vec"):
+        tensors[k] = getattr(algo, k).detach().cpu().clone()
+    scores = {f"{t}.{k}": algo.last_scores[t][k] for t in ("i2t", "t2i")
+              for k in ("recall_1", "recall_5", "recall_10")}
+    return {"tensors": tensors, "scores": scores}
+
+
+def _state_gap(a: dict, b: dict):
+    """(largest relative Frobenius distance over the float tensors, the
+    tensors not equal bit for bit, the largest score gap) of two
+    ``_round_state``s."""
+    if a["tensors"].keys() != b["tensors"].keys():
+        raise AssertionError("two rounds' states have other keys")
+    unequal = [k for k, x in a["tensors"].items()
+               if not torch.equal(x, b["tensors"][k])]
+    worst = (math.inf if any(not a["tensors"][k].is_floating_point()
+                             for k in unequal)
+             else _rel_gaps(a["tensors"], {k: b["tensors"][k]
+                                           for k in unequal}))
+    gap = max(abs(a["scores"][k] - b["scores"][k]) for k in a["scores"])
+    return worst, len(unequal), gap
+
+
+def _rel_gaps(got: dict, want: dict) -> float:
+    """Largest relative Frobenius distance of ``got[k]`` from ``want[k]``
+    over ``want``'s keys (0 for none)."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.double()
+        worst = max(worst, float((got[k].double() - w).norm()
+                                 / w.norm().clamp_min(1e-30)))
+    return worst
+
+
+def _loader_digests(bundle) -> dict:
+    """sha256 of every batch of one epoch of every loader of a real bundle
+    (each field in key order; tensors from the card)."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for key in ("pub_train", "pub_eval", "test", "val", "img_clients",
+                "txt_clients", "mm_clients", "img_test", "txt_test"):
+        loaders = bundle.get(key)
+        if loaders is None:
+            continue
+        for i, loader in enumerate(loaders if isinstance(loaders, list)
+                                   else [loaders]):
+            digests = []
+            for batch in loader:
+                h = hashlib.sha256()
+                for field in sorted(batch):
+                    v = batch[field]
+                    v = (v.detach().cpu().contiguous().numpy()
+                         if isinstance(v, torch.Tensor) else np.asarray(v))
+                    h.update(field.encode() + str(v.dtype).encode()
+                             + str(v.shape).encode() + v.tobytes())
+                digests.append(h.hexdigest())
+            out[f"{key}[{i}]"] = digests
+    return out
+
+
+def grain_round_phase(seed: int):
+    """(a) The worker loader on the real round. One epoch of every loader
+    of the real round's bundle with ``--data_backend grain --num_workers
+    2`` against the array backend's, batch by batch by sha256; then the
+    real round on the array backend and on the worker loader (each with
+    the launch counts zeroed just before it and read just after: every K3
+    and K4 launch on tc, as many as the round's steps make), under
+    deterministic algorithms, their end states compared: bit for bit, or,
+    where they differ, within the array round's own spread (a second array
+    round). Returns the worker round's launch counts."""
+    import tempfile
+    import time
+
+    from creamfl_tpu_torch import main as port_main
+
+    digests, seconds, epochs = {}, {}, {}
+    for backend, flags in (("array", ()), ("grain", GRAIN_ARGS)):
+        with tempfile.TemporaryDirectory() as tmp:
+            args = port_main.parse_args(
+                list(REAL_ROUND_ARGS) + list(real_args(tmp, bert=True))
+                + list(flags) + ["--seed", str(seed), "--no_mesh"])
+            bundle = port_main.build_datasets(args)
+            t0 = time.perf_counter()
+            digests[backend] = _loader_digests(bundle)
+            seconds[backend] = time.perf_counter() - t0
+            # An epoch's cost once the worker server runs: the text test
+            # set (no image) and the public eval set (images decoded on
+            # the card above the workers), three epochs each.
+            for key in ("txt_test", "pub_eval"):
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in bundle[key]:
+                        pass
+                    torch.cuda.synchronize()
+                    epochs.setdefault(f"{key} {backend}", []).append(
+                        round(time.perf_counter() - t0, 4))
+        del bundle
+    n = sum(len(v) for v in digests["array"].values())
+    log(f"[grain] one epoch of each of the real bundle's "
+        f"{len(digests['array'])} loaders ({n} batches): array backend "
+        f"{seconds['array']:.3f} s, 2 workers {seconds['grain']:.3f} s "
+        f"(worker starts included); per-batch sha256 "
+        f"{'equal' if digests['grain'] == digests['array'] else 'DIFFER'}; "
+        f"seconds an epoch, three epochs each: {json.dumps(epochs)}")
+    if digests["grain"] != digests["array"]:
+        bad = [k for k in digests["array"]
+               if digests["grain"].get(k) != digests["array"][k]]
+        raise AssertionError(f"grain: the worker loader's batches differ "
+                             f"in {bad}")
+    states, counts = {}, {}
+    with _deterministic():
+        for tag, kind in (("array", "real_round"), ("grain", "real_grain")):
+            states[tag] = {}
+            counts[tag] = run_round(seed, kind, keep=states[tag])
+        rel, unequal, gap = _state_gap(states["grain"], states["array"])
+        n_t = len(states["array"]["tensors"])
+        if unequal == 0 and gap == 0:
+            log(f"[grain] the worker-loader round's end state ({n_t} "
+                f"tensors: the models, global features, aggregates) and "
+                f"scores equal the array round's bit for bit")
+            return counts["grain"]
+        states["array2"] = {}
+        run_round(seed, "real_round", keep=states["array2"])
+    srel, sunequal, sgap = _state_gap(states["array2"], states["array"])
+    log(f"[grain] worker-loader round vs the array round: {unequal} of "
+        f"{n_t} tensors differ, largest relative distance {rel:.3e}, "
+        f"largest score gap {gap:.3e}; the array round against itself (its "
+        f"own spread): {sunequal} differ, {srel:.3e}, {sgap:.3e}")
+    if rel > srel or gap > sgap:
+        raise AssertionError("grain: the worker-loader round lies outside "
+                             "the array round's own spread")
+    return counts["grain"]
+
+
+def _remat_engine(cfg, bert, seed, weights, remat, dev):
+    from creamfl_tpu_torch.engine.server import ServerEngine
+    from creamfl_tpu_torch.models.pcme import PCME
+
+    engine = ServerEngine(cfg, vocab_size=bert.vocab_size, bert_config=bert,
+                          device=dev)
+    engine.model = PCME(embed_dim=DIM, cnn_type=SERVER_CNN,
+                        vocab_size=bert.vocab_size, not_bert=False,
+                        bert_config=bert, dtype=engine.model.img_enc.dtype,
+                        remat=remat)
+    state = engine.init_state(seed, state_dict=weights)
+    engine.set_round_lr(state, 0)
+    return engine, state
+
+
+def _bn_counts(model) -> list:
+    from creamfl_tpu_torch.models.resnet import BatchNorm
+
+    return [int(m.num_batches_tracked) for m in model.modules()
+            if isinstance(m, BatchNorm)]
+
+
+
+
+def remat_phase(seed: int, dev=torch.device("cuda")):
+    """(b) remat at the server's width (R101 + BERT-base, bf16, batch 128
+    at 224², standard trunk): one train step's loss, gradients and running
+    stats (no update) for each mode from the same weights, inputs and
+    generator state under deterministic algorithms, the second "none" step
+    giving the spread the others are held to; every BatchNorm's
+    ``num_batches_tracked`` moved by one; then ms and peak GiB of a full
+    train step (AdamP included) per mode with the default algorithms; then
+    a train_chunk of REMAT_CHUNK_K steps captured with remat="block"
+    against its eager steps (``check_chunk``), the running stats moved k
+    times."""
+    from creamfl_tpu_torch.config import default_config_path, parse_config
+    from creamfl_tpu_torch.models.bert import BertConfig
+
+    cfg = parse_config(default_config_path("coco.json"),
+                       model__embed_dim=DIM, model__cnn_type=SERVER_CNN)
+    bert = SERVER_BERT or BertConfig()
+    vocab = bert.vocab_size
+    step_in = [t[0] for t in chunk_inputs(seed, "train", 1, SERVER_BS,
+                                          vocab, dev)]
+    weights, ref, spread = None, None, None
+    for i, mode in enumerate(REMAT_MODES):
+        engine, state = _remat_engine(cfg, bert, seed, weights, mode, dev)
+        if weights is None:
+            weights = engine.state_dict_of(state)
+        model = state.model
+        before = _bn_counts(model)
+        with _deterministic():
+            torch.manual_seed(seed + 13)
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            staged = engine.stage(*step_in)
+            img_f, txt_f = engine._forward(state, *staged)
+            loss, _ = state.criterion(img_f, txt_f)
+            loss.backward()
+        torch.cuda.synchronize(dev)
+        out = {"loss": loss.detach().reshape(1)}
+        out.update({f"grad.{k}": p.grad.detach().clone()
+                    for k, p in model.named_parameters()
+                    if p.grad is not None})
+        out.update({f"buf.{k}": b.detach().clone()
+                    for k, b in model.named_buffers() if "running" in k})
+        moved = [a - b for a, b in zip(_bn_counts(model), before)]
+        if set(moved) != {1}:
+            raise AssertionError(f"remat {mode}: num_batches_tracked moved "
+                                 f"by {sorted(set(moved))}, not once")
+        # A full step's time and peak, default algorithms.
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_time_ms(lambda: engine.train_step(state, *step_in),
+                          reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        gaps = None
+        if ref is None:
+            ref = out
+        else:
+            gaps = {"loss": _rel_gaps({"l": out["loss"]},
+                                      {"l": ref["loss"]}),
+                    "grads": _rel_gaps(out, {k: v for k, v in ref.items()
+                                             if k.startswith("grad.")}),
+                    "stats": _rel_gaps(out, {k: v for k, v in ref.items()
+                                             if k.startswith("buf.")})}
+        log(f"[remat] {mode}: train step {ms:.1f} ms (CUDA events, AdamP "
+            f"included), peak {peak:.2f} GiB; loss {float(out['loss']):.6f}; "
+            f"every BatchNorm's count moved once"
+            + ("" if gaps is None else
+               f"; against the first none step: loss {gaps['loss']:.3e}, "
+               f"gradients {gaps['grads']:.3e}, running stats "
+               f"{gaps['stats']:.3e} (largest relative distance)"))
+        if i == 1:
+            spread = gaps
+        elif gaps is not None and any(gaps[k] > spread[k] for k in gaps):
+            raise AssertionError(f"remat {mode}: outside the none steps' "
+                                 f"spread {spread}")
+        del engine, state, model, out
+        torch.cuda.empty_cache()
+    del ref
+    engine, state = _remat_engine(cfg, bert, seed, weights, "block", dev)
+    if engine.chunk_route != "graph":
+        raise AssertionError(f"remat: the chunks take the "
+                             f"{engine.chunk_route} route")
+    inputs = chunk_inputs(seed, "train", REMAT_CHUNK_K, SERVER_BS, vocab,
+                          dev)
+    before = _bn_counts(state.model)
+    with _deterministic():
+        check_chunk(engine, state, "train", inputs, None, None, seed + 11,
+                    "remat block")
+    moved = {a - b for a, b in zip(_bn_counts(state.model), before)}
+    log(f"[remat] block train_chunk: every BatchNorm's count moved by "
+        f"{sorted(moved)} (k = {REMAT_CHUNK_K})")
+    if moved != {REMAT_CHUNK_K}:
+        raise AssertionError("remat: the chunk moved the running stats "
+                             "another number of times")
+    engine.release_graphs()
+    del engine, state
+    torch.cuda.empty_cache()
+
+
+def s2d_phase(seed: int, dev=torch.device("cuda")):
+    """(c) The s2d stem against conv7 at 224², batch 128, fp32 with TF32
+    off: the stem outputs' largest relative gap (held to S2D_RTOL) and the
+    R101 trunk's grid in eval mode (printed), and the ms of each stem and
+    each trunk's forward."""
+    from creamfl_tpu_torch.models.resnet import (ResNetBackbone, _s2d_stem,
+                                                 init_parameters)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv7 = ResNetBackbone(SERVER_CNN)
+        init_parameters(conv7, torch.Generator().manual_seed(seed + 17))
+        s2d = ResNetBackbone(SERVER_CNN, stem="s2d")
+        s2d.load_state_dict(conv7.state_dict())
+        conv7, s2d = conv7.to(dev).eval(), s2d.to(dev).eval()
+        x = synth_images(seed, 40_000, SERVER_BS, IMAGE, dev)
+        w = conv7.conv1.weight
+        with torch.no_grad():
+            a = conv7.conv1(x.permute(0, 3, 1, 2))
+            b = _s2d_stem(x, w)
+            stem_gap = float((b - a).abs().max() / a.abs().max())
+            ga, gb = conv7(x), s2d(x)
+            grid_gap = float((gb - ga).abs().max() / ga.abs().max())
+            ms = {"conv7 stem": cuda_time_ms(
+                      lambda: conv7.conv1(x.permute(0, 3, 1, 2))),
+                  "s2d stem": cuda_time_ms(lambda: _s2d_stem(x, w)),
+                  "conv7 trunk": cuda_time_ms(lambda: conv7(x), reps=5),
+                  "s2d trunk": cuda_time_ms(lambda: s2d(x), reps=5)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log(f"[s2d] {SERVER_CNN} at {IMAGE}², batch {SERVER_BS}, fp32, TF32 "
+        f"off: stem largest relative gap {stem_gap:.3e} (<= {S2D_RTOL}), "
+        f"trunk grid (eval) {grid_gap:.3e}; ms by CUDA events "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    if stem_gap > S2D_RTOL or not math.isfinite(grid_gap):
+        raise AssertionError("s2d: the stem disagrees with conv7")
+    del conv7, s2d
+    torch.cuda.empty_cache()
+
+
+def cub_phase(seed: int, dev=torch.device("cuda")):
+    """(d) CUB on the card: the fixture JPEGs by nvJPEG against PIL's
+    decode on the CPU (each image's decode statistics within
+    CUB_DECODE_GAP levels); the reader's batches through ``DeviceImages``
+    on the card and on the CPU (every field but the images equal, the
+    images' largest gap printed); the retrieval evaluator in class mode
+    (``iid_to_cls``) over the card's and the CPU's batches, features from
+    each row's index (multiples of 1/4, exact in fp32): the same scores."""
+    import numpy as np
+
+    from creamfl_tpu_torch.data import frozen, jpeg
+    from creamfl_tpu_torch.data.cub import CUBCaption
+    from creamfl_tpu_torch.data.device_images import DeviceImages, JpegFiles
+    from creamfl_tpu_torch.data.loaders import ArrayLoader
+    from creamfl_tpu_torch.data.vocab import Vocabulary
+    from creamfl_tpu_torch.engine.evaluator import RetrievalEvaluator
+
+    root = os.path.join(FIXTURES, "cub")
+    ds = CUBCaption(os.path.join(root, "images"),
+                    os.path.join(root, "captions"),
+                    os.path.join(root, "trainvalclasses.txt"),
+                    vocab=Vocabulary().load_from_pickle(
+                        frozen.coco_vocab_path()), train=True)
+    paths = [ds.image_path(k) for k in range(len(ds.image_files))]
+    datas = jpeg.read_files(paths)
+    before = dict(jpeg.decode_batch.images_by_route)
+    card, sizes = jpeg.decode_batch(datas, dev, paths)
+    host, _ = jpeg.decode_batch(datas, "cpu", paths)
+    routes = {k: v - before[k]
+              for k, v in jpeg.decode_batch.images_by_route.items()}
+    decode_gap = 0.0
+    for b, (w, h) in enumerate(sizes):
+        w, h = int(w), int(h)
+        got = decode_stats(card[b, :h, :w].cpu())
+        want = decode_stats(host[b, :h, :w])
+        decode_gap = max(decode_gap, max(abs(x - y)
+                                         for x, y in zip(got, want)))
+    batches = {}
+    for side in (dev, torch.device("cpu")):
+        loader = DeviceImages(ArrayLoader(ds, 3, shuffle=True, pad_last=True,
+                                          seed=seed),
+                              JpegFiles(ds.image_path), 224, device=side)
+        batches[side.type] = list(loader)
+    image_gap = 0.0
+    for a, b in zip(batches["cpu"], batches[dev.type]):
+        if sorted(a) != sorted(b):
+            raise AssertionError("cub: the card's batches have other fields")
+        for k in a:
+            if k == "images":
+                image_gap = max(image_gap, float(
+                    (b[k].cpu() - a[k]).abs().max()))
+            elif not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+                raise AssertionError(f"cub: {k} differs on the card")
+    rng = np.random.default_rng(seed)
+    img = (rng.integers(-4, 5, (len(ds), 8)) / 4.0).astype(np.float32)
+    cap = (rng.integers(-4, 5, (len(ds), 8)) / 4.0).astype(np.float32)
+    scores = {}
+    for side in (dev.type, "cpu"):
+        def extract(batch, side=side):
+            rows = np.asarray(batch["index"])
+            return (torch.tensor(img[rows], device=side),
+                    torch.tensor(cap[rows], device=side))
+
+        ev = RetrievalEvaluator(n_crossfolds=0, eval_batch_size=3,
+                                iid_to_cls=ds.iid_to_cls)
+        scores[side] = ev.evaluate(batches[side], extract)
+    log(f"[cub] {len(paths)} fixture JPEGs, routes {json.dumps(routes)}: "
+        f"decode statistics card vs CPU, largest gap {decode_gap:.3f} "
+        f"levels (<= {CUB_DECODE_GAP}); {len(batches['cpu'])} batches "
+        f"through DeviceImages, every field but the images equal, images' "
+        f"largest gap {image_gap:.3e}; class-mode evaluator card == CPU: "
+        f"{scores[dev.type] == scores['cpu']} (rsum "
+        f"{scores['cpu']['rsum']:.2f})")
+    if (routes["nvjpeg"] != len(paths) or decode_gap > CUB_DECODE_GAP
+            or scores[dev.type] != scores["cpu"]):
+        raise AssertionError("cub: the card disagrees with the CPU")
+
+
+def uncertainty_phase(seed: int, dev=torch.device("cuda")):
+    """(e) UncertaintyModule at PCME's image widths, batch SERVER_BS, on the
+    card against the CPU (fp32, TF32 off), within UNC_ATOL; and
+    ``sample_gaussian_embeddings`` on the card (shape, finite)."""
+    from creamfl_tpu_torch.models.uncertainty import (
+        UncertaintyModule, init_uncertainty, sample_gaussian_embeddings)
+
+    gen = torch.Generator().manual_seed(seed + 19)
+    m = UncertaintyModule(UNC_IN, DIM, UNC_HIDDEN)
+    init_uncertainty(m, gen)
+    pooled = torch.randn(SERVER_BS, UNC_IN, generator=gen)
+    tokens = torch.randn(SERVER_BS, UNC_TOKENS, UNC_IN, generator=gen)
+    pad = torch.arange(UNC_TOKENS)[None, :] >= torch.randint(
+        1, UNC_TOKENS + 1, (SERVER_BS, 1), generator=gen)
+    with torch.no_grad():
+        want = m(pooled, tokens, pad)
+        m = m.to(dev)
+        args = (pooled.to(dev), tokens.to(dev), pad.to(dev))
+        got = m(*args)
+        ms = cuda_time_ms(lambda: m(*args))
+        samples = sample_gaussian_embeddings(
+            got, got.clamp(max=0.0), 7,
+            torch.Generator(device=dev).manual_seed(seed))
+    err = float((got.cpu() - want).abs().max())
+    log(f"[uncertainty] {SERVER_BS} x {UNC_TOKENS} tokens of {UNC_IN} -> "
+        f"{DIM}: card vs CPU largest gap {err:.3e} (<= {UNC_ATOL}); "
+        f"{ms:.3f} ms a call (CUDA events); samples "
+        f"{tuple(samples.shape)}")
+    if (err > UNC_ATOL or samples.shape != (SERVER_BS, 7, DIM)
+            or not bool(torch.isfinite(samples).all())):
+        raise AssertionError("uncertainty: the card disagrees with the CPU")
+
+
+def rest_phase(seed: int, dev=torch.device("cuda")):
+    """Phase 12: (a) the worker loader on the real round, (b) remat at the
+    server's width, (c) the s2d stem, (d) CUB on the card, (e) the
+    uncertainty head; (f), the APNG, is in phase 9's PNG_GIF_FILES. Returns
+    the launch counts of (a)'s worker-loader round."""
+    import time
+
+    t0 = time.perf_counter()
+    counts = grain_round_phase(seed)
+    remat_phase(seed, dev)
+    s2d_phase(seed, dev)
+    cub_phase(seed, dev)
+    uncertainty_phase(seed, dev)
+    log(f"[rest] phase 12: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def _descendants(root: int) -> list:
+    """The pids of every process under ``root`` (children, their children,
+    ...), read from ``/proc``."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    parent[int(name)] = int(f.read().rsplit(")", 1)[1]
+                                            .split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    out, todo = [], [root]
+    while todo:
+        pid = todo.pop()
+        kids = [c for c, p in parent.items() if p == pid]
+        out += kids
+        todo += kids
+    return out
+
+
+def _alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie of ours is reaped, and does not)."""
+    try:
+        if os.waitpid(pid, os.WNOHANG)[0] == pid:
+            return False
+    except ChildProcessError:
+        pass
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def stop_children(grace: float = 10.0) -> list:
+    """Stops every process this one started that still runs, and waits for
+    each: the worker loader's server (``stop_worker_server``), then any
+    other descendant (SIGTERM, SIGKILL after ``grace`` seconds), then the
+    multiprocessing resource tracker, which ignores SIGTERM and exits once
+    the workers have. Returns the pids it had to signal."""
+    import signal
+    import time
+    from multiprocessing import resource_tracker
+
+    loaders = sys.modules.get("creamfl_tpu_torch.data.grain_loaders")
+    if loaders is not None:
+        loaders.stop_worker_server()
+    tracker = resource_tracker._resource_tracker._pid
+    left = [p for p in _descendants(os.getpid())
+            if p != tracker and _alive(p)]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in filter(_alive, left):
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace
+        while time.monotonic() < deadline and any(map(_alive, left)):
+            time.sleep(0.05)
+    # multiprocessing has no public call for this: ``_stop`` is the one its
+    # own tests use.
+    resource_tracker._resource_tracker._stop()
+    return left
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3734,6 +4333,10 @@ def main() -> int:
                         help="build and run the paper round at the paper's "
                         "full geometry alone, then stop without the result "
                         "line")
+    parser.add_argument("--rest", action="store_true",
+                        help="build and run phase 12 (the worker loader, "
+                        "remat, the s2d stem, CUB, the uncertainty head) "
+                        "alone, then stop without the result line")
     parser.add_argument("--mesh", action="store_true",
                         help="build and run the paper round, then phase 11 "
                         "(the mesh) alone, then stop without the result "
@@ -3771,11 +4374,13 @@ def main() -> int:
         ("round", opts.round), ("stacked", opts.stacked),
         ("paper_round", opts.paper_round), ("paper_full", opts.paper_full),
         ("real", opts.real_round), ("chunks", opts.chunks),
-        ("mesh", opts.mesh or opts.mesh_cards)) if on]
+        ("rest", opts.rest), ("mesh", opts.mesh or opts.mesh_cards)) if on]
     if alone:
         for kind in alone:
             if kind == "real":
                 real_phase(opts.seed)
+            elif kind == "rest":
+                rest_phase(opts.seed)
             elif kind == "chunks":
                 chunk_phase(opts.seed)
             elif kind == "mesh":
@@ -3810,6 +4415,7 @@ def main() -> int:
     paths["paper_round"] = run_round(opts.seed, "paper_round")
     paths.update(real_phase(opts.seed))
     paths["mesh_round"] = mesh_phase(opts.seed)
+    paths["real_grain"] = rest_phase(opts.seed)
     # Per kernel, its launches on each path that runs it, and their sum.
     by_path = {k: {p: c[k] for p, c in paths.items() if c.get(k, 0)}
                for k in KERNELS}
@@ -3835,4 +4441,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stopped = stop_children()
+        if stopped:
+            print(f"chip_smoke: stopped processes left running {stopped}",
+                  file=sys.stderr)
+    sys.exit(code)

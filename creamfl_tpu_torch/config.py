@@ -3,7 +3,8 @@
 The port's own copy of the JAX package's ``config.py`` (reference
 `src/utils/config.py`). The bundled configs are JSON files under
 ``configs/`` carrying the values of the JAX package's YAML files, so no
-YAML parser is needed.
+YAML parser is needed to read them. ``dump_config`` writes JSON, or YAML
+through PyYAML where it is installed.
 """
 
 from __future__ import annotations
@@ -88,6 +89,23 @@ def parse_config(path_or_dict, strict_cast: bool = True,
         config[section][key] = _cast_like(value, config[section].get(key),
                                           strict_cast)
     return config
+
+
+def dump_config(config: ConfigDict, path: str) -> None:
+    """Serialize a config to .yaml or .json by extension. YAML goes through
+    PyYAML's ``safe_dump``, imported here: it raises ``ImportError`` where
+    PyYAML is absent."""
+    data = config.to_dict()
+    ext = os.path.splitext(path)[1]
+    if ext not in (".yaml", ".yml", ".json"):
+        raise ValueError(f"unsupported config extension: {ext}")
+    with open(path, "w") as f:
+        if ext == ".json":
+            json.dump(data, f, indent=2, default=str)
+        else:
+            import yaml
+
+            yaml.safe_dump(data, f)
 
 
 def default_config_path(name: str) -> str:

@@ -58,6 +58,19 @@ def stack_samples(samples: Sequence[dict], n_valid: int) -> Dict[str, Any]:
     return batch
 
 
+def batch_indices(order: Sequence[int], b: int, batch_size: int,
+                  pad_last: bool):
+    """Row indices of batch ``b`` of an epoch's ``order`` and its count of
+    valid rows: a short final batch is repeat-padded (``idxs[i % n_valid]``)
+    when ``pad_last``, else left ragged. Shared by ArrayLoader and the
+    worker loader's batch view, so both backends make the same batches."""
+    idxs = list(order[b * batch_size:(b + 1) * batch_size])
+    n_valid = len(idxs)
+    if n_valid < batch_size and pad_last:
+        idxs += [idxs[i % n_valid] for i in range(batch_size - n_valid)]
+    return idxs, n_valid
+
+
 def suffix_valid(valid: np.ndarray) -> int:
     """Count valid rows in a batch's ``valid`` mask, asserting the
     ArrayLoader pad contract: pads (``pad_last``) are always a suffix,
@@ -133,36 +146,34 @@ class ArrayLoader:
     def _stack(self, samples: List[dict], n_valid: int) -> Dict[str, Any]:
         return stack_samples(samples, n_valid)
 
-    def __iter__(self) -> Iterator[Dict[str, Any]]:
+    def _epoch_order(self) -> List[int]:
+        """Start the next epoch: its row order, with the dataset's
+        per-sample augmentation rngs keyed to its epoch id."""
         from creamfl_tpu_torch.data.sample_rng import set_epoch
 
-        n = len(self.dataset)
-        order = list(range(n))
+        order = list(range(len(self.dataset)))
         epoch_id = self._next_epoch_id()
         if self.shuffle:
             # Round mode derives the order from (seed, epoch_id) —
             # identical for a resumed process; the default keeps the
-            # legacy sequential stream (grain mirrors both).
+            # legacy sequential stream.
             rng = (random.Random(self.seed * 2_147_483_659 + epoch_id)
                    if self._round is not None else self.rng)
             rng.shuffle(order)
         # Epoch-key the per-sample augmentation rngs (pad refetches then
-        # reproduce the row they duplicate; matches the grain backend).
+        # reproduce the row they duplicate).
         set_epoch(self.dataset, epoch_id)
-        bs = self.batch_size
+        return order
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        order = self._epoch_order()
         # Fast path: a CachedDataset exposes contiguous arrays — one
         # fancy-index per batch instead of n per-sample stacks.
         arrays = (getattr(self.dataset, "arrays", None)
                   if self.collate_fn is None else None)
-        for start in range(0, n, bs):
-            idxs = order[start:start + bs]
-            n_valid = len(idxs)
-            if n_valid < bs:
-                if self.drop_last:
-                    return
-                if self.pad_last and n_valid > 0:
-                    idxs = idxs + [idxs[i % n_valid]
-                                   for i in range(bs - n_valid)]
+        for b in range(len(self)):
+            idxs, n_valid = batch_indices(order, b, self.batch_size,
+                                          self.pad_last)
             if arrays is not None:
                 ids = np.asarray(idxs)
                 batch = {k: a[ids] for k, a in arrays.items()}

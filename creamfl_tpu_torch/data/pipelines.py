@@ -14,8 +14,8 @@ consumes:
   img_test / txt_test   shared local test sets;
   vocab, img_num_class, txt_num_class and the crossfold sizes.
 
-Images are rendered on the host by the datasets and batched by
-``ArrayLoader`` (the JAX package's ``grain`` backend falls back to it);
+Synthetic images are rendered on the host by the datasets and batched by
+``ArrayLoader`` whatever ``--data_backend`` says, as in the JAX package;
 for one seed the batches are bit-equal to the JAX package's. The
 ``--paper_scale`` knobs: ``cache`` pre-renders the caption sets into
 contiguous host arrays, ``prefetch`` assembles batches on a background
@@ -30,7 +30,9 @@ from their published formats, with the frozen artifacts of
 (``data/device_images.py``) that decode and transform each batch's images
 on ``device``. For one seed every caption, label and bookkeeping field is
 bit-equal to the JAX package's bundle, and so is every image for the same
-decoded pixels.
+decoded pixels. Its loaders come from ``make_loader``
+(``data/grain_loaders.py``): ``--data_backend grain --num_workers N``
+assembles their batches in N worker processes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 
 from creamfl_tpu_torch.data.device_synth import (DeviceImageBatches,
                                                  DeviceImageSynth)
+from creamfl_tpu_torch.data.grain_loaders import make_loader
 from creamfl_tpu_torch.data.loaders import (ArrayLoader, CachedDataset,
                                             PrefetchLoader)
 from creamfl_tpu_torch.data.partition import data_partitioner
@@ -219,10 +222,11 @@ def build_real_datasets(args, vocab_path: Optional[str], coco_root: str,
     get_FL_trainloader. Raises FileNotFoundError on missing roots so the
     caller can fall back to synthetic. The frozen artifacts default to the
     packaged copies (``data/frozen.py``). Images are decoded and
-    transformed on ``device``. Every loader is an ``ArrayLoader``: the JAX
-    package's ``make_loader`` gives one too where grain is missing, as on
-    the card's machine, and grain's batches equal it, so
-    ``--data_backend`` changes nothing here."""
+    transformed on ``device``. Every loader comes from ``make_loader``
+    (``data/grain_loaders.py``), as in the JAX package: ``--data_backend
+    grain`` with ``--num_workers N`` assembles the batches in N worker
+    processes, under the ``DeviceImages`` that decodes them in the main
+    process; its batches equal the array backend's."""
     from creamfl_tpu_torch.data import frozen
     from creamfl_tpu_torch.data.agnews import Language
     from creamfl_tpu_torch.data.cifar import Cifar
@@ -236,18 +240,24 @@ def build_real_datasets(args, vocab_path: Optional[str], coco_root: str,
     from creamfl_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
+    backend = getattr(args, "data_backend", "array")
+    workers = int(getattr(args, "num_workers", 0))
+
+    def _loader(dataset, batch_size, **kw):
+        return make_loader(dataset, batch_size, backend=backend,
+                           num_workers=workers, **kw)
 
     def _jpeg_loader(dataset, base, batch_size, **kw):
         """A loader over a COCO or F30k dataset (``base`` the reader under
         any subset) with its images made on the device at 224²."""
-        return DeviceImages(ArrayLoader(dataset, batch_size, **kw),
+        return DeviceImages(_loader(dataset, batch_size, **kw),
                             JpegFiles(base.image_path), 224, device=device)
 
     def _cifar_loader(dataset, base, source, batch_size, **kw):
         """A loader over a CIFAR set (``base`` the reader under any
         subset); the clients of one set share its ``source``, which puts
         the set on the device once."""
-        return DeviceImages(ArrayLoader(dataset, batch_size, **kw), source,
+        return DeviceImages(_loader(dataset, batch_size, **kw), source,
                             base.out_size, CIFAR100_MEAN, CIFAR100_STD,
                             device=device)
 
@@ -357,12 +367,12 @@ def build_real_datasets(args, vocab_path: Optional[str], coco_root: str,
         txt_bs = _family_batch_size(
             512, *(len(parts[i]) for i in range(args.num_txt_clients)))
         datasets["txt_clients"] = [
-            ArrayLoader(_Subset(train, parts[i]), txt_bs, shuffle=True,
-                        pad_last=True, seed=args.seed)
+            _loader(_Subset(train, parts[i]), txt_bs, shuffle=True,
+                    pad_last=True, seed=args.seed)
             for i in range(args.num_txt_clients)]
         test_txt = Language(agnews_root, "AG_NEWS", train=False,
                             vocab=vocab)
-        datasets["txt_test"] = ArrayLoader(
+        datasets["txt_test"] = _loader(
             test_txt, _family_batch_size(512, len(test_txt)),
             pad_last=True)
     if args.num_mm_clients > 0:

@@ -11,8 +11,10 @@ device transforms as a decoded JPEG.
   IDAT data; unfiltering, Adam7 de-interlacing and the expansion of every
   colour type and bit depth to RGB run in the port's C++ library
   (``csrc/native.cpp`` ``png_decode``). An animated PNG gives its default
-  image when that image is the animation's first frame (PIL's frame 0);
-  otherwise it raises.
+  image, the IDAT one, as PIL's frame 0 does: whether that image is the
+  animation's first frame (an ``fcTL`` before the IDAT) or stands outside
+  the animation (the IDAT before the first ``fcTL``); the animation chunks
+  (``acTL``, ``fcTL``, ``fdAT``) are skipped.
 * GIF: the first frame, as PIL's ``convert("RGB")`` of a freshly opened
   file takes it: the screen filled with the frame's transparent index (or
   index 0), the frame's LZW codes (``csrc/native.cpp`` ``gif_decode``)
@@ -101,19 +103,12 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     info = png_info(data, name)
     if info.interlace not in (0, 1):
         raise _error(name, f"PNG interlace method {info.interlace}")
-    idat, palette, animated, frame_first = [], b"", False, False
+    idat, palette = [], b""
     for kind, payload in _png_chunks(data, name):
         if kind == b"IDAT":
             idat.append(payload)
         elif kind == b"PLTE":
             palette = payload
-        elif kind == b"acTL":
-            animated = True
-        elif kind == b"fcTL" and not idat:
-            frame_first = True
-    if animated and not frame_first:
-        raise _error(name, "an animated PNG whose default image is not its "
-                     "first frame (PIL shows another frame)")
     if info.color_type == 3 and not palette:
         raise _error(name, "a palette PNG without its PLTE chunk")
     try:

@@ -123,6 +123,18 @@ def flax_pie_to_torch(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def flax_uncertainty_to_torch(params: Mapping, prefix: str = ""
+                              ) -> Dict[str, torch.Tensor]:
+    """UncertaintyModule (Flax) -> ``models.uncertainty.UncertaintyModule``
+    keys under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for w in ("w_1", "w_2"):
+        _no_bias_linear(sd, f"{prefix}attention.{w}", params["attention"][w])
+    _linear(sd, f"{prefix}fc", params["fc"])
+    _linear(sd, f"{prefix}embed", params["embed"])
+    return sd
+
+
 # Flax BertLayer submodule -> HF BertLayer key.
 _BERT_LAYER = {
     "q": "attention.self.query",

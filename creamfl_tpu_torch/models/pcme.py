@@ -14,7 +14,8 @@ Port of the JAX package's ``models/pcme.py`` (reference
 ``dtype=torch.bfloat16`` runs the trunk and BERT under ``torch.autocast``
 (bf16 matmuls and convolutions, fp32 params); heads, PIE, the GRU branch
 and everything after them stay fp32, as in the JAX package. ``fused_bn``
-is passed to the trunk.
+and ``remat`` ("none", "block", "dots": activation recompute in the
+backward) are passed to the trunk (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -66,11 +67,11 @@ class ImageEncoder(nn.Module):
 
     def __init__(self, cnn_type: str = "resnet18", embed_dim: int = 256,
                  mlp_local: bool = False, dtype: torch.dtype = torch.float32,
-                 fused_bn: bool = False):
+                 fused_bn: bool = False, remat: str = "none"):
         super().__init__()
         cnn_dim = resnet_feature_dim(cnn_type)
         self.dtype = dtype
-        self.cnn = ResNetBackbone(cnn_type, fused_bn=fused_bn)
+        self.cnn = ResNetBackbone(cnn_type, fused_bn=fused_bn, remat=remat)
         self.fc = nn.Linear(cnn_dim, embed_dim)
         self.pie_net = PIENet(1, cnn_dim, embed_dim, cnn_dim // 2)
         self.head_proj = MLPHead(embed_dim) if mlp_local else None
@@ -146,18 +147,21 @@ class PCME(nn.Module):
     """Joint embedding model; forward returns the reference's output dict.
 
     Fields mirror the JAX package's ``PCME``; ``not_bert=True`` takes the
-    GRU text branch (``word_dim`` wide embeddings)."""
+    GRU text branch (``word_dim`` wide embeddings). ``remat`` goes to the
+    image trunk (the JAX package's ``ImageEncoder.remat``)."""
 
     def __init__(self, embed_dim: int = 256, cnn_type: str = "resnet18",
                  vocab_size: int = 11755, word_dim: int = 300,
                  not_bert: bool = True, mlp_local: bool = False,
                  bert_config: BertConfig = BertConfig(),
-                 dtype: torch.dtype = torch.float32, fused_bn: bool = False):
+                 dtype: torch.dtype = torch.float32, fused_bn: bool = False,
+                 remat: str = "none"):
         super().__init__()
         self.not_bert = not_bert
         self.bert_config = bert_config
         self.img_enc = ImageEncoder(cnn_type, embed_dim, mlp_local,
-                                    dtype=dtype, fused_bn=fused_bn)
+                                    dtype=dtype, fused_bn=fused_bn,
+                                    remat=remat)
         if not_bert:
             self.txt_enc = TextEncoderGRU(vocab_size, embed_dim, word_dim,
                                           mlp_local)

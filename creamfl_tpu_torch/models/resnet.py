@@ -27,10 +27,30 @@ have the same ``state_dict`` keys, so weights interchange.
 
 Compute dtype: the trunk runs in the input's dtype, or in bf16 under
 ``torch.autocast`` (the PCME image encoder turns it on for bf16).
+
+``ResNetBackbone(remat=...)`` recomputes activations in the backward, as
+the JAX package's ``nn.remat`` of each block: "block" saves only each
+residual block's input (``torch.utils.checkpoint``, non-reentrant) and
+runs the block again in the backward; "dots" is the JAX policy
+``checkpoint_dots_with_no_batch_dims`` as a selective-checkpoint policy:
+it keeps only the outputs of matrix products without batch dimensions
+(``mm``, ``addmm``) and recomputes the rest. Convolutions are not such
+products, so on a trunk of convolutions "dots" recomputes as much as
+"block", as it does in the JAX package.
+The recompute moves no running statistic: a BatchNorm moves its running
+stats and ``num_batches_tracked`` once a step, in the first forward, on
+the standard and the fused trunk. A mesh's synced BatchNorm is not
+recomputed: ``set_batchnorm_mesh`` raises for a remat trunk on more than
+one rank. ``stem="s2d"`` runs the 7x7/2 stem as the JAX package's
+space-to-depth stem: 2x2 pixel cells regrouped into 12 channels and a
+4x4 VALID conv on the zero-padded ``conv1.weight`` (the same weight, so
+checkpoints and ``models/convert.py`` are unchanged); odd sizes take the
+7x7 conv.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -49,6 +69,9 @@ class BatchNorm(nn.Module):
     """
 
     mesh = None
+    # True while a remat trunk recomputes the block: the running stats
+    # moved in the first forward.
+    frozen = False
 
     def __init__(self, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -68,15 +91,13 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.mesh is not None and self.mesh.world > 1:
             return self._synced(x)
-        with torch.no_grad():
-            # Stats in fp32 whatever the compute dtype, as flax takes them.
-            dims = (0,) if x.dim() == 2 else (0, 2, 3)
-            var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
-            self.running_mean.mul_(self.momentum).add_(
-                mean, alpha=1 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(
-                var, alpha=1 - self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not self.frozen:
+            with torch.no_grad():
+                # Stats in fp32 whatever the compute dtype, as flax takes
+                # them.
+                dims = (0,) if x.dim() == 2 else (0, 2, 3)
+                var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+                _update_running(self, mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
 
@@ -148,15 +169,22 @@ class _SyncedNorm(torch.autograd.Function):
 def set_batchnorm_mesh(module: nn.Module, mesh) -> None:
     """Give every BatchNorm under ``module`` the mesh its train-mode
     statistics span (None: each rank's rows alone). The fused trunk takes
-    its BatchNorm statistics inside K5 and has no mesh variant: it raises
-    under a mesh of more than one rank (ROADMAP queue 1)."""
+    its BatchNorm statistics inside K5 and has no mesh variant, and a remat
+    trunk would run the synced BatchNorm's collectives again in its
+    recompute: both raise under a mesh of more than one rank."""
     for m in module.modules():
-        if (isinstance(m, FusedBottleneck) and mesh is not None
-                and mesh.world > 1):
+        if mesh is None or mesh.world <= 1:
+            pass
+        elif isinstance(m, FusedBottleneck):
             raise NotImplementedError(
                 "the fused trunk (fused_bn=True) takes its BatchNorm "
                 "statistics inside K5 and has no mesh variant (ROADMAP "
                 "queue 1); run the standard trunk on a mesh")
+        elif isinstance(m, ResNetBackbone) and m.remat != "none":
+            raise NotImplementedError(
+                f"remat={m.remat!r} would recompute the synced BatchNorm "
+                "and its collectives in the backward; run remat='none' on "
+                "a mesh")
         if isinstance(m, BatchNorm):
             m.mesh = mesh
 
@@ -225,6 +253,10 @@ def _fold(bn: BatchNorm, mean: torch.Tensor, var: torch.Tensor):
 
 def _update_running(bn: BatchNorm, mean: torch.Tensor,
                     var: torch.Tensor) -> None:
+    """Move ``bn``'s running stats (flax's momentum update), unless a remat
+    recompute froze them."""
+    if bn.frozen:
+        return
     with torch.no_grad():
         bn.running_mean.mul_(bn.momentum).add_(mean.detach(),
                                                alpha=1 - bn.momentum)
@@ -328,18 +360,99 @@ def resnet_feature_dim(cnn_type: str) -> int:
     return RESNET_CONFIGS[cnn_type][2]
 
 
+#: Ops whose outputs remat="dots" keeps: matrix products without batch
+#: dimensions, the JAX policy's ``dot_general`` outputs (not convolutions,
+#: nor ``bmm``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_POLICIES = ("none", "block", "dots")
+STEMS = ("conv7", "s2d")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+@contextlib.contextmanager
+def _frozen_stats(block: nn.Module):
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.frozen = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.frozen = False
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor, remat: str
+                 ) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint``: its first run moves
+    the running stats, the backward's recompute does not. No RNG state is
+    kept (the blocks draw none; reading the CUDA RNG state is illegal while
+    a CUDA graph is captured)."""
+    from torch.utils.checkpoint import checkpoint
+
+    runs = []
+
+    def run(inp):
+        runs.append(1)
+        if len(runs) == 1:
+            return block(inp)
+        with _frozen_stats(block):
+            return block(inp)
+
+    kw = {"context_fn": _dots_context} if remat == "dots" else {}
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
+
+
+def _s2d_stem(images: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The 7x7/2/p3 stem conv as a 4x4/1 VALID conv over 2x2 pixel cells
+    regrouped into 12 channels: NHWC [B, H, W, 3] (H, W even) and OIHW
+    [64, 3, 7, 7] -> NCHW [B, 64, H/2, W/2] (a channels-last view). The
+    kernel is zero-padded to 8x8 and regrouped each call, so gradients
+    reach ``weight`` as through the 7x7 conv (the JAX package's
+    ``_s2d_stem``)."""
+    b, h, w, c = images.shape
+    x = F.pad(images, (0, 0, 3, 3, 3, 3))
+    hc, wc = (h + 6) // 2, (w + 6) // 2
+    x = x.reshape(b, hc, 2, wc, 2, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, hc, wc, 4 * c).permute(0, 3, 1, 2)
+    w8 = F.pad(weight, (0, 1, 0, 1))  # [O, 3, 8, 8]
+    o = weight.shape[0]
+    w4 = w8.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return F.conv2d(x, w4.reshape(o, 4 * c, 4, 4))
+
+
 class ResNetBackbone(nn.Module):
     """Stride-32 conv trunk: NHWC [B, H, W, 3] -> NHWC [B, H/32, W/32, C].
 
     ``fused_bn=True`` swaps ``FusedBottleneck`` in for ``Bottleneck``
     (BasicBlock trunks are unaffected), as the JAX package does.
+    ``remat`` ("none", "block", "dots") and ``stem`` ("conv7", "s2d") are
+    the JAX package's (module docstring).
     """
 
-    def __init__(self, cnn_type: str = "resnet18", fused_bn: bool = False):
+    def __init__(self, cnn_type: str = "resnet18", fused_bn: bool = False,
+                 remat: str = "none", stem: str = "conv7"):
         super().__init__()
         if cnn_type not in RESNET_CONFIGS:
             raise NotImplementedError(
                 f"{cnn_type}: the ported trunks are {sorted(RESNET_CONFIGS)}")
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES}")
+        if stem not in STEMS:
+            raise ValueError(f"stem {stem!r}: one of {STEMS}")
+        self.remat, self.stem = remat, stem
         block_cls, stage_sizes, _ = RESNET_CONFIGS[cnn_type]
         if fused_bn and block_cls is Bottleneck:
             block_cls = FusedBottleneck
@@ -358,10 +471,17 @@ class ResNetBackbone(nn.Module):
         self.n_stages = len(stage_sizes)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = images.permute(0, 3, 1, 2)
-        x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        if (self.stem == "s2d" and images.shape[1] % 2 == 0
+                and images.shape[2] % 2 == 0):
+            x = _s2d_stem(images, self.conv1.weight)
+        else:
+            x = self.conv1(images.permute(0, 3, 1, 2))
+        x = self.maxpool(F.relu(self.bn1(x)))
+        remat = self.remat != "none" and torch.is_grad_enabled()
         for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = (_remat_block(block, x, self.remat) if remat
+                     else block(x))
         return x.permute(0, 2, 3, 1)
 
 

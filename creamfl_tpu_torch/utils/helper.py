@@ -1,7 +1,8 @@
 """Experiment helpers (reference `src/utils/helper.py`).
 
 Port of the JAX package's ``utils/helper.py`` (``set_seed``,
-``get_save_dirs``), with the server checkpoint that ``MMFL._save`` writes.
+``get_save_dirs``, ``to_one_hot``), with the server checkpoint that
+``MMFL._save`` writes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,15 @@ def get_save_dirs(exp_dir: str, name: str) -> Dict[str, str]:
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     return dirs
+
+
+def to_one_hot(labels, n_dims: int) -> torch.Tensor:
+    """Integer labels -> float32 one-hot [..., n_dims] (reference Utils.py
+    to_one_hot); labels outside [0, n_dims) give zero rows, as
+    ``jax.nn.one_hot``'s do."""
+    labels = torch.as_tensor(labels).long()
+    return (labels[..., None] == torch.arange(
+        n_dims, device=labels.device)).float()
 
 
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> str:

@@ -1,9 +1,11 @@
-"""Per-phase wall-clock timers.
+"""Tracing and per-phase wall-clock timers.
 
-``StepTimer`` collects named phase times and reports them. On a CUDA
-device (the default) each phase starts and ends with
-``torch.cuda.synchronize()``, so asynchronous kernel launches are charged
-to the phase that made them.
+``trace`` wraps a block in a ``torch.profiler`` trace written into a log
+directory (the JAX package's ``jax.profiler`` trace; viewable in
+TensorBoard or Perfetto), and is a no-op without one. ``StepTimer``
+collects named phase times and reports them. On a CUDA device (the
+default) each phase starts and ends with ``torch.cuda.synchronize()``, so
+asynchronous kernel launches are charged to the phase that made them.
 """
 
 from __future__ import annotations
@@ -11,11 +13,31 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from creamfl_tpu_torch.utils.device import resolve_device
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """A ``torch.profiler`` trace of the block (host activity, and the
+    card's where CUDA is available) written into ``log_dir`` as a Chrome
+    trace (``*.pt.trace.json``) when a log dir is given; a no-op
+    otherwise."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
 
 
 class StepTimer:

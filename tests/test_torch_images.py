@@ -7,15 +7,17 @@ The JAX package opens every image with PIL, so a PNG or a GIF stored as
 
 * PNG files of every colour type and bit depth, interlaced (Adam7) and not,
   their rows under all five filter types, written here by a small encoder
-  of this file, and the files Pillow writes (also an animated PNG): each
-  read bit-equal to PIL's ``convert("RGB")``;
+  of this file, and the files Pillow writes (also animated PNGs, with the
+  default image the animation's first frame and outside it): each read
+  bit-equal to PIL's ``convert("RGB")``;
 * GIF files: Pillow's (global palette, interlaced and not, gray), one with
   its palette moved into the frame (local), one whose first frame lies
   inside a larger screen with and without a transparent index;
 * sizes from the headers, a file of none of the three formats raising with
   its name;
-* the real-data bundle with one fixture JPEG replaced by a PNG under its
-  name, equal to the JAX package's bundle.
+* the real-data bundle with one fixture JPEG replaced by a PNG, or by an
+  APNG whose default image is outside its animation, under its name, equal
+  to the JAX package's bundle.
 
 Tolerance: none (uint8, bit for bit).
 """
@@ -187,14 +189,41 @@ def test_animated_png_gives_frame_zero():
     assert b"acTL" in data
     np.testing.assert_array_equal(_read(data), _pil_rgb(data))
     np.testing.assert_array_equal(_read(data), np.asarray(frames[0]))
-    # The default image outside the animation: PIL shows another frame.
+    # The first fcTL moved behind the frames: the IDAT image stands outside
+    # the animation, and PIL still shows it.
     i = data.index(b"fcTL") - 4
     (length,) = struct.unpack(">I", data[i:i + 4])
     moved = data[:i] + data[i + 12 + length:]
     j = moved.index(b"IEND") - 4
     moved = moved[:j] + data[i:i + 12 + length] + moved[j:]
-    with pytest.raises(jpeg.JpegError, match="late.jpg.*animated"):
-        _read(moved, "late.jpg")
+    np.testing.assert_array_equal(_read(moved, "late.jpg"), _pil_rgb(moved))
+    np.testing.assert_array_equal(_read(moved, "late.jpg"),
+                                  np.asarray(frames[0]))
+
+
+def _apng_default_image(images) -> bytes:
+    """Pillow's APNG whose default image (``images[0]``, the IDAT) is not
+    part of the animation: its IDAT comes before the first fcTL."""
+    buf = io.BytesIO()
+    images[0].save(buf, format="PNG", save_all=True,
+                   append_images=list(images[1:]), default_image=True)
+    data = buf.getvalue()
+    assert b"acTL" in data and data.index(b"IDAT") < data.index(b"fcTL")
+    return data
+
+
+def test_apng_default_image_equal_pil():
+    frames = [Image.fromarray(np.full((9, 7, 3), v, np.uint8))
+              for v in (10, 20, 30)]
+    data = _apng_default_image(frames)
+    np.testing.assert_array_equal(_read(data, "anim.jpg"), _pil_rgb(data))
+    assert (_read(data, "anim.jpg") == 10).all()
+    rng = np.random.default_rng(5)
+    frames = [Image.fromarray(rng.integers(0, 256, (6, 11, 3), np.uint8))
+              for _ in range(3)]
+    data = _apng_default_image(frames)
+    np.testing.assert_array_equal(_read(data), _pil_rgb(data))
+    np.testing.assert_array_equal(_read(data), np.asarray(frames[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +344,24 @@ def test_bundle_with_png_equal_to_jax(tmp_path):
     """COCO's fixture images copied, one replaced by a PNG of its pixels
     under its own name; the public and test loaders of both packages'
     bundles over one epoch, every field equal."""
+    def write(victim, rgb):
+        rgb.save(victim, format="PNG")
+
+    _bundle_equal_to_jax(tmp_path, write)
+
+
+def test_bundle_with_apng_equal_to_jax(tmp_path):
+    """As above with an APNG whose default image (the fixture's pixels)
+    stands outside its animation."""
+    def write(victim, rgb):
+        others = [Image.new("RGB", rgb.size, (v, v, v)) for v in (40, 80)]
+        with open(victim, "wb") as f:
+            f.write(_apng_default_image([rgb] + others))
+
+    _bundle_equal_to_jax(tmp_path, write)
+
+
+def _bundle_equal_to_jax(tmp_path, write):
     from test_torch_real_data import ROOTS, _args, _partition_dir
 
     from creamfl_tpu.data import native as jnative
@@ -328,7 +375,7 @@ def test_bundle_with_png_equal_to_jax(tmp_path):
                           "COCO_train2014_000000000002.jpg")
     with Image.open(victim) as im:
         rgb = im.convert("RGB")
-    rgb.save(victim, format="PNG")
+    write(victim, rgb)
     with open(victim, "rb") as f:
         assert f.read(8) == png_gif.PNG_MAGIC
     with pytest.MonkeyPatch.context() as mp:
