@@ -10,18 +10,23 @@ Phases (any failure exits non-zero):
 1. Build the kernel sources (``creamfl_tpu_torch/csrc/gallery.cu``,
    ``csrc/fused_bn_mm.cu`` and ``csrc/jpeg.cu``), one nvcc each, in
    parallel.
-2. The gallery kernels' first calls on their tc route, small and ragged, in
+2. The gallery kernels' first calls on every route, small and ragged, in
    a subprocess under a time limit (``--probe`` runs this step alone).
-   Then hold each gallery kernel (K1 row logsumexp, K2 softmax matvec, K3
-   fused gallery CE, K4 con_w diagonal) on both of its routes (tc: 3xTF32
-   mma.sync; simt: fp32 FMAs) against its plain PyTorch version on the
-   card at the main path's shapes, an odd shape, the mlp_local width (D
-   512) and bf16 features (K3), each call's route asserted, and time both
-   routes, the plain version and one PyTorch call computing the same
-   function. K3 also batched over a stacked client family (``segments``:
-   2 x 128 rows against 2048 and 3 x 128 against 50 000 gallery rows),
-   per segment against the plain version, and timed against one launch
-   per member.
+   Then the card's TF32 rates of mma.sync and of wgmma, and each gallery
+   kernel (K1 row logsumexp, K2 softmax matvec, K3 fused gallery CE, K4
+   con_w diagonal) on each of its routes (the lse pass of K1, K3's
+   forward and K4 on wgmma: 3xTF32 wgmma fed by TMA, its operands' small
+   halves from a split pre-pass or made in shared memory; the matvec pass
+   of K2 and K3's backward on tc: 3xTF32 mma.sync; simt: fp32 FMAs; the
+   lse pass also on tc) against its plain PyTorch version on the card at
+   the main path's shapes, an odd shape, the mlp_local width (D 512) and
+   bf16 features (K3), each call's route asserted, and time every route,
+   the plain version and one PyTorch call computing the same function, K1
+   and K4 also with both sources of the wgmma route's small halves (the
+   pre-pass timed on its own). K3 also batched over a stacked client
+   family (``segments``: 2 x 128 rows against 2048 and 3 x 128 against
+   50 000 gallery rows), per segment against the plain version, and timed
+   against one launch per member.
 3. Hold K5 (fused BN-normalise + 1x1 conv + stats, forward) and K6 (its
    backward) against their plain versions at a ragged-M bf16 shape (the
    first call of either wgmma route, so that a hang shows at once), at
@@ -40,7 +45,8 @@ Phases (any failure exits non-zero):
    with ``use_bf16=True`` (``--client_bf16``) from the same weights and
    inputs: their features' least row cosine against the fp32 run's must be
    >= 0.99, and both runs' steps and sweeps are timed. K1-K4 must have
-   launched here, every launch on the tc route.
+   launched here, every launch on the planner's route (``MAIN_ROUTE``:
+   the lse pass on wgmma, the matvec pass on tc).
 5. The server at the paper's width (ResNet-101 + BERT-base, embed 256,
    bf16, batch 128 at 224², max_len 32): train steps, an extraction step at
    batch 256, a distill step against 50 000 x 256 targets and an eval step,
@@ -53,7 +59,7 @@ Phases (any failure exits non-zero):
    global features, an image, a text and an mm client, con_w, distillation,
    retrieval eval, at the JAX package's default synthetic scale (2048-row
    public set at 224², R101 + BERT-base server). Every K3 and K4 launch of
-   the round on the tc route, as many as the round's steps make; its con_w
+   the round on its main route, as many as the round's steps make; its con_w
    against the plain version from the uploaded reps; unit-norm global
    features; scores in [0, 100]; the StepTimer phases, the round's wall
    time, host loader time, the card's utilization and peak memory.
@@ -61,7 +67,8 @@ Phases (any failure exits non-zero):
    the build and this step alone): two clients of each kind, all six
    sampled, with a round checkpoint (``--ckpt_dir``). One K3 launch per
    family and public batch (two for mm), each over 2 x 128 rows in 2
-   segments, every launch on tc; con_w against the plain version; then a
+   segments, every launch on its main route; con_w against the plain
+   version; then a
    fresh ``MMFL`` over the same checkpoint directory resumes at round 1
    with every restored server and client state dict equal, bit for bit,
    to the round's.
@@ -72,7 +79,8 @@ Phases (any failure exits non-zero):
    5 000 samples at 32², mm clients of 2 000 captions, a 25 000-caption
    test, the public and test images synthesized on the card. No 224² image
    is rendered on the host, every device-image batch is on the card, every
-   K3 and K4 launch is on tc and as many as the round's steps make; con_w,
+   K3 and K4 launch is on its main route and as many as the round's steps
+   make; con_w,
    global features and scores as in step 6. Then the synth on the card
    (the same ids in two orders and batch sizes bit-equal; the CPU test's
    distribution bounds over 4 096 images; event and host ms per batch of
@@ -95,7 +103,8 @@ Phases (any failure exits non-zero):
    widths (R101 + BERT-base with a vocab.txt of the frozen COCO words,
    ResNet-18 image clients at 256², PCME ResNet-18 mm clients; stacked, 2
    of each kind, an 8-row public set): every real image batch on the card,
-   every JPEG decoded by nvJPEG, every K3 and K4 launch on tc, con_w, global
+   every JPEG decoded by nvJPEG, every K3 and K4 launch on its main route,
+   con_w, global
    features and scores as in step 6; then ``main.run`` with the arguments
    of the JAX package's two-round fixture test, one round. PNG and GIF
    files under a JPEG's name (PNG_GIF_FILES, base64 here) decode on the
@@ -129,8 +138,9 @@ Phases (any failure exits non-zero):
    0.99 against step 8's, or, where step 8's round against itself with
    its weights nudged misses that too, within 3x its distance; the DP
    step's gradients likewise within 3x world 1's own spread; con_w
-   against its plain version from the gathered uploads, every K3/K4 launch on tc and each rank's counts what
-   its share of the families and uploads makes, scores in [0, 100] with
+   against its plain version from the gathered uploads, every K3/K4
+   launch on its main route and each rank's counts what its share of the
+   families and uploads makes, scores in [0, 100] with
    their gap to step 8's, each rank's phases and peak memory.
    ``--mesh-cards N`` runs (c) over NCCL on N >= 2 cards instead, one
    rank each (not in the default run: the default machine has one card).
@@ -139,7 +149,8 @@ Phases (any failure exits non-zero):
    real bundle with ``--data_backend grain --num_workers 2`` equal to the
    array backend's by per-batch sha256, seconds an epoch of both; then step
    9's real round on the array backend and on the worker loader under
-   deterministic algorithms, each path's K3/K4 launches counted and on tc,
+   deterministic algorithms, each path's K3/K4 launches counted and on
+   their main routes,
    their end states (every model, the global features, the aggregates) and
    scores equal bit for bit (or within a second array round's spread), the
    loader time and share of both printed. (b) ``remat`` at the server's
@@ -229,12 +240,16 @@ KERNELS = {
     "mm_bn_stats_bwd": (FUSED_SOURCE, "creamfl_tpu/ops/fused_bn_mm.py:212"),
 }
 GALLERY_KERNELS = tuple(KERNELS)[:4]
-# The tc route's first calls run in a subprocess under this limit (s).
+# The gallery routes' first calls run in a subprocess under this limit (s).
 PROBE_TIMEOUT = 240
 # Tolerances of kernel vs plain version, both fp32; they differ only in
 # summation order (split-and-merge over gallery tiles vs cuBLAS blocks) and,
-# on the tc route, by 3xTF32's dropped small*small terms (~2^-22 of each
-# product, below fp32 summation noise).
+# on the tensor-core routes, by 3xTF32's dropped terms: tc splits each
+# operand with a big half rounded to nearest (~2^-22 of each product lost),
+# wgmma reads the operand itself as its big half, truncated (each operand
+# carried to 2^-20, ~3 * 2^-22 of each product lost on average; a logit of
+# unit rows within ~3e-6 at worst): below TOL either way (the CPU test of
+# ops/gallery.py:wgmma_tf32x3_matmul).
 TOL = {
     # lse of up to 50 000 terms is ~11-30: 1e-4 absolute is ~10 ulp.
     "row_logsumexp": dict(rtol=0.0, atol=1e-4),
@@ -365,6 +380,43 @@ def build_phase() -> None:
                 log("  ptxas:", line.strip())
 
 
+# The planner's route of each gallery wrapper on the main path's inputs:
+# the lse pass (K1, K3's forward, K4) on wgmma, the matvec pass on tc.
+MAIN_ROUTE = {"row_logsumexp": "wgmma", "softmax_matvec": "tc",
+              "fused_gallery_ce": "wgmma", "conw_diag": "wgmma"}
+
+
+def main_route_counts(name: str, n: int) -> dict:
+    """``launches_by_route`` of wrapper ``name`` after n main-path
+    launches: all n on its ``MAIN_ROUTE``."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    return {r: n if r == MAIN_ROUTE[name] else 0 for r in K.ROUTES}
+
+
+def expect_main_routes(tag: str, routes, counts) -> None:
+    """Every gallery wrapper's launches (``counts``) all on its main
+    route, by ``routes`` ({name: launches_by_route})."""
+    for name in GALLERY_KERNELS:
+        want = main_route_counts(name, counts[name])
+        if routes[name] != want:
+            raise AssertionError(f"{tag}: {name} took routes "
+                                 f"{routes[name]}, not {want}")
+
+
+@contextlib.contextmanager
+def wgmma_split(split: str):
+    """The wgmma lse pass with its small halves from ``split`` ("prepass"
+    or "smem") for the calls inside."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    old, K.WGMMA_SPLIT = K.WGMMA_SPLIT, split
+    try:
+        yield
+    finally:
+        K.WGMMA_SPLIT = old
+
+
 def gallery_route_counts():
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
@@ -387,13 +439,15 @@ def expect_routes(tag: str, before, want) -> None:
 
 
 def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
-    """K1, K2 and K3 (forward and backward) on ``route`` against their
-    plain versions, with each call's route asserted. bf16 features run K3
-    alone: its loss against the plain CE of the same (upcast) values, its
-    bf16 dfeats against the plain fp32 dfeats."""
+    """K1 and K3's forward on ``route``, K2 and K3's backward on its
+    matvec route (``"wgmma"``'s is tc), against their plain versions, with
+    each call's route asserted. bf16 features run K3 alone: its loss
+    against the plain CE of the same (upcast) values, its bf16 dfeats
+    against the plain fp32 dfeats."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
+    mv = K.matvec_route(route)
     before = gallery_route_counts()
     if f.dtype == torch.float32:
         lse_p = P.streaming_logsumexp(f, gal, tau)
@@ -402,10 +456,10 @@ def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
             lse_p, TOL["row_logsumexp"]))
         errs["softmax_matvec"] = max(errs["softmax_matvec"], check(
             f"{tag} softmax_matvec",
-            K.softmax_matvec(f, gal, lse_p, tau, route=route),
+            K.softmax_matvec(f, gal, lse_p, tau, route=mv),
             P.softmax_matvec(f, gal, lse_p, tau), TOL["softmax_matvec"]))
         expect_routes(f"{tag} K1/K2", before, {
-            "row_logsumexp": (route, 1), "softmax_matvec": (route, 1)})
+            "row_logsumexp": (route, 1), "softmax_matvec": (mv, 1)})
         before = gallery_route_counts()
     fk = f.clone().requires_grad_(True)
     fp = f.detach().float().clone().requires_grad_(True)
@@ -415,7 +469,7 @@ def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
     loss_p.backward()
     expect_routes(f"{tag} K3", before, {
         "fused_gallery_ce": (route, 1), "row_logsumexp": (route, 1),
-        "softmax_matvec": (route, 1)})
+        "softmax_matvec": (mv, 1)})
     if fk.grad.dtype != f.dtype:
         raise AssertionError(f"{tag}: dfeats in {fk.grad.dtype}")
     e_loss = check(f"{tag} fused_gallery_ce loss", loss_k.detach(),
@@ -430,9 +484,10 @@ def check_segmented_case(tag, f, gal, labels, tau, route, segments,
                          errs) -> None:
     """K3 over ``segments`` equal segments of the rows of ``f`` (a stacked
     family's members on one public batch: ``labels`` repeats each
-    segment's), one launch each way on ``route``: each segment's loss and
-    the dfeats of a weighted sum of the losses (a different gbar per
-    segment) against the plain segmented CE."""
+    segment's), one launch each way (forward on ``route``, backward on its
+    matvec route): each segment's loss and the dfeats of a weighted sum of
+    the losses (a different gbar per segment) against the plain segmented
+    CE."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
@@ -448,7 +503,7 @@ def check_segmented_case(tag, f, gal, labels, tau, route, segments,
     (weights * loss_p).sum().backward()
     expect_routes(f"{tag} K3 x{segments}", before, {
         "fused_gallery_ce": (route, 1), "row_logsumexp": (route, 1),
-        "softmax_matvec": (route, 1)})
+        "softmax_matvec": (K.matvec_route(route), 1)})
     if loss_k.shape != (segments,):
         raise AssertionError(f"{tag}: loss shape {tuple(loss_k.shape)}")
     errs["fused_gallery_ce"] = max(
@@ -460,7 +515,8 @@ def check_segmented_case(tag, f, gal, labels, tau, route, segments,
 
 def time_segmented(tag, f, gal, labels, tau, segments) -> None:
     """K3 over ``segments`` members in one launch each way against one
-    launch per member (tc), the plain segmented CE and one library call
+    launch per member (both on the planner's routes: wgmma forward, tc
+    backward), the plain segmented CE and one library call
     (cross_entropy per row, then the segment means), forward + backward;
     device time of the segmented call by kernel."""
     from creamfl_tpu_torch.ops import gallery as P
@@ -474,11 +530,11 @@ def time_segmented(tag, f, gal, labels, tau, segments) -> None:
             fn(x).sum().backward()
         return go
 
-    one = run(lambda x: K.fused_gallery_ce(x, gal, labels, tau, route="tc",
+    one = run(lambda x: K.fused_gallery_ce(x, gal, labels, tau,
                                            segments=segments))
     apart = run(lambda x: torch.stack([
         K.fused_gallery_ce(x[i * rows:(i + 1) * rows], gal,
-                           labels[i * rows:(i + 1) * rows], tau, route="tc")
+                           labels[i * rows:(i + 1) * rows], tau)
         for i in range(segments)]))
     plain = run(lambda x: P.gallery_cross_entropy(x, gal, labels, tau,
                                                   segments=segments))
@@ -522,28 +578,39 @@ def check_conw_case(tag, v, g, route, errs) -> None:
 
 
 def probe_phase(seed: int) -> None:
-    """The tc route's first calls, small and ragged, on both routes: K4 at
-    300 x 300 x 256, K1-K3 at 77 x 1001 x 48 and 70 x 333 x 512, K3 over 3
-    segments of 25 rows at D 48 (unit rows, see ``kernel_phase``). Run in a subprocess under a time limit by
-    ``main``."""
+    """The tensor-core routes' first calls, small and ragged, on every
+    route (wgmma with either source of its small halves): K4 at 300 x 300
+    x 256 and 1000 x 1000 x 512 (past WGMMA_PREPASS_ROWS), K1-K3 at 77 x
+    1001 x 48 and 70 x 333 x 512, K3 over 3 segments of 25 rows at D 48
+    (unit rows, see ``kernel_phase``); K1 at 1 x 1 x 8.
+    Run in a subprocess under a time limit by ``main``."""
+    from creamfl_tpu_torch.ops import gallery as P
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
-    for route in ("tc", "simt"):
-        check_conw_case(f"probe {route} 300x300x256",
-                        unit_rows(300, 256, gen, dev),
-                        unit_rows(300, 256, gen, dev), route, errs)
-        for m, n, d in ((77, 1001, 48), (70, 333, 512)):
-            f, gal = unit_rows(m, d, gen, dev), unit_rows(n, d, gen, dev)
-            labels = torch.randint(0, n, (m,), generator=gen, device=dev)
-            check_gallery_case(f"probe {route} {m}x{n}x{d}", f, gal, labels,
-                               0.5, route, errs)
-        # K3 over 3 segments of 25 rows (a ragged row count per block).
-        gal = unit_rows(1001, 48, gen, dev)
-        labels = torch.randint(0, 1001, (25,), generator=gen, device=dev)
-        check_segmented_case(f"probe {route} 3x25x1001x48",
-                             unit_rows(75, 48, gen, dev), gal,
-                             labels.repeat(3), 0.5, route, 3, errs)
+    for label, route, split in route_cases():
+        with wgmma_split(split):
+            v, g = unit_rows(1, 8, gen, dev), unit_rows(1, 8, gen, dev)
+            check(f"probe {label} 1x1x8 row_logsumexp",
+                  K.row_logsumexp(v, g, 0.5, route=route),
+                  P.streaming_logsumexp(v, g, 0.5), TOL["row_logsumexp"])
+            for m, d in ((300, 256), (1000, 512)):
+                check_conw_case(f"probe {label} {m}x{m}x{d}",
+                                unit_rows(m, d, gen, dev),
+                                unit_rows(m, d, gen, dev), route, errs)
+            for m, n, d in ((77, 1001, 48), (70, 333, 512)):
+                f, gal = unit_rows(m, d, gen, dev), unit_rows(n, d, gen, dev)
+                labels = torch.randint(0, n, (m,), generator=gen, device=dev)
+                check_gallery_case(f"probe {label} {m}x{n}x{d}", f, gal,
+                                   labels, 0.5, route, errs)
+            # K3 over 3 segments of 25 rows (a ragged row count per block).
+            gal = unit_rows(1001, 48, gen, dev)
+            labels = torch.randint(0, 1001, (25,), generator=gen, device=dev)
+            check_segmented_case(f"probe {label} 3x25x1001x48",
+                                 unit_rows(75, 48, gen, dev), gal,
+                                 labels.repeat(3), 0.5, route, 3, errs)
     torch.cuda.synchronize()
     log(f"[probe] ok, worst errors {json.dumps(errs)}")
 
@@ -555,33 +622,66 @@ def gallery_bounds(flops: float, nbytes: float):
                                              PEAK_TF32_FLOPS)
 
 
-def time_both_routes(name, on, plain_fn, library_fn, flops, nbytes, reps=10):
-    """Event times of both routes in turns on the same inputs (tc, simt,
-    tc), the plain version and the library call, the device time of one
-    call on each route split by kernel and of the library call, and both
-    bounds. The record's "ms" and "bound_ms" are the tc route's (the main
-    path's)."""
-    ms_tc = cuda_time_ms(on("tc"), reps)
-    ms_simt = cuda_time_ms(on("simt"), reps)
-    r = dict(ms=min(ms_tc, cuda_time_ms(on("tc"), reps)), simt_ms=ms_simt,
-             plain_ms=cuda_time_ms(plain_fn, reps),
+def time_routes(name, on, plain_fn, library_fn, flops, nbytes, reps=10):
+    """Event times of every route ``on`` takes (``on(route)`` a call; the
+    main route first and again last, the others between: wgmma, tc, simt,
+    wgmma for the lse pass), the plain version and the library call, the
+    device time of one call on each route split by kernel and of the
+    library call, and both bounds. The record's "ms", "device_ms" and
+    "bound_ms" are the main route's; "<route>_ms" the others'."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    main = MAIN_ROUTE[name]
+    routes = [main] + [r for r in K.ROUTES if r != main and (
+        main == "wgmma" or r != "wgmma")]
+    ms = {route: cuda_time_ms(on(route), reps) for route in routes}
+    ms[main] = min(ms[main], cuda_time_ms(on(main), reps))
+    r = dict(ms=ms[main], plain_ms=cuda_time_ms(plain_fn, reps),
              library_ms=cuda_time_ms(library_fn, reps))
-    parts = {route: device_ms_by_kernel(on(route)) for route in ("tc", "simt")}
+    r.update({f"{route}_ms": ms[route] for route in routes[1:]})
+    parts = {route: device_ms_by_kernel(on(route)) for route in routes}
     r["library_device_ms"] = sum(device_ms_by_kernel(library_fn).values())
     (b32, by32), (b_tc, by_tc) = gallery_bounds(flops, nbytes)
     r.update(bound_ms=b_tc, bound_by=by_tc, fp32_bound_ms=b32,
              fp32_bound_by=by32)
-    log(f"  time {name}: tc {r['ms']:.3f} ms, simt {ms_simt:.3f} ms, plain "
-        f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms "
-        f"(device {r['library_device_ms']:.3f} ms), bound 3xTF32 "
+    log(f"  time {name}: "
+        + ", ".join(f"{route} {ms[route]:.3f} ms" for route in routes)
+        + f", plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} "
+        f"ms (device {r['library_device_ms']:.3f} ms), bound 3xTF32 "
         f"{b_tc:.3f} ms ({by_tc}), fp32 {b32:.3f} ms ({by32})")
-    for route in ("tc", "simt"):
+    for route in routes:
         log(f"  {name} device time per call, {route}: "
             f"{sum(parts[route].values()):.4f} ms "
             + json.dumps({k: round(v, 4) for k, v in parts[route].items()}))
-    r["device_ms"] = sum(parts["tc"].values())
-    r["simt_device_ms"] = sum(parts["simt"].values())
+    r["device_ms"] = sum(parts[main].values())
+    r.update({f"{route}_device_ms": sum(parts[route].values())
+              for route in routes[1:]})
     return r
+
+
+def time_wgmma_splits(name, on, reps=10):
+    """The wgmma route's two sources of small halves on the same inputs,
+    in turns (prepass, smem, smem, prepass): event ms of each, the lesser
+    median of its two, and its device time by kernel (the pre-pass,
+    ``tf32_small_kernel``, on its own)."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    order = list(K.WGMMA_SPLITS) + list(reversed(K.WGMMA_SPLITS))
+    ms = {}
+    for split in order:
+        with wgmma_split(split):
+            t = cuda_time_ms(on("wgmma"), reps)
+        ms[split] = min(ms.get(split, t), t)
+    out = {}
+    for split in K.WGMMA_SPLITS:
+        with wgmma_split(split):
+            parts = device_ms_by_kernel(on("wgmma"))
+        out[split] = dict(ms=ms[split], device_ms=sum(parts.values()),
+                          device_by_kernel=parts)
+        log(f"  time {name} wgmma/{split}: {ms[split]:.3f} ms, device "
+            f"{sum(parts.values()):.4f} ms "
+            + json.dumps({k: round(v, 4) for k, v in parts.items()}))
+    return out
 
 
 def tc_peak_phase(iters: int = 4096) -> float:
@@ -607,14 +707,48 @@ def tc_peak_phase(iters: int = 4096) -> float:
     return best
 
 
+def wgmma_peak_phase(iters: int = 2048) -> float:
+    """The card's wgmma.m64n128k8 TF32 rate, operands in shared memory
+    (two warpgroups a block, 12 products a commit, as the wgmma lse pass
+    issues them; 1-2 blocks per SM): the ceiling of the wgmma route, whose
+    3xTF32 takes 3 of them per product. Returns the best TFLOP/s."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    best = 0.0
+    for per_sm in (1, 2):
+        blocks = sms * per_sm
+        ms = cuda_time_ms(lambda: K.wgmma_peak(blocks, iters, dev), reps=5)
+        rate = blocks * 2 * iters * 12 * (2 * 64 * 128 * 8) / ms / 1e9
+        best = max(best, rate)
+        log(f"  wgmma TF32 rate, {per_sm} block(s) of 2 warpgroups per SM: "
+            f"{rate:.1f} TFLOP/s")
+    log(f"[kernels] wgmma TF32 peak {best:.1f} TFLOP/s (3xTF32: "
+        f"{best / 3:.1f} TFLOP/s of fp32 products; data sheet "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f})")
+    return best
+
+
+def route_cases():
+    """(label, route, wgmma split) of every route a check runs: wgmma with
+    each source of its small halves, then tc and simt."""
+    from creamfl_tpu_torch.ops import gallery_kernels as K
+
+    return ([(f"wgmma/{split}", "wgmma", split) for split in K.WGMMA_SPLITS]
+            + [(route, route, K.WGMMA_SPLIT) for route in K.ROUTES
+               if route != "wgmma"])
+
+
 def kernel_phase(seed: int):
-    """K1-K4 on both routes against their plain versions at the main
-    paths' shapes (con_w 50 000² x 256; contrast M 128 and the ragged 80
-    against 50 000 x 256; the round's contrast, M 128 against 2048 x 256),
-    an odd shape (77 x 1001 x 48), the mlp_local
-    width (128 x 50 000 x 512) and bf16 features (K3), each call's route
-    asserted; then each timed on both routes. Returns per-kernel records
-    (without launch counts) for the JSON line."""
+    """K1-K4 on every route (wgmma with either source of its small
+    halves) against their plain versions at the main paths' shapes (con_w
+    50 000² x 256; contrast M 128 and the ragged 80 against 50 000 x 256;
+    the round's contrast, M 128 against 2048 x 256), an odd shape (77 x
+    1001 x 48), the mlp_local width (128 x 50 000 x 512) and bf16 features
+    (K3), each call's route asserted; then each timed on every route, and
+    K1 and K4 on both sources of the wgmma route's small halves. Returns
+    per-kernel records (without launch counts) for the JSON line."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
@@ -623,19 +757,24 @@ def kernel_phase(seed: int):
     errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
     rec = {}
     tc_peak_phase()
+    wgmma_peak_phase()
 
     # K4 and K1 at con_w's 50 000 x 50 000 x 256 (tau = 1).
     log(f"[kernels] con_w shape {N_PUB} x {N_PUB} x {DIM}")
     v = unit_rows(N_PUB, DIM, gen, dev)
     g = unit_rows(N_PUB, DIM, gen, dev)
-    for route in K.ROUTES:
-        check_conw_case(f"con_w {route}", v, g, route, errs)
+    for label, route, split in route_cases():
+        with wgmma_split(split):
+            check_conw_case(f"con_w {label}", v, g, route, errs)
     n, d = N_PUB, DIM
-    rec["conw_diag"] = time_both_routes(
-        "conw_diag", lambda r: lambda: K.conw_diag(v, g, route=r),
+    conw_on = lambda r: lambda: K.conw_diag(v, g, route=r)  # noqa: E731
+    rec["conw_diag"] = time_routes(
+        "conw_diag", conw_on,
         lambda: P.gallery_log_softmax_diag(v, g),
         lambda: torch.log_softmax(v @ g.T, dim=1).diagonal(),
         2.0 * n * n * d + 2.0 * n * d, 4.0 * (2 * n * d + n), reps=5)
+    rec["conw_diag"]["splits"] = time_wgmma_splits("conw_diag", conw_on,
+                                                   reps=5)
     del v, g
     torch.cuda.empty_cache()
 
@@ -660,19 +799,29 @@ def kernel_phase(seed: int):
         if tag == "bf16":
             f = f.to(torch.bfloat16)
         labels = torch.randint(0, n, (m,), generator=gen, device=dev)
-        for route in K.ROUTES:
-            check_gallery_case(f"{tag} {route}", f, gal, labels, tau, route,
-                               errs)
+        for label, route, split in route_cases():
+            with wgmma_split(split):
+                check_gallery_case(f"{tag} {label}", f, gal, labels, tau,
+                                   route, errs)
         if tag != "main":
             continue
         lse_p = P.streaming_logsumexp(f, gal, tau)
-        rec["row_logsumexp"] = time_both_routes(
-            "row_logsumexp",
-            lambda r: lambda: K.row_logsumexp(f, gal, tau, route=r),
+        lse_on = lambda r: lambda: K.row_logsumexp(  # noqa: E731
+            f, gal, tau, route=r)
+        rec["row_logsumexp"] = time_routes(
+            "row_logsumexp", lse_on,
             lambda: P.streaming_logsumexp(f, gal, tau),
             lambda: torch.logsumexp(f @ gal.T / tau, dim=1),
             2.0 * m * n * d, 4.0 * (m * d + n * d + m))
-        rec["softmax_matvec"] = time_both_routes(
+        rec["row_logsumexp"]["splits"] = time_wgmma_splits("row_logsumexp",
+                                                           lse_on)
+        # Where the pre-pass starts to pay (gallery_kernels.
+        # WGMMA_PREPASS_ROWS): both sources at 384 and 1024 rows.
+        for rows in (384, 1024):
+            fr = unit_rows(rows, d, gen, dev)
+            time_wgmma_splits(f"row_logsumexp M={rows}", lambda r: lambda: (
+                K.row_logsumexp(fr, gal, tau, route=r)))
+        rec["softmax_matvec"] = time_routes(
             "softmax_matvec",
             lambda r: lambda: K.softmax_matvec(f, gal, lse_p, tau, route=r),
             lambda: P.softmax_matvec(f, gal, lse_p, tau),
@@ -688,7 +837,7 @@ def kernel_phase(seed: int):
         # Bound: a forward and a backward product of M x N x D each (the
         # logits kept from the forward); K3 recomputes them in K2 instead,
         # 2 M N D operations above the bound, to store no M x N logits.
-        rec["fused_gallery_ce"] = time_both_routes(
+        rec["fused_gallery_ce"] = time_routes(
             "fused_gallery_ce",
             lambda r: ce(lambda x: K.fused_gallery_ce(x, gal, labels, tau,
                                                       route=r)),
@@ -700,9 +849,9 @@ def kernel_phase(seed: int):
         for route in K.ROUTES:
             alone = cuda_time_ms(lambda: K.softmax_matvec(
                 f, gal, K.row_logsumexp(f, gal, tau, route=route), tau,
-                route=route))
-            log(f"  time fused_gallery_ce kernels alone (K1 + K2), {route}: "
-                f"{alone:.3f} ms")
+                route=K.matvec_route(route)))
+            log(f"  time fused_gallery_ce kernels alone (K1 + K2), {route} "
+                f"+ {K.matvec_route(route)}: {alone:.3f} ms")
 
     # K3 over a stacked family: the stacked round's shape (2 members, the
     # round's 2048-row gallery) and three members at the paper's gallery.
@@ -714,9 +863,10 @@ def kernel_phase(seed: int):
         f = unit_rows(m, d, gen, dev)
         labels = torch.randint(0, n, (PUB_BS,), generator=gen,
                                device=dev).repeat(segments)
-        for route in K.ROUTES:
-            check_segmented_case(f"{tag} {route}", f, gal, labels, tau, route,
-                                 segments, errs)
+        for label, route, split in route_cases():
+            with wgmma_split(split):
+                check_segmented_case(f"{tag} {label}", f, gal, labels, tau,
+                                     route, segments, errs)
         time_segmented(tag, f, gal, labels, tau, segments)
     for name in rec:
         rec[name]["max_abs_err"] = errs[name]
@@ -2162,11 +2312,12 @@ def run_probe(seed: int) -> None:
     except subprocess.TimeoutExpired as e:
         log((e.stdout or b"").decode() if isinstance(e.stdout, bytes)
             else e.stdout or "")
-        raise AssertionError(f"the tc probe took over {PROBE_TIMEOUT} s")
+        raise AssertionError(f"the gallery probe took over {PROBE_TIMEOUT} "
+                             "s")
     log(proc.stdout.rstrip())
     if proc.returncode != 0:
         log(proc.stderr[-4000:])
-        raise AssertionError(f"the tc probe failed ({proc.returncode})")
+        raise AssertionError(f"the gallery probe failed ({proc.returncode})")
 
 
 def _equal_state(a, b, name: str) -> None:
@@ -2682,8 +2833,9 @@ def run_round(seed: int, kind: str = "round", keep=None):
     """``round_phase`` with the launch counts zeroed just before it and read
     just after: K3 (with the K1 and K2 launches inside it) as
     ``expected_gallery_launches`` says; K4 once per upload and modality,
-    pad slots included; every launch on the tc route; no K5/K6 (the standard trunk). Then,
-    outside the counted run, K1-K3 on the tc route against their plain
+    pad slots included; every launch on its main route (``MAIN_ROUTE``); no
+    K5/K6 (the standard trunk). Then, outside the counted run, K1-K3 on
+    the wgmma route (K2 and K3's backward on tc) against their plain
     versions on the round's own global features (a public batch of caption
     rows against the image gallery, each caption's own image its label;
     stacked: K3 over two such batches in two segments). ``kind``:
@@ -2742,12 +2894,7 @@ def run_round(seed: int, kind: str = "round", keep=None):
         if counts != want or by_rows != rows:
             raise AssertionError(f"{kind}: launches {counts} by rows "
                                  f"{by_rows}, not {want} by rows {rows}")
-        for name in GALLERY_KERNELS:
-            by_route = getattr(K, name).launches_by_route
-            if by_route != {"tc": counts[name], "simt": 0}:
-                raise AssertionError(f"{kind}: {name} took routes "
-                                     f"{by_route}, not all {counts[name]} "
-                                     f"on tc")
+        expect_main_routes(kind, gallery_route_counts(), counts)
         if paper:
             log(f"[{kind}] host-rendered caption-set images: "
                 f"{watch.host_images}; device-image batches by side "
@@ -2771,14 +2918,14 @@ def run_round(seed: int, kind: str = "round", keep=None):
         n = min(PUB_BS, gal.shape[0])
         two = txt[:2 * n] if txt.shape[0] >= 2 * n else txt[:n].repeat(2, 1)
         shape = f"{n}x{gal.shape[0]}x{gal.shape[1]}"
-        check_gallery_case(f"{kind} globals {shape} tc", txt[:n], gal,
-                           torch.arange(n, device=gal.device), 0.5, "tc",
+        check_gallery_case(f"{kind} globals {shape} wgmma", txt[:n], gal,
+                           torch.arange(n, device=gal.device), 0.5, "wgmma",
                            errs)
         if stacked:
             check_segmented_case(
-                f"{kind} globals 2x{shape} tc", two, gal,
-                torch.arange(n, device=gal.device).repeat(2), 0.5, "tc", 2,
-                errs)
+                f"{kind} globals 2x{shape} wgmma", two, gal,
+                torch.arange(n, device=gal.device).repeat(2), 0.5, "wgmma",
+                2, errs)
         log(f"[{kind}] K1-K3 on the round's global features, worst errors "
             f"{json.dumps(errs)}")
         if kind == "stacked":
@@ -3744,10 +3891,8 @@ def mesh_phase(seed: int, cards: int = 0):
             raise AssertionError(f"mesh round rank {r}: launches "
                                  f"{res['counts']} by rows {res['by_rows']},"
                                  f" not {res['want']} by {res['want_rows']}")
-        for name, by_route in res["routes"].items():
-            if by_route != {"tc": res["counts"][name], "simt": 0}:
-                raise AssertionError(f"mesh round rank {r}: {name} took "
-                                     f"routes {by_route}")
+        expect_main_routes(f"mesh round rank {r}", res["routes"],
+                           res["counts"])
         if max(res["conw_err"].values()) > 1e-5:
             raise AssertionError(f"mesh round rank {r}: con_w vs plain "
                                  f"{res['conw_err']}")
@@ -3765,7 +3910,8 @@ def mesh_phase(seed: int, cards: int = 0):
     log(f"[mesh] {tag}: states bit-equal across ranks; distill_index equal "
         f"to world 1's; cosines above {MESH_COSINE} or within {MESH_SPREAD}x "
         f"the spread; launches "
-        f"per rank {[r['counts'] for r in c]} (all on tc, as the steps "
+        f"per rank {[r['counts'] for r in c]} (all on their main routes, "
+        f"as the steps "
         f"make); con_w vs plain {[r['conw_err'] for r in c]}; rsum "
         f"{c[0]['rsum']:.2f} (world 1 {_PAPER_W1['rsum']:.2f}), score gaps "
         f"{json.dumps(gaps)}")
@@ -3880,7 +4026,8 @@ def grain_round_phase(seed: int):
     2`` against the array backend's, batch by batch by sha256; then the
     real round on the array backend and on the worker loader (each with
     the launch counts zeroed just before it and read just after: every K3
-    and K4 launch on tc, as many as the round's steps make), under
+    and K4 launch on its main route, as many as the round's steps make),
+    under
     deterministic algorithms, their end states compared: bit for bit, or,
     where they differ, within the array round's own spread (a second array
     round). Returns the worker round's launch counts."""
@@ -4310,7 +4457,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--probe", action="store_true",
-                        help="build and run the tc probe in this process, "
+                        help="build and run the gallery kernels' probe in "
+                        "this process, "
                         "then stop without the result line")
     parser.add_argument("--round", action="store_true",
                         help="build and run the round phase alone, then "
@@ -4393,7 +4541,7 @@ def main() -> int:
     rec = kernel_phase(opts.seed)
     rec.update(fused_kernel_phase(opts.seed))
     # Each path runs with the launch counts zeroed just before it and read
-    # just after: the image-client slice (K1-K4, every launch on the tc
+    # just after: the image-client slice (K1-K4, every launch on its main
     # route), the server (K5/K6), the round on each client branch (K1-K4).
     paths = {}
     K.reset_launch_counts()
@@ -4402,11 +4550,7 @@ def main() -> int:
     paths["slice"] = K.launch_counts()
     log(f"[slice] kernels {json.dumps(paths['slice'])} by route "
         f"{json.dumps(gallery_route_counts())}")
-    for name in GALLERY_KERNELS:
-        by_route = getattr(K, name).launches_by_route
-        if by_route != {"tc": paths["slice"][name], "simt": 0}:
-            raise AssertionError(f"slice: {name} took routes {by_route}, "
-                                 f"not all {paths['slice'][name]} on tc")
+    expect_main_routes("slice", gallery_route_counts(), paths["slice"])
     paths["server"] = server_phase(opts.seed)
     log(f"[server] kernels {json.dumps(paths['server'])}")
     paths["server_chunks"] = chunk_phase(opts.seed)

@@ -16,31 +16,40 @@
 // the dfeats merge scales each row by its segment's gbar / (tau M / S). The
 // gallery is then read once per family batch, not once per member.
 //
-// Each partial pass has two routes, chosen per call by the host wrapper
-// (ops/gallery_kernels.py:plan_gallery_route):
-//   * "tc": 3xTF32 mma.sync tile kernels on gallery_core.cuh (fp32,
-//     D % 8 == 0, D <= 512, 16-byte aligned bases);
+// The partial passes have three routes, chosen per call and per pass by
+// the host wrapper (ops/gallery_kernels.py:plan_gallery_route):
+//   * "wgmma", the lse pass only: 3xTF32 wgmma fed by TMA
+//     (gallery_wgmma.cuh; fp32, D % 8 == 0, D <= 512, 16-byte aligned
+//     bases), the planner's route for those inputs;
+//   * "tc": 3xTF32 mma.sync tile kernels on gallery_core.cuh (the same
+//     inputs): the matvec pass's route there, and the lse pass's when asked;
 //   * "simt": the first fp32 FMA kernels, for every other call and kept
-//     beside "tc" for comparison.
+//     beside the others for comparison.
 //
 // What bounds them on an H100: K1 does 2*M*N*D operations and K2 4*M*N*D
 // on inputs of (M + N) * D floats. At the main-path shapes (con_w: M = N =
 // 50 000, D = 256; contrast CE: M = 128, N = 50 000) that is hundreds of
 // operations per byte, so they are bound by operations, not by the 51 MB
 // gallery read (~15 us at 3.35 TB/s): 67 TFLOP/s for fp32 FMAs; for 3xTF32
-// on the tensor cores, a third of the TF32 rate -- 495 TFLOP/s for wgmma,
-// ~310 measured for the mma.sync used here (gallery_core.cuh has that and
-// the error argument: fp32 accuracy to within a few roundings, so the
-// plain fp32 versions' tolerances hold on unit-norm features).
+// on the tensor cores, a third of the TF32 rate -- 495 TFLOP/s for wgmma
+// (~480 measured: chip_smoke.py's wgmma_peak_phase), ~310 measured for
+// mma.sync (gallery_core.cuh has that and the error argument: fp32
+// accuracy to within a few roundings, so the plain fp32 versions'
+// tolerances hold on unit-norm features; gallery_wgmma.cuh the same for
+// its truncated halves).
 //
 // What the design does about it:
 //   * The TPU grid walked the gallery's column blocks in order on one core,
 //     carrying the running (max, sum) in VMEM. Here the column range is
-//     split across blocks (the host picks the split count from M: "tc"
-//     aims at one wave of resident blocks, each walking many tiles), each
+//     split across blocks (the host picks the split count from M: "tc" and
+//     "wgmma" aim at one wave of resident blocks, each walking many tiles),
+//     each
 //     block writes a partial (max, sum) per row -- or a partial [rows, D]
 //     product -- and a merge pass sums the splits in a fixed order
 //     (deterministic; no float atomics).
+//   * "wgmma" lse: see gallery_wgmma.cuh (128 v rows a block, both
+//     operands streamed by TMA in 32-float depth chunks, 3xTF32 from
+//     operand halves split outside the mainloop).
 //   * "tc" lse: 64 v rows resident in shared memory, 128-row gallery
 //     tiles streamed in 32-float depth chunks through a 3-stage cp.async
 //     ring; the logits stay in registers and fold into per-thread online
@@ -52,9 +61,10 @@
 //     into [rows, D] register accumulators; each warp holds two m16 row
 //     tiles, so that a gallery fragment, loaded and split once, serves two
 //     products.
-//   * Fragments read along D come by ldmatrix, and operands are split with
-//     integer instructions: the split and the shared-memory loads, not the
-//     products, set the tc kernels' pace (chip_smoke.py times them).
+//   * tc fragments read along D come by ldmatrix, and operands are split
+//     with integer instructions: the split and the shared-memory loads, not
+//     the products, set the tc kernels' pace (chip_smoke.py times them);
+//     the wgmma route was built to take that work out of the lse pass.
 //   * "simt": K1 a register-tiled SGEMM (128 x 128 block tile, 8 x 8 per
 //     thread) with the online-softmax epilogue; K2 one 64-row gallery tile
 //     in shared memory used for the logits and for p @ g_tile (4 rows x
@@ -68,7 +78,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "gallery_core.cuh"
+#include "gallery_wgmma.cuh"
 
 namespace {
 
@@ -851,6 +864,58 @@ __global__ void merge_splits_kernel(const float* __restrict__ part, int S,
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// The "wgmma" lse partial pass (gallery_wgmma.cuh): without smem_split,
+// first the split pre-pass into v_small [M, D] and g_small [N, D].
+cudaError_t launch_lse_wgmma(int split, const float* v, const float* g,
+                             float* v_small, float* g_small, int M, int N,
+                             int D, float inv_tau, int tiles_per_split,
+                             int splits, float* part_max, float* part_sum,
+                             cudaStream_t stream) {
+  using namespace gwgmma;
+  cudaError_t err;
+  const bool smem_split = split != kPrepass;
+  if (!smem_split) {
+    const size_t na4 = static_cast<size_t>(M) * D / 4;
+    const size_t nb4 = static_cast<size_t>(N) * D / 4;
+    const size_t blocks = std::min<size_t>((na4 + nb4 + 255) / 256, 4096);
+    tf32_small_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(v), reinterpret_cast<float4*>(v_small),
+        na4, reinterpret_cast<const float4*>(g),
+        reinterpret_cast<float4*>(g_small), nb4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap maps[4];
+  const float* srcs[4] = {v, smem_split ? v : v_small, g,
+                          smem_split ? g : g_small};
+  for (int i = 0; i < 4; ++i) {
+    err = wgmma_core::encode_tensor_map_2d(
+        &maps[i], srcs[i], D, i < 2 ? M : N, kDepth, kRows,
+        CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4);
+    if (err != cudaSuccess) return err;
+  }
+  // Both instances' shared-memory limit, once per process (as in
+  // fused_bn_mm.cu).
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lse_wgmma_kernel<kPrepass>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(
+                     lse_wgmma_kernel<kSmem>,
+                     cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  }();
+  if (attr != cudaSuccess) return attr;
+  auto kernel = lse_wgmma_kernel<kPrepass>;
+  if (smem_split) kernel = lse_wgmma_kernel<kSmem>;
+  const dim3 grid((M + kRows - 1) / kRows, splits);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], M, N, D, inv_tau, tiles_per_split,
+      part_max, part_sum);
+  return cudaGetLastError();
+}
+
 // The card's mma.sync m16n8k8 TF32 rate, the ceiling of the "tc" kernels:
 // each warp runs `iters` rounds of 8 independent mma.sync on register
 // operands (no loads), then writes one sum per thread so that nothing is
@@ -879,23 +944,34 @@ tc_peak_kernel(int iters, float* __restrict__ out) {
 
 extern "C" {
 
-// route 0 ("simt", the fp32 FMA kernel) or 1 ("tc": D % 8 == 0,
-// D <= 512, 16-byte aligned v and g). Row logsumexp of (v @ g^T) * inv_tau
-// through [M, splits] partials part_max / part_sum, whose splits *
-// tiles_per_split must cover the route's column tiles (simt 128, tc 128
-// gallery rows), then one merge in `mode` (see lse_merge_kernel): kLse and
-// kDiag write out[M]; kCe writes out[M] = lse and loss[M / seg_rows], one
-// mean per segment of seg_rows rows (seg_rows divides M), labels [M] int64.
+// route 0 ("simt", the fp32 FMA kernel), 1 ("tc"), 2 ("wgmma", small
+// halves by the pre-pass into v_small [M, D] and g_small [N, D]) or 3
+// ("wgmma", small halves in shared memory; v_small and g_small unused);
+// 1-3 need D % 8 == 0, D <= 512, 16-byte aligned v and g. Row logsumexp
+// of (v @ g^T) * inv_tau through [M, splits] partials part_max / part_sum,
+// whose splits * tiles_per_split must cover the route's column tiles (128
+// gallery rows on every route), then one merge in `mode` (see
+// lse_merge_kernel): kLse and kDiag write out[M]; kCe writes out[M] = lse
+// and loss[M / seg_rows], one mean per segment of seg_rows rows (seg_rows
+// divides M), labels [M] int64.
 int gallery_lse(int route, const void* v, const void* g, int M, int N, int D,
                 float inv_tau, int splits, int tiles_per_split,
                 void* part_max, void* part_sum, int mode, const void* labels,
-                int seg_rows, void* out, void* loss, void* stream) {
+                int seg_rows, void* out, void* loss, void* v_small,
+                void* g_small, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* vf = static_cast<const float*>(v);
   const float* gf = static_cast<const float*>(g);
   float* pm = static_cast<float*>(part_max);
   float* ps = static_cast<float*>(part_sum);
-  if (route == 1) {
+  if (route == 2 || route == 3) {
+    if (D % 8 != 0 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = launch_lse_wgmma(
+        route - 2, vf, gf, static_cast<float*>(v_small),
+        static_cast<float*>(g_small), M, N, D, inv_tau, tiles_per_split,
+        splits, pm, ps, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (route == 1) {
     if (D % 8 != 0 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
     const int Dpad = round_up(D, gcore::kDepth);
     const size_t smem = lse_tc_smem(Dpad);
@@ -999,6 +1075,21 @@ int gallery_matvec(int route, const void* v, const void* g, const void* lse,
 int gallery_tc_peak(int blocks, int iters, void* out, void* stream) {
   tc_peak_kernel<<<blocks, gcore::kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gwgmma::wgmma_peak_kernel on `blocks` blocks of 256 threads; out holds
+// blocks * 256 floats. Each block does 2 warpgroups x iters x 12
+// m64n128k8 products.
+int gallery_wgmma_peak(int blocks, int iters, void* out, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gwgmma::wgmma_peak_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gwgmma::kPeakSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gwgmma::wgmma_peak_kernel<<<blocks, gwgmma::kConsumers,
+                              gwgmma::kPeakSmemBytes,
+                              static_cast<cudaStream_t>(stream)>>>(
       iters, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

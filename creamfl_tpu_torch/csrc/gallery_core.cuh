@@ -1,13 +1,17 @@
-// The gallery kernels' tensor-core tile core for Hopper (sm_90a): fp32
+// The gallery kernels' mma.sync tile core for Hopper (sm_90a): fp32
 // products in 3xTF32 on warp-level mma.sync, fed by cp.async copies into
 // XOR-swizzled shared-memory tiles. Included by gallery.cu, whose "tc"
-// kernels (the lse partial pass of K1 / K3's forward / K4, and the
-// softmax-matvec partial pass of K2 / K3's backward) are built on it.
+// kernels (the softmax-matvec partial pass of K2 / K3's backward -- the
+// main path's -- and the lse partial pass of K1 / K3's forward / K4 when
+// asked for; the main path's lse pass runs on gallery_wgmma.cuh) are
+// built on it.
 //
 // Products. mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: a 16 x 8
 // A fragment, an 8 x 8 B fragment, a 16 x 8 fp32 accumulator. Each fp32
-// operand x is split as big = tf32(x) (to nearest, see to_tf32) and small = x -
-// big (exact in fp32; the tensor core reads its top 11 bits), and a
+// operand x is split in registers as big = tf32(x) (to nearest, see
+// to_tf32; the wgmma route instead reads x itself as its big half,
+// truncated) and small = x - big (exact in fp32; the tensor core reads its
+// top 11 bits), and a
 // product is taken as three: small*big + big*small + big*big, the small
 // terms first. A product of two TF32 values is exact in fp32; the halves
 // carry x to ~2^-22 and the dropped small*small term is ~2^-22 of the
@@ -18,10 +22,12 @@
 // operations: on an H100 mma.sync runs TF32 at ~310 TFLOP/s
 // (chip_smoke.py's tc_peak_phase; 495 is wgmma's), ~105 effective.
 //
-// Why mma.sync and not wgmma: TF32 wgmma reads only K-major operands, and
-// the matvec's second product p @ G_tile has K = gallery rows while G is
-// stored [N][D] (MN-major there). mma.sync fragments are gathered by the
-// threads from shared memory in any layout.
+// Why the matvec stays on mma.sync: TF32 wgmma reads only K-major
+// operands, and the matvec's second product p @ G_tile has K = gallery
+// rows while G is stored [N][D] (MN-major there). mma.sync fragments are
+// gathered by the threads from shared memory in any layout. The lse pass
+// (v @ G^T, both operands K-major along D) has no such product: its
+// wgmma kernel is gallery_wgmma.cuh.
 //
 // Shared memory. Every fp32 tile is stored with rows of `pitch` floats, a
 // multiple of 32, and the 16-byte chunks of a row XOR-swizzled by the row:

@@ -335,20 +335,22 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A row-major bf16 [outer, inner] matrix at ``base``, read in boxes of
-// box_inner (64: one 128-byte swizzle row) x box_outer; out-of-bounds
-// elements read as zero. inner % 8 == 0 and a 16-byte aligned base.
-inline cudaError_t encode_tensor_map_2d(CUtensorMap* map, const void* base,
-                                        uint64_t inner, uint64_t outer,
-                                        uint32_t box_inner,
-                                        uint32_t box_outer) {
+// A row-major [outer, inner] matrix at ``base`` (bf16 unless another type
+// of elem_bytes bytes is given), read in boxes of box_inner (128 bytes:
+// one swizzle row; 64 bf16, 32 fp32) x box_outer; out-of-bounds elements
+// read as zero. inner * elem_bytes % 16 == 0 and a 16-byte aligned base.
+inline cudaError_t encode_tensor_map_2d(
+    CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+    uint32_t box_inner, uint32_t box_outer,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    uint32_t elem_bytes = 2) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint64_t strides[1] = {inner * elem_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, dtype, 2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

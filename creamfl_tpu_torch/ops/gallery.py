@@ -14,10 +14,11 @@ All reductions accumulate in float32 whatever the input dtype.
 
 Beside them, the kernels' own steps in plain PyTorch, for the CPU tests:
 the per-split partials of the lse and matvec passes over the kernels'
-split plan, the merges (K3's CE mode and dfeats mode among them), and
-the 3xTF32 product of the "tc" route (``tf32_split``,
-``tf32x3_matmul``). The main path never calls these when a card is
-present.
+split plan, the merges (K3's CE mode and dfeats mode among them), the
+3xTF32 product of the "tc" route (``tf32_split``, ``tf32x3_matmul``)
+and that of the "wgmma" route (``tf32_split_trunc``,
+``wgmma_tf32x3_matmul``). The main path never calls these when a card
+is present.
 """
 
 from __future__ import annotations
@@ -167,6 +168,32 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_big, a_small = tf32_split(a)
     b_big, b_small = tf32_split(b)
     return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def tf32_split_trunc(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) as the "wgmma" route's tensor core sees them: big =
+    x read as TF32 (truncated), small = x - big (exact in fp32, written by
+    the split pass) read truncated in its turn."""
+    x = x.to(torch.float32)
+    big = tf32_trunc(x)
+    return big, tf32_trunc(x - big)
+
+
+def wgmma_tf32x3_matmul(a: torch.Tensor, b: torch.Tensor,
+                        depth: int = 32) -> torch.Tensor:
+    """``a @ b`` as the "wgmma" lse pass takes it: truncated TF32 halves
+    (``tf32_split_trunc``), three products (small * big + big * small +
+    big * big, the small terms first) per ``depth``-deep chunk of the
+    inner dimension, each chunk's sum added in fp32 to the running sum."""
+    a_big, a_small = tf32_split_trunc(a)
+    b_big, b_small = tf32_split_trunc(b)
+    out = None
+    for k0 in range(0, a.shape[1], depth):
+        k = slice(k0, k0 + depth)
+        chunk = (a_small[:, k] @ b_big[k] + a_big[:, k] @ b_small[k]
+                 + a_big[:, k] @ b_big[k])
+        out = chunk if out is None else out + chunk
+    return out
 
 
 def _split_ranges(n: int, splits: int, per_split: int, block_cols: int):

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the gallery hot loops, and their wrappers.
 
 The kernels live in ``csrc/gallery.cu`` (sm_90a, fp32 in, fp32
-accumulation; the tensor-core tile core in ``csrc/gallery_core.cuh``) and
+accumulation; the mma.sync tile core in ``csrc/gallery_core.cuh``, the
+wgmma lse pass in ``csrc/gallery_wgmma.cuh``) and
 replace the Pallas TPU kernels of the JAX package
 (``ops/pallas_gallery.py``):
 
@@ -18,16 +19,23 @@ replace the Pallas TPU kernels of the JAX package
 * ``conw_diag`` (K4): ``diag(log_softmax(v @ g.T))``, K1 with the
   diagonal dot folded into its merge pass.
 
-Each partial pass runs on one of two routes, chosen per call by
-``plan_gallery_route`` and counted in ``<wrapper>.launches_by_route``:
+Each partial pass runs on one of three routes, chosen per call and per
+pass by ``plan_gallery_route`` and counted in
+``<wrapper>.launches_by_route``:
 
-- ``"tc"`` (fp32 contiguous, D % 8 == 0, D <= 512, 16-byte aligned
-  bases): 3xTF32 ``mma.sync`` tile kernels fed by a ``cp.async`` ring;
+- ``"wgmma"`` (the lse pass: K1, K3's forward, K4; fp32 contiguous, D % 8
+  == 0, D <= 512, 16-byte aligned bases): 3xTF32 on ``wgmma``, operands
+  fed by TMA (``csrc/gallery_wgmma.cuh``);
+- ``"tc"`` (the matvec pass, K2 and K3's backward, on the same inputs; and
+  the lse pass when asked for): 3xTF32 ``mma.sync`` tile kernels fed by a
+  ``cp.async`` ring;
 - ``"simt"`` (anything else): the fp32 FMA kernels of the first slice.
 
 ``route=`` forces one (``"simt"`` takes every input the kernels take;
-``"tc"`` raises where the planner would not take it), so both can be timed
-on the same inputs. A failed build or launch raises on either route.
+``"tc"`` raises where the planner would take neither tensor-core route,
+``"wgmma"`` also for the matvec pass), so all three can be timed on the
+same inputs; K3 asked for ``"wgmma"`` runs its backward on ``"tc"``. A
+failed build or launch raises on every route.
 
 The library is compiled by ``nvcc`` at first use from the repository's
 source, into ``creamfl_tpu_torch/_build/<source hash>/``, and bound with
@@ -53,8 +61,22 @@ from creamfl_tpu_torch.ops import gallery as plain
 
 SOURCE = builder.CSRC / "gallery.cu"
 
-ROUTES = ("tc", "simt")
+ROUTES = ("wgmma", "tc", "simt")
 _ROUTE_ID = {"simt": 0, "tc": 1}
+# Where the wgmma lse pass takes its operands' TF32 small halves from
+# (csrc/gallery_wgmma.cuh): "prepass", a split kernel into scratch before
+# it, or "smem", its producer warps in shared memory, chosen by rows
+# (``wgmma_split_for``). WGMMA_SPLIT, when set, forces one (chip_smoke.py
+# times both).
+WGMMA_SPLITS = ("prepass", "smem")
+WGMMA_SPLIT: Optional[str] = None
+_WGMMA_ROUTE_ID = {"prepass": 2, "smem": 3}
+# From this many v rows the pre-pass pays: its cost, one pass over v and g,
+# is fixed, while the shared-memory split slows every gallery tile of every
+# row block. On an H100 (chip_smoke.py's time_wgmma_splits) "smem" is the
+# faster at K1's 128 rows, the two tie near 384 and "prepass" is the
+# faster from 1024 rows up to K4's 50 000.
+WGMMA_PREPASS_ROWS = 512
 # Tile sizes of the kernels (must match csrc/gallery.cu). simt: K1 128 x
 # 128, K2 32 rows x 64 gallery rows. tc: K1 64 x 128 in 32-float depth
 # chunks through a 3-stage ring; K2 see ``mv_tc_tile``.
@@ -63,6 +85,11 @@ MV_BLOCK_ROWS, MV_BLOCK_COLS = 32, 64
 TC_DEPTH = 32
 LSE_TC_ROWS, LSE_TC_COLS, LSE_TC_STAGES = 64, 128, 3
 MV_MAX_DIM = 512
+# wgmma lse: 128 v rows x 128 gallery rows a tile, 3 stages of four 128 x
+# 32 fp32 boxes (64 KB) behind 1 KB of alignment and 9 barriers: one
+# block an SM (gallery_wgmma.cuh kSmemBytes).
+WGMMA_ROWS, WGMMA_COLS, WGMMA_STAGES = 128, 128, 3
+WGMMA_SMEM_BYTES = 1024 + WGMMA_STAGES * 4 * WGMMA_COLS * TC_DEPTH * 4 + 72
 # Resident blocks per SM the simt split heuristic aims to fill (both
 # kernels run two blocks of 256 threads per SM), and an SM's shared memory
 # (228 KB, 1 KB of it reserved per block). On the CPU, plans use the
@@ -91,13 +118,15 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gallery_lse.argtypes = [i, p, p, i, i, i, f, i, i, p, p, i, p, i, p,
-                                p, p]
+                                p, p, p, p]
     lib.gallery_lse.restype = i
     lib.gallery_matvec.argtypes = [i, p, p, p, i, i, i, f, i, i, p, i, p, p,
                                    i, f, i, p, p]
     lib.gallery_matvec.restype = i
     lib.gallery_tc_peak.argtypes = [i, i, p, p]
     lib.gallery_tc_peak.restype = i
+    lib.gallery_wgmma_peak.argtypes = [i, i, p, p]
+    lib.gallery_wgmma_peak.restype = i
     return lib
 
 
@@ -168,11 +197,22 @@ def plan_splits(m: int, n: int, block_rows: int, block_cols: int,
     return -(-n_tiles // per_split), per_split
 
 
+def lse_cols(route: str) -> int:
+    """Gallery rows in a column tile of the lse pass on ``route``."""
+    return {"wgmma": WGMMA_COLS, "tc": LSE_TC_COLS,
+            "simt": LSE_BLOCK_COLS}[route]
+
+
 def plan_for(kernel: str, route: str, m: int, n: int, d: int,
              sm_count: int) -> Tuple[int, int]:
     """(splits, tiles_per_split) of ``kernel`` ("lse" or "matvec") on
-    ``route``. tc aims at one wave of resident blocks, so that each block
-    walks many gallery tiles."""
+    ``route``. tc and wgmma aim at one wave of resident blocks, so that
+    each block walks many gallery tiles (wgmma: one block an SM)."""
+    if route == "wgmma":
+        if kernel != "lse":
+            raise ValueError("the wgmma route runs the lse pass only")
+        return plan_splits(m, n, WGMMA_ROWS, WGMMA_COLS, sm_count,
+                           blocks=sm_count)
     if route == "simt":
         rows, cols = ((LSE_BLOCK_ROWS, LSE_BLOCK_COLS) if kernel == "lse"
                       else (MV_BLOCK_ROWS, MV_BLOCK_COLS))
@@ -183,10 +223,18 @@ def plan_for(kernel: str, route: str, m: int, n: int, d: int,
                        blocks=tc_blocks_per_sm(kernel, d) * sm_count)
 
 
-def plan_gallery_route(*tensors: torch.Tensor) -> str:
-    """``"tc"`` for fp32 contiguous operands with D = the last dim of the
-    first, D % 8 == 0, D <= 512 and 16-byte aligned bases; else
-    ``"simt"``. A plan by shape: neither route gives way to the other."""
+def wgmma_split_for(m: int) -> str:
+    """The wgmma lse pass's source of small halves for ``m`` v rows:
+    ``"prepass"`` from ``WGMMA_PREPASS_ROWS`` rows on, else ``"smem"``."""
+    return "prepass" if m >= WGMMA_PREPASS_ROWS else "smem"
+
+
+def plan_gallery_route(kernel: str, *tensors: torch.Tensor) -> str:
+    """The route of ``kernel``'s pass ("lse" or "matvec") on these
+    operands: for fp32 contiguous operands with D = the last dim of the
+    first, D % 8 == 0, D <= 512 and 16-byte aligned bases, ``"wgmma"`` for
+    the lse pass and ``"tc"`` for the matvec pass; else ``"simt"``. A plan
+    by shape: no route gives way to another."""
     d = tensors[0].shape[-1]
     if d % 8 or d > MV_MAX_DIM:
         return "simt"
@@ -194,18 +242,27 @@ def plan_gallery_route(*tensors: torch.Tensor) -> str:
         if (t.dtype != torch.float32 or not t.is_contiguous()
                 or t.data_ptr() % 16):
             return "simt"
-    return "tc"
+    return "wgmma" if kernel == "lse" else "tc"
 
 
 def resolve_route(name: str, asked: Optional[str], planned: str) -> str:
-    """The planner's route unless one is asked for; ``"tc"`` asked for
-    where the planner would not take it raises."""
+    """The planner's route unless one is asked for. ``"simt"`` takes every
+    call, ``"tc"`` where the planner picked a tensor-core route and
+    ``"wgmma"`` where it picked ``"wgmma"``; else this raises."""
     if asked is None:
         return planned
-    if asked not in ROUTES or (asked == "tc" and planned != "tc"):
+    takes = {"simt": True, "tc": planned in ("tc", "wgmma"),
+             "wgmma": planned == "wgmma"}
+    if not takes.get(asked, False):
         raise ValueError(f"{name}: route {asked!r} does not take these "
                          f"inputs (planned: {planned!r})")
     return asked
+
+
+def matvec_route(lse_route: str) -> str:
+    """K3's backward route for its forward's: the wgmma route's inputs go
+    to ``"tc"``, as the planner sends the matvec pass."""
+    return "tc" if lse_route == "wgmma" else lse_route
 
 
 def _check_inputs(name: str, *tensors: torch.Tensor) -> None:
@@ -246,7 +303,9 @@ def _lse_launch(v: torch.Tensor, g: torch.Tensor, tau: float, mode: int,
                 route: str, labels: Optional[torch.Tensor] = None,
                 segments: int = 1):
     """The lse partial pass on ``route`` + the merge in ``mode``: returns
-    out [M] (lse, or diag - lse), and for ``_CE`` (loss [segments], lse)."""
+    out [M] (lse, or diag - lse), and for ``_CE`` (loss [segments], lse).
+    The wgmma route takes its small halves as ``WGMMA_SPLIT`` or else
+    ``wgmma_split_for(M)`` says; "prepass" allocates their scratch here."""
     (m, d), n = v.shape, g.shape[0]
     splits, per_split = plan_for("lse", route, m, n, d, _sm_count(v))
     part_max = torch.empty(m, splits, dtype=torch.float32, device=v.device)
@@ -254,12 +313,21 @@ def _lse_launch(v: torch.Tensor, g: torch.Tensor, tau: float, mode: int,
     out = torch.empty(m, dtype=torch.float32, device=v.device)
     loss = (torch.empty(segments, dtype=torch.float32, device=v.device)
             if mode == _CE else None)
+    v_small = g_small = None
+    if route != "wgmma":
+        route_id = _ROUTE_ID[route]
+    else:
+        split = WGMMA_SPLIT or wgmma_split_for(m)
+        route_id = _WGMMA_ROUTE_ID[split]
+        if split == "prepass":
+            v_small, g_small = torch.empty_like(v), torch.empty_like(g)
     with torch.cuda.device(v.device):
         _check(_lib().gallery_lse(
-            _ROUTE_ID[route], v.data_ptr(), g.data_ptr(), m, n, d, 1.0 / tau,
+            route_id, v.data_ptr(), g.data_ptr(), m, n, d, 1.0 / tau,
             splits, per_split, part_max.data_ptr(), part_sum.data_ptr(),
             mode, _ptr(labels), m // segments, out.data_ptr(), _ptr(loss),
-            _stream(v)), f"gallery_lse ({route})")
+            _ptr(v_small), _ptr(g_small), _stream(v)),
+            f"gallery_lse ({route})")
     return out if loss is None else (loss, out)
 
 
@@ -288,6 +356,18 @@ def _matvec_launch(v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor,
     return out
 
 
+def wgmma_peak(blocks: int, iters: int, device) -> torch.Tensor:
+    """Launch the wgmma TF32 rate probe (``wgmma_peak_kernel``): blocks x 2
+    warpgroups x iters x 12 m64n128k8 products from shared memory, 2 * 64
+    * 128 * 8 operations each. A measurement of the card, used by
+    ``chip_smoke.py``; returns the per-thread sums."""
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        _check(_lib().gallery_wgmma_peak(blocks, iters, out.data_ptr(),
+                                         _stream(out)), "gallery_wgmma_peak")
+    return out
+
+
 def tc_peak(blocks: int, iters: int, device) -> torch.Tensor:
     """Launch the mma.sync TF32 rate probe (``tc_peak_kernel``): blocks x 8
     warps x iters x 8 m16n8k8 products, 2 * 16 * 8 * 8 operations each.
@@ -308,7 +388,7 @@ def row_logsumexp(v: torch.Tensor, gallery: torch.Tensor, tau: float = 1.0,
                   route: Optional[str] = None) -> torch.Tensor:
     """[M, D] x [N, D] -> [M] float32 logsumexp rows of v @ g.T / tau (K1)."""
     route = resolve_route("row_logsumexp", route,
-                          plan_gallery_route(v, gallery))
+                          plan_gallery_route("lse", v, gallery))
     if v.device.type == "cpu":
         return plain.streaming_logsumexp(v, gallery, tau)
     _check_inputs("row_logsumexp", v, gallery)
@@ -325,7 +405,8 @@ def conw_diag(v: torch.Tensor, gallery: torch.Tensor,
         raise ValueError(f"conw_diag: shapes {tuple(v.shape)} and "
                          f"{tuple(gallery.shape)} differ")
     v, gallery = v.contiguous(), gallery.contiguous()
-    route = resolve_route("conw_diag", route, plan_gallery_route(v, gallery))
+    route = resolve_route("conw_diag", route,
+                          plan_gallery_route("lse", v, gallery))
     if v.device.type == "cpu":
         return plain.gallery_log_softmax_diag(v, gallery)
     _check_inputs("conw_diag", v, gallery)
@@ -340,7 +421,7 @@ def softmax_matvec(v: torch.Tensor, gallery: torch.Tensor,
                    route: Optional[str] = None) -> torch.Tensor:
     """softmax(v @ g.T / tau) @ g -> [M, D] float32 given the row lse (K2)."""
     route = resolve_route("softmax_matvec", route,
-                          plan_gallery_route(v, gallery))
+                          plan_gallery_route("matvec", v, gallery))
     if v.device.type == "cpu":
         return plain.softmax_matvec(v, gallery, lse, tau)
     _check_inputs("softmax_matvec", v, gallery, lse)
@@ -361,8 +442,9 @@ def _check_segments(name: str, m: int, segments: int) -> None:
 class FusedGalleryCE(torch.autograd.Function):
     """Mean CE of ``feats @ gallery.T / tau`` vs ``labels``, no gradient to
     the gallery or the labels. Forward: K1's partial pass and the CE-mode
-    merge (loss and lse); backward: K2's partial pass and the dfeats-mode
-    merge, with gbar read from the device. ``segments`` S > 1: the loss is
+    merge (loss and lse), on ``route``; backward: K2's partial pass and
+    the dfeats-mode merge, with gbar read from the device, on
+    ``matvec_route(route)``. ``segments`` S > 1: the loss is
     [S], one mean per equal contiguous segment of rows, and gbar [S]. On
     CPU tensors both run their plain steps (``ops.gallery``: partials over
     the same split plan, then the merges), so the formulas are checked
@@ -374,15 +456,15 @@ class FusedGalleryCE(torch.autograd.Function):
         g32 = gallery.to(torch.float32).contiguous()
         labels = labels.to(torch.int64).contiguous()
         route = resolve_route("fused_gallery_ce", route,
-                              plan_gallery_route(f32, g32))
+                              plan_gallery_route("lse", f32, g32))
         (m, d), n = f32.shape, g32.shape[0]
         _check_segments("fused_gallery_ce", m, segments)
         if f32.device.type == "cpu":
             splits, per_split = plan_for("lse", route, m, n, d,
                                          _sm_count(f32))
-            cols = LSE_TC_COLS if route == "tc" else LSE_BLOCK_COLS
             loss, lse = plain.ce_merge(
-                *plain.lse_partials(f32, g32, tau, splits, per_split, cols),
+                *plain.lse_partials(f32, g32, tau, splits, per_split,
+                                    lse_cols(route)),
                 f32, g32, labels, tau, segments)
         else:
             _check_inputs("fused_gallery_ce", f32, g32)
@@ -394,7 +476,8 @@ class FusedGalleryCE(torch.autograd.Function):
             rows = fused_gallery_ce.launches_by_rows
             rows[(m, segments)] = rows.get((m, segments), 0) + 1
         ctx.save_for_backward(f32, g32, lse, labels)
-        ctx.tau, ctx.route, ctx.feats_dtype = tau, route, feats.dtype
+        ctx.tau, ctx.feats_dtype = tau, feats.dtype
+        ctx.route = matvec_route(route)
         return loss.reshape(()) if segments == 1 else loss
 
     @staticmethod
@@ -427,12 +510,13 @@ def fused_gallery_ce(feats: torch.Tensor, gallery: torch.Tensor,
                      segments: int = 1) -> torch.Tensor:
     """Mean CE of ``feats @ gallery.T / tau`` vs integer ``labels`` (K3): a
     scalar, or with ``segments`` S > 1 the [S] means of S equal contiguous
-    segments of rows, in one launch each way. Labels must lie in [0, N)
+    segments of rows, in one launch each way (``route``: the forward's;
+    the backward takes ``matvec_route(route)``). Labels must lie in [0, N)
     (the kernels give NaN otherwise)."""
     if feats.device.type == "cpu":
         if route is not None:
             resolve_route("fused_gallery_ce", route, plan_gallery_route(
-                feats.to(torch.float32).contiguous(), gallery))
+                "lse", feats.to(torch.float32).contiguous(), gallery))
         return plain.gallery_cross_entropy(feats, gallery, labels, tau=tau,
                                            segments=segments)
     return FusedGalleryCE.apply(feats, gallery.detach(), labels, tau, route,

@@ -307,21 +307,26 @@ def test_fused_gallery_ce_function_on_either_route(ce_inputs, route):
 
 def test_plan_gallery_route():
     v, g = torch.zeros(8, 256), torch.zeros(40, 256)
-    assert tk.plan_gallery_route(v, g) == "tc"
-    assert tk.plan_gallery_route(torch.zeros(3, 48), torch.zeros(5, 48)) \
-        == "tc"
-    assert tk.plan_gallery_route(torch.zeros(3, 512),
-                                 torch.zeros(5, 512)) == "tc"
-    # D not a multiple of 8, D above 512, bf16, a strided view, a base
-    # off 16 bytes: simt.
-    assert tk.plan_gallery_route(torch.zeros(3, 12), torch.zeros(5, 12)) \
-        == "simt"
-    assert tk.plan_gallery_route(torch.zeros(3, 520),
-                                 torch.zeros(5, 520)) == "simt"
-    assert tk.plan_gallery_route(v.bfloat16(), g) == "simt"
-    assert tk.plan_gallery_route(torch.zeros(256, 8).T, g) == "simt"
-    off = torch.zeros(8 * 256 + 1)[1:].view(8, 256)
-    assert off.data_ptr() % 16 and tk.plan_gallery_route(off, g) == "simt"
+    # The tensor-core routes' inputs: the matvec pass on tc, the lse pass
+    # on wgmma.
+    for kernel, tc in (("matvec", "tc"), ("lse", "wgmma")):
+        assert tk.plan_gallery_route(kernel, v, g) == tc
+        assert tk.plan_gallery_route(kernel, torch.zeros(3, 48),
+                                     torch.zeros(5, 48)) == tc
+        assert tk.plan_gallery_route(kernel, torch.zeros(3, 512),
+                                     torch.zeros(5, 512)) == tc
+        # D not a multiple of 8, D above 512, bf16, a strided view, a base
+        # off 16 bytes: simt.
+        assert tk.plan_gallery_route(kernel, torch.zeros(3, 12),
+                                     torch.zeros(5, 12)) == "simt"
+        assert tk.plan_gallery_route(kernel, torch.zeros(3, 520),
+                                     torch.zeros(5, 520)) == "simt"
+        assert tk.plan_gallery_route(kernel, v.bfloat16(), g) == "simt"
+        assert tk.plan_gallery_route(kernel, torch.zeros(256, 8).T,
+                                     g) == "simt"
+        off = torch.zeros(8 * 256 + 1)[1:].view(8, 256)
+        assert off.data_ptr() % 16 and tk.plan_gallery_route(
+            kernel, off, g) == "simt"
 
 
 def test_route_argument_is_checked():
@@ -386,7 +391,7 @@ def test_launch_counts_by_route_reset():
     for fn in (tk.row_logsumexp, tk.softmax_matvec, tk.fused_gallery_ce,
                tk.conw_diag):
         assert fn.launches == 0
-        assert fn.launches_by_route == {"tc": 0, "simt": 0}
+        assert fn.launches_by_route == {"wgmma": 0, "tc": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("unit", [True, False])
