@@ -184,7 +184,6 @@ import os
 import statistics
 import subprocess
 import sys
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -2109,69 +2108,6 @@ def png_gif_phase(dev=torch.device("cuda")) -> None:
         f"routes {json.dumps(routes)}")
 
 
-class _HostLoaderTime:
-    """Seconds the round's thread waits for loader batches: each ``next``
-    of the outermost loader it iterates (``ArrayLoader``, ``PrefetchLoader``,
-    ``GrainLoader`` (its workers' start included), ``DeviceImageBatches``
-    or ``DeviceImages``), so rendering and stacking
-    on that thread, a prefetch queue's wait, the enqueueing of on-device
-    synthesis and the reading and decoding of real images; and,
-    apart (``thread_seconds``), what ``ArrayLoader`` spends producing
-    batches on prefetch threads, which overlaps the round."""
-
-    def __init__(self):
-        from creamfl_tpu_torch.data import (device_images, device_synth,
-                                           grain_loaders, loaders)
-
-        self.producer = loaders.ArrayLoader
-        self.orig = {cls: cls.__iter__ for cls in (
-            loaders.ArrayLoader, loaders.PrefetchLoader,
-            grain_loaders.GrainLoader, device_synth.DeviceImageBatches,
-            device_images.DeviceImages)}
-        self.seconds = self.thread_seconds = 0.0
-        self.depth = 0
-        self.lock = threading.Lock()
-
-    def _timed(self, orig, producer: bool):
-        import time
-
-        timer = self
-
-        def timed(loader):
-            it = orig(loader)
-            on_main = threading.current_thread() is threading.main_thread()
-            while True:
-                outer = on_main and timer.depth == 0
-                t0 = time.perf_counter()
-                if on_main:
-                    timer.depth += 1
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    return
-                finally:
-                    dt = time.perf_counter() - t0
-                    if on_main:
-                        timer.depth -= 1
-                        if outer:
-                            timer.seconds += dt
-                    elif producer:
-                        with timer.lock:
-                            timer.thread_seconds += dt
-                yield batch
-
-        return timed
-
-    def __enter__(self):
-        for cls, orig in self.orig.items():
-            cls.__iter__ = self._timed(orig, cls is self.producer)
-        return self
-
-    def __exit__(self, *exc):
-        for cls, orig in self.orig.items():
-            cls.__iter__ = orig
-
-
 def _dataset_len(loader) -> int:
     """Rows of the dataset under a loader and its wrappers."""
     while not hasattr(loader, "dataset"):
@@ -2216,6 +2152,7 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda"),
 
     from creamfl_tpu_torch import main as port_main
     from creamfl_tpu_torch.ops.gallery import gallery_log_softmax_diag
+    from creamfl_tpu_torch.utils import profiling
 
     def log(*parts):
         print(f"[{tag}]", *parts, flush=True)
@@ -2230,7 +2167,7 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda"),
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         util = _Utilization() if dev.type == "cuda" else None
-        with _HostLoaderTime() as host:
+        with profiling.recording() as spans:
             if util is None:
                 algo = port_main.run(args)
             else:
@@ -2247,11 +2184,15 @@ def round_phase(seed: int, cli_extra=(), dev=torch.device("cuda"),
     log(f"clients (the round minus the other phases): "
         f"{round_s - sum(phases[k] for k in ROUND_PHASES):.3f} s")
     log(f"round wall time: {round_s:.3f} s")
-    log(f"host loader time (set-up included): {host.seconds:.3f} s, "
-        f"{host.seconds / round_s:.3f} of the round")
-    if host.thread_seconds:
+    # The program's loader spans: the round thread's waits in the
+    # outermost loader's next(), and the prefetch threads' work.
+    wait = spans.on_thread("creamfl.data.next")
+    produce = spans.seconds.get("creamfl.data.produce", 0.0)
+    log(f"host loader time (set-up included): {wait:.3f} s, "
+        f"{wait / round_s:.3f} of the round")
+    if produce:
         log(f"batch assembly on prefetch threads (overlapped): "
-            f"{host.thread_seconds:.3f} s")
+            f"{produce:.3f} s")
     if util is not None:
         mean = statistics.mean(util.samples) if util.samples else None
         log(f"card utilization over the run (nvidia-smi, "

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from creamfl_tpu_torch.data import jpeg
+from creamfl_tpu_torch.data.loaders import outermost
 from creamfl_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                                apply_batch, to_device)
 from creamfl_tpu_torch.utils.device import resolve_device
@@ -98,6 +99,9 @@ class DeviceImages:
         return len(self.base)
 
     def __iter__(self) -> Iterator[dict]:
+        return outermost(self._batches())
+
+    def _batches(self) -> Iterator[dict]:
         for batch in self.base:
             src, sizes = self.source.fetch(np.asarray(batch["image_src"]),
                                            self.device)

@@ -32,6 +32,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from creamfl_tpu_torch.data.loaders import outermost
 from creamfl_tpu_torch.data.synthetic import concept_pattern
 from creamfl_tpu_torch.utils.device import resolve_device
 
@@ -123,6 +124,9 @@ class DeviceImageBatches:
         return len(self.base)
 
     def __iter__(self) -> Iterator[dict]:
+        return outermost(self._batches())
+
+    def _batches(self) -> Iterator[dict]:
         for batch in self.base:
             iids = np.asarray(batch["image_ids"])
             concepts = np.asarray([self.concept_fn(int(i)) for i in iids],

@@ -45,7 +45,7 @@ from typing import Any, Dict, Sequence
 from torch.utils.data import DataLoader
 
 from creamfl_tpu_torch.data.loaders import (ArrayLoader, batch_indices,
-                                            stack_samples)
+                                            outermost, stack_samples)
 
 
 class _BatchView:
@@ -127,11 +127,11 @@ class GrainLoader(ArrayLoader):
         # Before the pool starts: it pickles the dataset into its workers.
         view = _BatchView(self.dataset, self._epoch_order(), len(self),
                           self.batch_size, self.pad_last)
-        return iter(DataLoader(view, batch_size=None, shuffle=False,
-                               num_workers=self.num_workers,
-                               collate_fn=_identity,
-                               multiprocessing_context=_worker_context(),
-                               persistent_workers=False))
+        return outermost(DataLoader(
+            view, batch_size=None, shuffle=False,
+            num_workers=self.num_workers, collate_fn=_identity,
+            multiprocessing_context=_worker_context(),
+            persistent_workers=False))
 
 
 def make_loader(dataset, batch_size: int, backend: str = "array", **kwargs):

@@ -13,6 +13,13 @@ itself; order only affected batch statistics).
 producing dict-of-ndarray batches; it covers the reference's shuffle /
 drop_last surface and optionally pads the final partial batch (with a
 ``valid`` mask) so eval loops also see one static shape.
+
+Tracing (``utils/profiling.py``): each ``next()`` of the outermost loader a
+thread iterates (``ArrayLoader``, ``PrefetchLoader``, the worker loader,
+``DeviceImageBatches``, ``DeviceImages``) is a ``creamfl.data.next`` span
+and counts in ``data.batches``; a prefetch thread's work a batch is a
+``creamfl.data.produce`` span, and a consumer that finds the prefetch
+queue empty counts in ``data.queue_empty``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from creamfl_tpu_torch.utils import profiling
 
 # Round-mode epoch ids are round * STRIDE + k (k-th iteration within the
 # round); large enough that successive rounds never collide for any
@@ -69,6 +78,15 @@ def batch_indices(order: Sequence[int], b: int, batch_size: int,
     if n_valid < batch_size and pad_last:
         idxs += [idxs[i % n_valid] for i in range(batch_size - n_valid)]
     return idxs, n_valid
+
+
+def outermost(batches) -> Iterator:
+    """``batches`` as a loader hands them over: each ``next()`` a
+    ``creamfl.data.next`` span counted in ``data.batches``, unless the
+    thread is inside another loader's ``next()`` or producing for a
+    prefetch queue already (a ``creamfl.data.*`` span is open)."""
+    return profiling.spanned(batches, "creamfl.data.next",
+                             unless="creamfl.data.", counter="data.batches")
 
 
 def suffix_valid(valid: np.ndarray) -> int:
@@ -166,6 +184,9 @@ class ArrayLoader:
         return order
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
+        return outermost(self._batches())
+
+    def _batches(self) -> Iterator[Dict[str, Any]]:
         order = self._epoch_order()
         # Fast path: a CachedDataset exposes contiguous arrays — one
         # fancy-index per batch instead of n per-sample stacks.
@@ -263,7 +284,8 @@ class PrefetchLoader:
 
         def fill():
             try:
-                for batch in self.loader:
+                for batch in profiling.spanned(self.loader,
+                                               "creamfl.data.produce"):
                     if not safe_put(batch) or stop.is_set():
                         return
             except BaseException as e:  # propagate into the consumer
@@ -273,12 +295,20 @@ class PrefetchLoader:
 
         t = threading.Thread(target=fill, daemon=True)
         t.start()
-        try:
+
+        def drain():
             while True:
-                item = q.get()
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    profiling.count("data.queue_empty")
+                    item = q.get()
                 if item is sentinel:
-                    break
+                    return
                 yield item
+
+        try:
+            yield from outermost(drain())
         finally:
             # A consumer that stops early (next(iter(...)), a sliced
             # epoch) raises GeneratorExit here; without the stop signal

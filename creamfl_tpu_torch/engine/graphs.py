@@ -37,6 +37,9 @@ which is once, at capture. The cache takes the counts of the capture off
 (and those of the warm-up), and adds them again at every replay: a
 captured launch counts once per replay.
 
+A capture is a ``creamfl.graph.capture`` span and counts in the recorder's
+``graph.captures``, a replay in ``graph.replays`` (``utils/profiling.py``).
+
 ``clear`` drops the graphs and their pools (``ServerEngine.release_graphs``
 at the end of a round).
 """
@@ -49,20 +52,17 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from creamfl_tpu_torch.ops import launch_wrappers
+from creamfl_tpu_torch.utils import profiling
+
 # Attributes of the kernel wrappers that count launches.
 _COUNTERS = ("launches", "launches_by_route", "launches_by_rows")
-
-
-def _wrappers():
-    from creamfl_tpu_torch.ops import fused_bn_mm_kernels, gallery_kernels
-
-    return (*fused_bn_mm_kernels._WRAPPERS, *gallery_kernels._WRAPPERS)
 
 
 def _read_counts() -> Dict[Tuple[Any, str], Any]:
     """Every launch counter of the kernel wrappers (copies)."""
     return {(fn, attr): copy.copy(getattr(fn, attr))
-            for fn in _wrappers() for attr in _COUNTERS
+            for fn in launch_wrappers() for attr in _COUNTERS
             if hasattr(fn, attr)}
 
 
@@ -131,12 +131,16 @@ class GraphCache:
             # optimizer): the graph would read freed memory.
             entry = None
         if entry is None:
-            entry = self._entries[key] = self._capture(state, inputs, body)
+            with profiling.span("creamfl.graph.capture"):
+                entry = self._entries[key] = self._capture(state, inputs,
+                                                           body)
+            profiling.count("graph.captures")
         for buf, x in zip(entry.inputs, inputs):
             if buf is not None:
                 buf.copy_(x, non_blocking=True)
         entry.graph.replay()
         self.replays += 1
+        profiling.count("graph.replays")
         for (fn, attr), delta in entry.counts.items():
             _add(fn, attr, delta)
         return tuple(o.clone() for o in entry.outputs)

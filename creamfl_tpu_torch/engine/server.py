@@ -33,6 +33,11 @@ every rank, BatchNorm on its own rows, and its gradients are rank 0's
 (broadcast, so that no rank's update differs by a nondeterministic
 kernel). The chunks run eagerly there, per batch.
 
+Each step is traced in the recorder's ``creamfl.engine.*`` spans
+(``utils/profiling.py``): ``stage``, ``forward``, ``loss``, ``backward`` and
+``update`` (the zero gradients, the mesh's reduction, the clip and AdamP);
+the updates count in ``engine.steps`` and their rows in ``engine.rows``.
+
 bf16 as in the JAX package: trunk and BERT compute in bf16 (autocast inside
 the encoders), params, heads and the criterion in fp32. The fused trunk is
 reached through the model's own field: replace ``self.model`` by
@@ -62,6 +67,7 @@ from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
                                              make_server_optimizer,
                                              set_learning_rate)
 from creamfl_tpu_torch.parallel import mesh as M
+from creamfl_tpu_torch.utils import profiling
 from creamfl_tpu_torch.utils.device import resolve_device
 from creamfl_tpu_torch.utils.helper import save_checkpoint
 from creamfl_tpu_torch.utils.serialize import flatten_dict
@@ -229,11 +235,12 @@ class ServerEngine:
         the host (the GRU branch packs with host lengths, the BERT branch
         reads the mask)."""
         dev = self.device
-        return (torch.as_tensor(images, dtype=torch.float32, device=dev),
-                torch.as_tensor(captions, dtype=torch.long, device=dev),
-                torch.as_tensor(lengths),
-                None if bert_mask is None else torch.as_tensor(bert_mask,
-                                                               device=dev))
+        with profiling.span("creamfl.engine.stage"):
+            return (torch.as_tensor(images, dtype=torch.float32, device=dev),
+                    torch.as_tensor(captions, dtype=torch.long, device=dev),
+                    torch.as_tensor(lengths),
+                    None if bert_mask is None
+                    else torch.as_tensor(bert_mask, device=dev))
 
     def _update(self, state: EngineState, n_rows: int) -> None:
         """Clip the model's gradients, then AdamP over model and
@@ -241,18 +248,19 @@ class ServerEngine:
         model's gradients of a batch of ``n_rows`` split over the ranks are
         summed over them first; those of a batch run whole on every rank
         are rank 0's."""
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        if M.sharded(self.mesh, n_rows):
-            M.all_reduce_grads(self.mesh, state.model.parameters())
-        elif self.mesh is not None:
-            M.broadcast_tensors(self.mesh, [
-                p.grad for g in state.optimizer.param_groups
-                for p in g["params"]], src=0)
-        clip_grad_global_norm(state.model.parameters(), self.grad_clip)
-        state.optimizer.step()
+        with profiling.span("creamfl.engine.update"):
+            for group in state.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            if M.sharded(self.mesh, n_rows):
+                M.all_reduce_grads(self.mesh, state.model.parameters())
+            elif self.mesh is not None:
+                M.broadcast_tensors(self.mesh, [
+                    p.grad for g in state.optimizer.param_groups
+                    for p in g["params"]], src=0)
+            clip_grad_global_norm(state.model.parameters(), self.grad_clip)
+            state.optimizer.step()
 
     def _forward(self, state: EngineState, images, captions, lengths,
                  bert_mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -261,16 +269,18 @@ class ServerEngine:
         rank order (a batch that does not split runs whole, BatchNorm on
         this rank's rows alone)."""
         n = images.shape[0]
-        if not M.sharded(self.mesh, n):
-            with self._local_batchnorm():
-                out = state.model(images, captions, lengths, bert_mask)
-            return out["image_features"], out["caption_features"]
-        rows = M.shard_rows(self.mesh, n)
-        with M.batch_rows(n, rows):
-            out = state.model(images[rows], captions[rows], lengths[rows],
-                              None if bert_mask is None else bert_mask[rows])
-        return (M.all_gather_rows(self.mesh, out["image_features"]),
-                M.all_gather_rows(self.mesh, out["caption_features"]))
+        with profiling.span("creamfl.engine.forward"):
+            if not M.sharded(self.mesh, n):
+                with self._local_batchnorm():
+                    out = state.model(images, captions, lengths, bert_mask)
+                return out["image_features"], out["caption_features"]
+            rows = M.shard_rows(self.mesh, n)
+            with M.batch_rows(n, rows):
+                out = state.model(
+                    images[rows], captions[rows], lengths[rows],
+                    None if bert_mask is None else bert_mask[rows])
+            return (M.all_gather_rows(self.mesh, out["image_features"]),
+                    M.all_gather_rows(self.mesh, out["caption_features"]))
 
     @contextlib.contextmanager
     def _local_batchnorm(self):
@@ -291,8 +301,10 @@ class ServerEngine:
         state.optimizer.zero_grad(set_to_none=True)
         img_f, txt_f = self._forward(state, images, captions, lengths,
                                      bert_mask)
-        loss, ldict = state.criterion(img_f, txt_f)
-        loss.backward()
+        with profiling.span("creamfl.engine.loss"):
+            loss, ldict = state.criterion(img_f, txt_f)
+        with profiling.span("creamfl.engine.backward"):
+            loss.backward()
         ldict = {k: v.detach().clone() for k, v in ldict.items()}
         self._update(state, images.shape[0])
         return ldict
@@ -311,23 +323,26 @@ class ServerEngine:
         state.optimizer.zero_grad(set_to_none=True)
         img_f, txt_f = self._forward(state, images, captions, lengths,
                                      bert_mask)
-        img_f, txt_f = img_f.float(), txt_f.float()
-        t_img = (aggregated["img"].index_select(0, rows)
-                 if use_img or use_mm else None)
-        t_txt = (aggregated["txt"].index_select(0, rows)
-                 if use_txt or use_mm else None)
-        terms = []
-        if use_img:
-            terms.append((img_f, t_img))
-        if use_txt:
-            terms.append((txt_f, t_txt))
-        if use_mm:
-            terms += [(img_f, t_img), (txt_f, t_txt)]
-        loss = torch.zeros((), device=self.device)
-        for pred, target in terms:
-            loss = loss + kd_weight * torch.mean(torch.square(pred - target))
+        with profiling.span("creamfl.engine.loss"):
+            img_f, txt_f = img_f.float(), txt_f.float()
+            t_img = (aggregated["img"].index_select(0, rows)
+                     if use_img or use_mm else None)
+            t_txt = (aggregated["txt"].index_select(0, rows)
+                     if use_txt or use_mm else None)
+            terms = []
+            if use_img:
+                terms.append((img_f, t_img))
+            if use_txt:
+                terms.append((txt_f, t_txt))
+            if use_mm:
+                terms += [(img_f, t_img), (txt_f, t_txt)]
+            loss = torch.zeros((), device=self.device)
+            for pred, target in terms:
+                loss = loss + kd_weight * torch.mean(
+                    torch.square(pred - target))
         if terms:
-            loss.backward()
+            with profiling.span("creamfl.engine.backward"):
+                loss.backward()
         self._update(state, images.shape[0])
         return loss.detach()
 
@@ -337,6 +352,7 @@ class ServerEngine:
         ldict = self._train(state, *self.stage(images, captions, lengths,
                                                bert_mask))
         state.step += 1
+        _count_steps(1, len(images))
         return state, ldict
 
     def extract_step(self, state: EngineState, images, captions, lengths,
@@ -364,6 +380,7 @@ class ServerEngine:
                                                 bert_mask), aggregated,
                              rows, use_img, use_txt, use_mm, kd_weight)
         state.step += 1
+        _count_steps(1, len(images))
         return state, loss
 
     # -- chunked sweeps -------------------------------------------------
@@ -437,6 +454,7 @@ class ServerEngine:
             "train", state, (images, captions, lengths, bert_mask),
             lambda *x: (self._train(state, *x)["loss"],))
         state.step += len(losses)
+        _count_steps(len(losses), len(losses) * images.shape[1])
         return state, losses
 
     def distill_chunk(self, state: EngineState, images, captions, lengths,
@@ -458,4 +476,13 @@ class ServerEngine:
                                       kd_weight),),
             flags)
         state.step += len(losses)
+        _count_steps(len(losses), len(losses) * images.shape[1])
         return state, losses
+
+
+def _count_steps(steps: int, rows: int) -> None:
+    """The recorder's ``engine.steps`` and ``engine.rows``: the updates and
+    the rows they took, counted where a step or a chunk returns, so that a
+    graph replay counts its k steps."""
+    profiling.count("engine.steps", steps)
+    profiling.count("engine.rows", rows)

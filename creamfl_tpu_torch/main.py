@@ -52,7 +52,9 @@ paper's geometry (a 50 000-row public set at 224², its images synthesized
 on the card): add ``--paper_scale``; ``--client_bf16`` runs the image
 clients' trunks in bf16, and ``--resnet_ckpt``, ``--bert_ckpt``,
 ``--glove_path`` and ``--client_resnet_ckpt`` load weights from local
-files.
+files. ``--trace_dir DIR`` records the program's spans and counters
+(``utils/profiling.py``) and writes each round's as a Chrome trace-event
+file there, on ``torch.profiler``'s clock.
 """
 
 from __future__ import annotations
@@ -142,6 +144,11 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument('--wandb', action='store_true', default=False)
     parser.add_argument('--ckpt_dir', type=str, default=None,
                         help='round-checkpoint directory (enables resume)')
+    parser.add_argument('--trace_dir', type=str, default=None,
+                        help='write each round\'s spans and counters as a '
+                             'Chrome trace-event file '
+                             '(round<N>[.rank<k>].spans.json) into this '
+                             'directory')
     parser.add_argument('--no_client_parallel', dest='client_parallel',
                         action='store_false', default=True,
                         help='disable stacked client-parallel execution')
@@ -356,6 +363,24 @@ def _mesh(args):
     return mesh if mesh.world > 1 else None
 
 
+def _traced_round(algo, round_n: int, trace_dir: str, mesh) -> str:
+    """Round ``round_n`` with the recorder on; its spans and counters go
+    to ``<trace_dir>/round<N>[.rank<k>].spans.json`` (N counted from 1, as
+    the log's rounds are)."""
+    import json
+
+    from creamfl_tpu_torch.utils import profiling
+
+    with profiling.recording() as snap:
+        algo.train(round_n)
+    rank = f".rank{mesh.rank}" if mesh is not None else ""
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"round{round_n + 1}{rank}.spans.json")
+    with open(path, "w") as f:
+        json.dump(snap.chrome_trace(), f)
+    return path
+
+
 def run(args):
     """One federated run; returns the ``MMFL`` it drove, or None where it
     started one process per card (or per CPU rank) and waited for them."""
@@ -393,7 +418,10 @@ def run(args):
                 mesh=mesh)
     start_round = algo.resume() if args.resume else 0
     for round_n in range(start_round, args.comm_rounds):
-        algo.train(round_n)
+        if args.trace_dir:
+            _traced_round(algo, round_n, args.trace_dir, mesh)
+        else:
+            algo.train(round_n)
     logger.log("Best:")
     if algo.best_scores is not None:
         logger.log_dict({

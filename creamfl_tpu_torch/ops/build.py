@@ -8,7 +8,9 @@ flags (``-lnvjpeg`` for ``csrc/jpeg.cu``): a changed source or header gets
 a new library and an unchanged one is built once. The kernels are built
 with nvcc (``NVCC_FLAGS``); the host-only caption tokenizer
 (``csrc/native.cpp``) with g++ (``GXX_FLAGS``). The libraries have a
-plain C interface: no PyTorch headers, so a build takes seconds.
+plain C interface: no PyTorch headers, so a build takes seconds. Each call
+of ``build`` (a library built, or found built and loaded) is a
+``creamfl.ops.build`` span and counts in the recorder's ``ops.builds``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Sequence, Tuple
+
+from creamfl_tpu_torch.utils import profiling
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -71,6 +75,13 @@ def build(source: Path, link: Sequence[str] = (), compiler: str = "nvcc",
     that a concurrent process never loads half of it. Returns (library
     path, build seconds, compiler output). Raises if the compiler fails or
     is missing."""
+    profiling.count("ops.builds")
+    with profiling.span("creamfl.ops.build"):
+        return _build(source, link, compiler, flags)
+
+
+def _build(source: Path, link: Sequence[str], compiler: str,
+           flags: Sequence[str]) -> Tuple[Path, float, str]:
     lib = library_path(source, link, flags)
     if lib.exists():
         return lib, 0.0, ""

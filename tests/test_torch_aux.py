@@ -12,13 +12,7 @@
 * ``config.dump_config``: the bundled configs written as JSON and YAML,
   byte-equal to the JAX package's files, and read back equal.
 * ``utils/helper.to_one_hot`` equal to the JAX package's.
-* ``utils/profiling.trace`` writes a Chrome trace of a CPU block, and is a
-  no-op without a log dir.
 """
-
-import glob
-import json
-import os
 
 import numpy as np
 import pytest
@@ -32,7 +26,6 @@ from creamfl_tpu_torch.models.uncertainty import (UncertaintyModule,
                                                   init_uncertainty,
                                                   sample_gaussian_embeddings)
 from creamfl_tpu_torch.utils.helper import to_one_hot
-from creamfl_tpu_torch.utils.profiling import trace
 
 B, L, D_IN, D_OUT, D_H = 4, 7, 24, 16, 12
 
@@ -171,16 +164,3 @@ def test_to_one_hot_equal_jax():
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(to_one_hot([1, 0], 3).numpy(),
                                   [[0, 1, 0], [1, 0, 0]])
-
-
-def test_trace_writes_a_trace(tmp_path):
-    with trace(None):
-        torch.ones(3).sum()
-    with trace(str(tmp_path)):
-        x = torch.randn(64, 64)
-        (x @ x).relu().sum()
-    files = glob.glob(os.path.join(str(tmp_path), "*.pt.trace.json"))
-    assert len(files) == 1
-    with open(files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
