@@ -3,13 +3,13 @@
     python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked |
                                       --paper-round | --paper-full |
                                       --real-round | --chunks | --mesh |
-                                      --mesh-cards N | --rest]
+                                      --mesh-cards N | --rest | --adamp]
 
 Phases (any failure exits non-zero):
 
 1. Build the kernel sources (``creamfl_tpu_torch/csrc/gallery.cu``,
-   ``csrc/fused_bn_mm.cu`` and ``csrc/jpeg.cu``), one nvcc each, in
-   parallel.
+   ``csrc/fused_bn_mm.cu``, ``csrc/adamp.cu`` and ``csrc/jpeg.cu``), one
+   nvcc each, in parallel.
 2. The gallery kernels' first calls on every route, small and ragged, in
    a subprocess under a time limit (``--probe`` runs this step alone).
    Then the card's TF32 rates of mma.sync and of wgmma, and each gallery
@@ -37,6 +37,15 @@ Phases (any failure exits non-zero):
    products alone, and the bound, each kernel on both routes in the same
    run with its device time per call split by kernel, and K5's and K6's
    totals per train step on each route.
+3b. K7, AdamP's multi-tensor step (``--adamp`` runs the build and this step
+   alone), at the server's 521 leaves (R101 + BERT-base and the criterion's
+   two scalars, the trunk channels_last): two steps against the plain
+   version on the card (parameters, moments within ``ADAMP_TOL``, the
+   leaves' modes equal), the kernel's CUDA-event and device time a step
+   against its bound (28 bytes an element: g, p, m, v read, p, m, v
+   written), the plain version's, and launches a step; then eager server
+   train steps with the plain version made to raise: three K7 launches a
+   step and no plain fallback, and the update's device time a step.
 4. The image-client half of a CreamFL round at the paper's width: three
    ResNet-18 clients (100 classes, feature_dim 256) take task and contrast
    steps, run a local test and extract features over the full 50 000-row
@@ -226,6 +235,7 @@ TRUNK_FLOOR_RATIO, TRUNK_COSINE, TRUNK_LOSS_RTOL = 1.25, 0.95, 0.02
 
 GALLERY_SOURCE = "creamfl_tpu_torch/csrc/gallery.cu"
 FUSED_SOURCE = "creamfl_tpu_torch/csrc/fused_bn_mm.cu"
+ADAMP_SOURCE = "creamfl_tpu_torch/csrc/adamp.cu"
 # kernel wrapper -> (source, the TPU kernel it replaces)
 KERNELS = {
     "row_logsumexp": (GALLERY_SOURCE,
@@ -237,8 +247,16 @@ KERNELS = {
     "conw_diag": (GALLERY_SOURCE, "creamfl_tpu/ops/pallas_gallery.py:125"),
     "mm_bn_stats_fwd": (FUSED_SOURCE, "creamfl_tpu/ops/fused_bn_mm.py:99"),
     "mm_bn_stats_bwd": (FUSED_SOURCE, "creamfl_tpu/ops/fused_bn_mm.py:212"),
+    "adamp": (ADAMP_SOURCE, "none (creamfl_tpu/optim/adamp.py is optax "
+              "code)"),
 }
 GALLERY_KERNELS = tuple(KERNELS)[:4]
+# K7 against its plain version, both fp32: the row sums in another order
+# and contracted multiply-adds, a few ulp of a sum; parameters of order 1
+# move by about lr a step.
+ADAMP_TOL = dict(rtol=1e-5, atol=1e-6)
+# AdamP's least traffic a step: g, p, m and v read, p, m and v written.
+ADAMP_BYTES_PER_ELEMENT = 28
 # The gallery routes' first calls run in a subprocess under this limit (s).
 PROBE_TIMEOUT = 240
 # Tolerances of kernel vs plain version, both fp32; they differ only in
@@ -362,15 +380,17 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
 
 def build_phase() -> None:
     """Build every kernel source at once: one nvcc per source, in parallel
-    (the gallery kernels, K5/K6, and the JPEG decoder's colour kernel)."""
+    (the gallery kernels, K5/K6, K7 and the JPEG decoder's colour
+    kernel)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from creamfl_tpu_torch.data import jpeg
+    from creamfl_tpu_torch.ops import adamp as A
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = list(pool.map(lambda mod: mod.build(), (K, FK, jpeg)))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = list(pool.map(lambda mod: mod.build(), (K, FK, A, jpeg)))
     for path, seconds, out in builds:
         log(f"[build] {path.name} in {seconds:.1f} s")
         for line in out.splitlines():
@@ -1124,6 +1144,133 @@ def fused_kernel_phase(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: K7, AdamP's multi-tensor step at the server's leaves
+# ---------------------------------------------------------------------------
+
+def _server_engine(seed: int, dev):
+    """The server's engine and state at the paper's width (ResNet-101 +
+    BERT-base, the standard trunk, channels_last on the card)."""
+    from creamfl_tpu_torch.config import default_config_path, parse_config
+    from creamfl_tpu_torch.engine.server import ServerEngine
+    from creamfl_tpu_torch.models.bert import BertConfig
+
+    cfg = parse_config(default_config_path("coco.json"),
+                       model__embed_dim=DIM, model__cnn_type=SERVER_CNN)
+    bert = SERVER_BERT or BertConfig()
+    engine = ServerEngine(cfg, vocab_size=bert.vocab_size, bert_config=bert,
+                          device=dev)
+    state = engine.init_state(seed)
+    engine.set_round_lr(state, 0)
+    return engine, state
+
+
+def _adamp_copies(params, dev):
+    """(params, exp_avgs, exp_avg_sqs, steps): copies of ``params`` in their
+    layouts and a zero state."""
+    ps = [torch.empty_like(p).copy_(p.detach()) for p in params]
+    return (ps, [torch.zeros_like(p) for p in ps],
+            [torch.zeros_like(p) for p in ps],
+            [torch.zeros((), dtype=torch.float64, device=dev) for _ in ps])
+
+
+def adamp_phase(seed: int, dev=torch.device("cuda")):
+    """K7 at the server's leaves against its plain version, timed, then
+    inside eager server train steps. Returns {"adamp": record}."""
+    from creamfl_tpu_torch.ops import adamp as A
+
+    engine, state = _server_engine(seed, dev)
+    params = list(state.optimizer.param_groups[0]["params"])
+    numel = sum(p.numel() for p in params)
+    matrices = sum(p.dim() > 1 for p in params)
+    log(f"[adamp] {len(params)} leaves ({matrices} with 2+ dims), "
+        f"{numel} parameters, {A.capacity()} leaves a launch")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    grads = [torch.empty_like(p).copy_(torch.randn(
+        p.shape, generator=gen, device=dev)) for p in params]
+    lr = torch.tensor(2e-4, dtype=torch.float64, device=dev)
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-4,
+                 delta=0.1, wd_ratio=0.1)
+    kern, plain = _adamp_copies(params, dev), _adamp_copies(params, dev)
+    for step in range(2):
+        before = A.adamp.launches
+        modes = A.adamp(kern[0], grads, *kern[1:], lr, **hyper)
+        launches = A.adamp.launches - before
+        want = A.adamp_reference(plain[0], grads, *plain[1:], lr, **hyper)
+        if modes.tolist() != want.tolist():
+            raise AssertionError(f"adamp step {step}: modes differ at "
+                                 f"{(modes != want).nonzero().tolist()}")
+        log(f"[adamp] step {step}: {launches} launches; leaves in no / "
+            f"channel / layer projection "
+            f"{[int((modes == k).sum()) for k in range(3)]}")
+    errs = {}
+    for name, i in (("param", 0), ("exp_avg", 1), ("exp_avg_sq", 2)):
+        errs[name] = check(f"adamp {name}",
+                           torch.cat([t.reshape(-1) for t in kern[i]]),
+                           torch.cat([t.reshape(-1) for t in plain[i]]),
+                           ADAMP_TOL)
+    if [float(s) for s in kern[3]] != [2.0] * len(params):
+        raise AssertionError("adamp: a step count is not 2")
+    bound, bound_by = bound_ms(0.0, ADAMP_BYTES_PER_ELEMENT * numel)
+
+    def step_kernel():
+        A.adamp(kern[0], grads, *kern[1:], lr, **hyper)
+
+    def step_plain():
+        A.adamp_reference(plain[0], grads, *plain[1:], lr, **hyper)
+
+    ms = cuda_time_ms(step_kernel, reps=20)
+    by_kernel = device_ms_by_kernel(step_kernel, reps=10)
+    device = sum(by_kernel.values())
+    plain_ms = cuda_time_ms(step_plain, reps=5)
+    plain_device = sum(device_ms_by_kernel(step_plain, reps=3).values())
+    passes = {k: round(v, 4) for k, v in by_kernel.items()}
+    log(f"[adamp] K7 {ms:.3f} ms a step (CUDA events), device "
+        f"{device:.3f} ms {json.dumps(passes)}; bound {bound:.3f} ms "
+        f"({bound_by}: {ADAMP_BYTES_PER_ELEMENT} B x {numel}), "
+        f"{100 * bound / device:.1f} % of it (40 B an element, the design's "
+        f"traffic: {bound_ms(0.0, 40 * numel)[0]:.3f} ms); plain "
+        f"{plain_ms:.3f} ms (device {plain_device:.3f} ms)")
+    del kern, plain, grads
+
+    # Eager server train steps: K7 a step, the plain version never (a CUDA
+    # leaf never falls back to it).
+    vocab = engine.model.bert_config.vocab_size
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain AdamP ran on the card")
+
+    saved = A.adamp_reference, A._project
+    A.adamp_reference = A._project = refuse
+    try:
+        for step in range(2):
+            ids, lengths, mask = synth_text(seed, step * SERVER_BS,
+                                            SERVER_BS, vocab, dev)
+            inputs = (synth_images(seed, step * SERVER_BS, SERVER_BS, IMAGE,
+                                   dev), ids, lengths, mask)
+            before = A.adamp.launches
+            state, _ = engine.train_step(state, *inputs)
+            took = A.adamp.launches - before
+            if took != A.launches_per_step(len(params), A.capacity()):
+                raise AssertionError(f"server train step {step}: {took} "
+                                     "K7 launches")
+        torch.cuda.synchronize()
+        update = device_ms_by_kernel(
+            lambda: engine._update(state, SERVER_BS), reps=5)
+    finally:
+        A.adamp_reference, A._project = saved
+    log(f"[adamp] server train steps: {took} K7 launches a step, no plain "
+        f"fallback; the update (clip + K7) {sum(update.values()):.3f} ms of "
+        f"device a step "
+        f"{json.dumps({k: round(v, 4) for k, v in update.items()})}")
+    del engine, state
+    torch.cuda.empty_cache()
+    return {"adamp": dict(ms=ms, device_ms=device, plain_ms=plain_ms,
+                          plain_device_ms=plain_device, library_ms=None,
+                          bound_ms=bound, bound_by=bound_by,
+                          launches_per_step=launches,
+                          max_abs_err=max(errs.values()))}
+
+# ---------------------------------------------------------------------------
 # phase 3: the image-client slice at full width
 # ---------------------------------------------------------------------------
 
@@ -1438,11 +1585,12 @@ def server_phase(seed: int, dev=torch.device("cuda")):
     """The server's PCME slice at the paper's width (ResNet-101 + BERT-base,
     embed 256, bf16, batch 128 at 224², max_len 32, extraction batch 256)
     on the fused trunk, then the same on the standard trunk from the same
-    weights. Returns the K5/K6 launch counts of the fused run."""
+    weights. Returns the K5/K6 and K7 launch counts of the fused run."""
     from creamfl_tpu_torch.config import default_config_path, parse_config
     from creamfl_tpu_torch.engine.server import ServerEngine
     from creamfl_tpu_torch.models.bert import BertConfig
     from creamfl_tpu_torch.models.pcme import PCME
+    from creamfl_tpu_torch.ops import adamp as A
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops.l2norm import l2_normalize
     from creamfl_tpu_torch.utils.profiling import StepTimer
@@ -1471,6 +1619,7 @@ def server_phase(seed: int, dev=torch.device("cuda")):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         FK.reset_launch_counts()
+        A.reset_launch_counts()
 
         def count():
             c = FK.launch_counts()
@@ -1484,6 +1633,7 @@ def server_phase(seed: int, dev=torch.device("cuda")):
             count if fused and dev.type == "cuda" else None,
             fp32_reference=not fused)
         results[tag + "_counts"] = FK.launch_counts()
+        results[tag + "_adamp"] = A.adamp.launches
         if dev.type == "cuda":
             log(f"[server] {tag} peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1513,7 +1663,7 @@ def server_phase(seed: int, dev=torch.device("cuda")):
         raise AssertionError("fused and standard trunks disagree")
     if dev.type == "cuda" and any(results["standard_counts"].values()):
         raise AssertionError("the standard trunk launched K5/K6")
-    return results["fused_counts"]
+    return {**results["fused_counts"], "adamp": results["fused_adamp"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4434,6 +4584,10 @@ def main() -> int:
                         help="build and run the paper round, then phase "
                         "11's round over NCCL on N >= 2 cards, one rank "
                         "each, then stop without the result line")
+    parser.add_argument("--adamp", action="store_true",
+                        help="build and run phase 3b (K7, AdamP's step at "
+                        "the server's leaves) alone, then stop without the "
+                        "result line")
     parser.add_argument("--mesh-rank", nargs=7, default=None,
                         metavar=("TASK", "RANK", "WORLD", "INIT", "DIR",
                                  "DEVICE", "BACKEND"),
@@ -4463,7 +4617,8 @@ def main() -> int:
         ("round", opts.round), ("stacked", opts.stacked),
         ("paper_round", opts.paper_round), ("paper_full", opts.paper_full),
         ("real", opts.real_round), ("chunks", opts.chunks),
-        ("rest", opts.rest), ("mesh", opts.mesh or opts.mesh_cards)) if on]
+        ("rest", opts.rest), ("mesh", opts.mesh or opts.mesh_cards),
+        ("adamp", opts.adamp)) if on]
     if alone:
         for kind in alone:
             if kind == "real":
@@ -4472,6 +4627,8 @@ def main() -> int:
                 rest_phase(opts.seed)
             elif kind == "chunks":
                 chunk_phase(opts.seed)
+            elif kind == "adamp":
+                adamp_phase(opts.seed)
             elif kind == "mesh":
                 run_round(opts.seed, "paper_round")
                 mesh_phase(opts.seed, opts.mesh_cards)
@@ -4481,6 +4638,7 @@ def main() -> int:
     run_probe(opts.seed)
     rec = kernel_phase(opts.seed)
     rec.update(fused_kernel_phase(opts.seed))
+    rec.update(adamp_phase(opts.seed))
     # Each path runs with the launch counts zeroed just before it and read
     # just after: the image-client slice (K1-K4, every launch on its main
     # route), the server (K5/K6), the round on each client branch (K1-K4).

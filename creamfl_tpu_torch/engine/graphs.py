@@ -1,7 +1,7 @@
 """Captured CUDA graphs of the server's chunked steps.
 
-A server step on the card is mostly host time: a few thousand small
-launches, most of them AdamP's per-parameter projection. ``GraphCache``
+A server step on the card is mostly host time: some thousand small
+launches of the forward and the backward. ``GraphCache``
 captures a chunk of k steps once per (step kind, k, input shapes and
 dtypes, static flags) and replays it: one launch from the host for k
 steps. The JAX package reaches the same end with ``lax.scan`` under

@@ -387,8 +387,8 @@ class ServerEngine:
     # Each ``*_chunk`` runs k stacked batches ([k, B, ...]) as k steps in
     # order, with the JAX package's signatures and results. On the card,
     # on the BERT branch, the k steps are one replay of one CUDA graph
-    # (``chunk_route`` "graph"): the host work of a step (a few thousand
-    # launches, most of them AdamP's) is paid once, at capture. On the CPU
+    # (``chunk_route`` "graph"): the host work of a step (some thousand
+    # launches) is paid once, at capture. On the CPU
     # and on the GRU branch (whose packing reads host lengths, which a
     # graph cannot) they run eagerly ("eager").
     @property

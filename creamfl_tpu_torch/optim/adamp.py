@@ -26,47 +26,19 @@ fills the lr tensor in place. The arithmetic is the host-float version's
 (float64 corrections, each rounded to float32 where it meets a float32
 tensor), bit for bit on the CPU. A state dict of the earlier format (an
 int step, a float lr) loads and is converted at the next step.
+
+The step itself is ``ops.adamp.adamp``: on CUDA tensors the multi-tensor
+kernel K7 (``csrc/adamp.cu``, three launches for the whole list), on CPU
+tensors its plain version (``ops.adamp.adamp_reference``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Iterable, Tuple
 
 import torch
 
-
-def _cosine_max(x: torch.Tensor, y: torch.Tensor, eps: float
-                ) -> torch.Tensor:
-    """max over rows of |<x_r, y_r>| / max(|x_r| |y_r|, eps)."""
-    dot = (x * y).sum(1)
-    return (dot.abs() / torch.clamp(x.norm(dim=1) * y.norm(dim=1),
-                                    min=eps)).max()
-
-
-def _project(p: torch.Tensor, g: torch.Tensor, perturb: torch.Tensor,
-             delta: float, wd_ratio: float, eps: float
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Channel-view, else layer-view projection; returns (perturb, wd
-    factor as a 0-d tensor). Both projections are computed and one is
-    selected on the device, as the JAX code does, so a step never waits
-    for the host."""
-    rows = p.shape[0]
-    pc, gc = p.reshape(rows, -1).float(), g.reshape(rows, -1).float()
-    pl, gl = pc.reshape(1, -1), gc.reshape(1, -1)
-    use_c = _cosine_max(gc, pc, eps) < delta / math.sqrt(pc.shape[1])
-    use_l = ~use_c & (_cosine_max(gl, pl, eps)
-                      < delta / math.sqrt(pl.shape[1]))
-    pert_c = perturb.reshape(rows, -1)
-    pn_c = pc / (pc.norm(dim=1, keepdim=True) + eps)
-    proj_c = pert_c - pn_c * (pn_c * pert_c).sum(1, keepdim=True)
-    pert_l = perturb.reshape(1, -1)
-    pn_l = pl / (pl.norm() + eps)
-    proj_l = pert_l - pn_l * (pn_l * pert_l).sum()
-    out = torch.where(use_c, proj_c.reshape(p.shape),
-                      torch.where(use_l, proj_l.reshape(p.shape), perturb))
-    one = torch.ones((), device=p.device)
-    return out, torch.where(use_c | use_l, wd_ratio * one, one)
+from creamfl_tpu_torch.ops.adamp import adamp
 
 
 class AdamP(torch.optim.Optimizer):
@@ -125,42 +97,14 @@ class AdamP(torch.optim.Optimizer):
                 self._state(p)
 
     def _update(self, group, params) -> None:
-        """One step over ``params``. The elementwise moments and updates
-        run as multi-tensor (foreach) kernels, a few launches for the whole
-        list; the projection is per parameter."""
+        """One step over ``params``: ``ops.adamp.adamp``, the multi-tensor
+        kernel on CUDA tensors, the plain version on CPU tensors."""
         b1, b2 = group["betas"]
-        eps = group["eps"]
-        lr = self._lr(group, params[0].device)
-        grads = [p.grad for p in params]
         states = [self._state(p) for p in params]
-        steps = [st["step"] for st in states]
-        torch._foreach_add_(steps, 1.0)
-        ms = [st["exp_avg"] for st in states]
-        vs = [st["exp_avg_sq"] for st in states]
-        torch._foreach_mul_(ms, b1)
-        torch._foreach_add_(ms, grads, alpha=1 - b1)
-        torch._foreach_mul_(vs, b2)
-        torch._foreach_addcmul_(vs, grads, grads, value=1 - b2)
-        denom = torch._foreach_div(vs, _one_minus_pow(b2, steps))
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        perturb = list(torch._foreach_div(ms, denom))
-        lr_wd = lr * group["weight_decay"]
-        for i, (p, g) in enumerate(zip(params, grads)):
-            wd = None  # a float32 0-d tensor where projected
-            if p.dim() > 1:
-                perturb[i], wd = _project(p, g, perturb[i], group["delta"],
-                                          group["wd_ratio"], eps)
-            if group["weight_decay"] > 0:
-                p.mul_(1.0 - (lr_wd if wd is None else lr_wd.float() * wd))
-        torch._foreach_mul_(perturb, torch._foreach_div(
-            [torch.neg(lr)] * len(params), _one_minus_pow(b1, steps)))
-        torch._foreach_add_(params, perturb)
-
-
-def _one_minus_pow(beta: float, steps):
-    """[1 - beta ** step] as float64 tensors, one a step tensor."""
-    out = torch._foreach_pow(beta, steps)
-    torch._foreach_neg_(out)
-    torch._foreach_add_(out, 1.0)
-    return out
+        adamp(params, [p.grad for p in params],
+              [st["exp_avg"] for st in states],
+              [st["exp_avg_sq"] for st in states],
+              [st["step"] for st in states],
+              self._lr(group, params[0].device), beta1=b1, beta2=b2,
+              eps=group["eps"], weight_decay=group["weight_decay"],
+              delta=group["delta"], wd_ratio=group["wd_ratio"])

@@ -115,19 +115,49 @@ def test_adamp_trajectory_all_branches():
 
 def test_adamp_projection_branches_taken():
     """The losses above do drive the three branches on the first step."""
-    from creamfl_tpu_torch.optim.adamp import _project
+    from creamfl_tpu_torch.ops.adamp import _project
 
     start, c = _start(0)
     tparams = {k: torch.tensor(v, requires_grad=True)
                for k, v in start.items()}
     _torch_grads(tparams, c)
-    wds = {}
+    wds, modes = {}, {}
     for key in ("conv", "linear", "embedding"):
         p = tparams[key].detach()
         g = tparams[key].grad
-        _, wd = _project(p, g, g.clone(), 0.1, 0.1, 1e-8)
+        _, wd, mode = _project(p, g, g.clone(), 0.1, 0.1, 1e-8)
         wds[key] = round(float(wd), 6)
+        modes[key] = int(mode)
     assert wds == {"conv": 0.1, "linear": 0.1, "embedding": 1.0}
+    assert modes == {"conv": 1, "linear": 2, "embedding": 0}
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
+def test_adamp_channels_last_equals_contiguous(weight_decay):
+    """The plain version steps a channels_last conv weight exactly as its
+    contiguous copy: AdamP reads a conv weight by output channel, whatever
+    its memory layout, and a channels_last weight keeps each output channel
+    contiguous in memory (the rows the CUDA kernel reduces in place)."""
+    start, c = _start(0)
+    tparams = {k: torch.tensor(v, requires_grad=True)
+               for k, v in start.items()}
+    conv = torch.tensor(start["conv"]).to(memory_format=torch.channels_last)
+    assert not conv.is_contiguous()
+    assert conv.stride(0) == conv.numel() // conv.shape[0]
+    cl = torch.nn.Parameter(conv)
+    opt = AdamP(tparams.values(), lr=1e-2, weight_decay=weight_decay)
+    opt_cl = AdamP([cl], lr=1e-2, weight_decay=weight_decay)
+    for _ in range(3):
+        _torch_grads(tparams, c)
+        cl.grad = tparams["conv"].grad.clone().to(
+            memory_format=torch.channels_last)
+        opt.step()
+        opt_cl.step()
+        assert cl.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(cl.detach(), tparams["conv"].detach())
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt_cl.state[cl][key],
+                               opt.state[tparams["conv"]][key])
 
 
 def test_server_optimizer_clips_the_model_only():

@@ -38,7 +38,8 @@ from creamfl_tpu.engine.server import ServerEngine as JServer
 from creamfl_tpu_torch.config import default_config_path, parse_config
 from creamfl_tpu_torch.engine.server import ServerEngine
 from creamfl_tpu_torch.models.convert import flax_server_state_to_torch
-from creamfl_tpu_torch.optim.adamp import AdamP, _project
+from creamfl_tpu_torch.ops.adamp import _project
+from creamfl_tpu_torch.optim.adamp import AdamP
 from creamfl_tpu_torch.optim.factory import set_learning_rate
 
 K, B, IMG, L, VOCAB, E, N_PUB = 4, 4, 32, 6, 23, 8, 16
@@ -257,8 +258,9 @@ class _FloatStepAdamP(AdamP):
         for i, (p, g) in enumerate(zip(params, grads)):
             wd = 1.0
             if p.dim() > 1:
-                perturb[i], wd = _project(p, g, perturb[i], group["delta"],
-                                          group["wd_ratio"], eps)
+                perturb[i], wd, _ = _project(p, g, perturb[i],
+                                             group["delta"],
+                                             group["wd_ratio"], eps)
             if group["weight_decay"] > 0:
                 p.mul_(1.0 - lr * group["weight_decay"] * wd)
         torch._foreach_mul_(perturb, [-lr / (1.0 - b1 ** st["step"])
