@@ -4242,7 +4242,7 @@ def remat_phase(seed: int, dev=torch.device("cuda")):
             model.train()
             state.optimizer.zero_grad(set_to_none=True)
             staged = engine.stage(*step_in)
-            img_f, txt_f = engine._forward(state, *staged)
+            img_f, txt_f, _ = engine._forward(state, *staged)
             loss, _ = state.criterion(img_f, txt_f)
             loss.backward()
         torch.cuda.synchronize(dev)

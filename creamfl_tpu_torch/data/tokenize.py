@@ -1,9 +1,10 @@
 """Caption tokenization (reference `src/utils/load_datasets.py:277-315`).
 
 The port's own copy of the JAX package's ``data/tokenize.py``: the same
-functions and ids; the module imports only ``re`` and ``unicodedata`` (nltk
-at the first Treebank call). The server's BERT branch reads
-``BertWordPieceTokenizer`` ids (``.synthetic`` on the synthetic path).
+functions and ids; the module imports only ``re``, ``unicodedata`` and
+``zlib`` (nltk at the first Treebank call). The server's BERT branch reads
+``BertWordPieceTokenizer`` ids (``.synthetic`` on the synthetic path), its
+DeepSeek-V2 tower ``SyntheticLMTokenizer`` ids (the port's own).
 
 The reference runs ``nltk.word_tokenize`` (punkt sentence split + Treebank
 word tokenizer). ``TreebankWordTokenizer`` alone gives the same output for
@@ -21,6 +22,7 @@ from __future__ import annotations
 import random
 import re
 import unicodedata
+import zlib
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -225,3 +227,29 @@ class BertWordPieceTokenizer:
         for i, t in enumerate(texts):
             ids[i], mask[i] = self.encode(t, max_length)
         return ids, mask
+
+
+class SyntheticLMTokenizer:
+    """The synthetic captions as a decoder LM's ids (the DeepSeek-V2 tower
+    on ``--synthetic``; its own BPE needs the model's ``tokenizer.json``):
+    ``bos``, each word's id under a seeded map into ``[0, bos)``, ``eos``,
+    right-padded with ``eos`` under a zero mask. A word's id is
+    ``table[crc32(word) % N_WORDS]``, ``table`` ``N_WORDS`` distinct ids
+    drawn from numpy's PCG64 at ``SEED``: the same in every process."""
+
+    N_WORDS, SEED = 1024, 19
+
+    def __init__(self, bos: int, eos: int):
+        self.bos, self.eos = bos, eos
+        self.table = np.random.default_rng(self.SEED).choice(
+            bos, size=min(self.N_WORDS, bos), replace=False)
+
+    def word_id(self, word: str) -> int:
+        return int(self.table[zlib.crc32(word.encode()) % len(self.table)])
+
+    def encode(self, text: str, max_length: int = 64):
+        """-> (ids, attention_mask) padded/truncated to max_length."""
+        words = text.split()[:max_length - 2]
+        ids = [self.bos] + [self.word_id(w) for w in words] + [self.eos]
+        pad = max_length - len(ids)
+        return ids + [self.eos] * pad, [1] * len(ids) + [0] * pad

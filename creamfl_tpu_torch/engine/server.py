@@ -38,6 +38,13 @@ Each step is traced in the recorder's ``creamfl.engine.*`` spans
 ``update`` (the zero gradients, the mesh's reduction, the clip and AdamP);
 the updates count in ``engine.steps`` and their rows in ``engine.rows``.
 
+The text tower is BERT, the GRU branch (``not_bert``), or, where
+``bert_config`` is a ``DeepseekV2Config``, the DeepSeek-V2-Lite tower
+(``models/deepseek_v2.py``): its MoE layers' balance loss is added to the
+loss of every step that back-propagates through it (train and distill),
+and the tokens and token-expert pairs its MoE layers routed count in
+``moe.tokens`` and ``moe.pairs``. It runs off a mesh only.
+
 bf16 as in the JAX package: trunk and BERT compute in bf16 (autocast inside
 the encoders), params, heads and the criterion in fp32. The fused trunk is
 reached through the model's own field: replace ``self.model`` by
@@ -60,6 +67,7 @@ from creamfl_tpu_torch.losses.mcsoft import (MCSoftContrastiveConfig,
                                              MCSoftCriterion)
 from creamfl_tpu_torch.models import convert
 from creamfl_tpu_torch.models.bert import BertConfig
+from creamfl_tpu_torch.models.deepseek_v2 import DeepseekV2Config
 from creamfl_tpu_torch.models.pcme import PCME, init_pcme
 from creamfl_tpu_torch.models.resnet import set_batchnorm_mesh
 from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
@@ -81,7 +89,9 @@ class ServerEngine:
                  use_bf16: Optional[bool] = None, device="cuda",
                  mesh: Optional[M.Mesh] = None):
         """``mesh``: the ranks that share each batch (None or world 1: this
-        process alone)."""
+        process alone). ``bert_config``: the text tower's config, a
+        ``BertConfig`` or a ``DeepseekV2Config`` (unused on the GRU
+        branch)."""
         model_cfg = config.model
         if use_bf16 is None:
             use_bf16 = bool(config.train.get("use_bf16", False))
@@ -115,6 +125,15 @@ class ServerEngine:
         self.kd_weight = 0.3  # overridden by federation from CLI args
         self.graphs = GraphCache(self.device)
         self.mesh = mesh if M.active(mesh) else None
+        # (MoE layers, experts per token) of the DeepSeek-V2 tower.
+        self.moe = None
+        if (isinstance(bert_config, DeepseekV2Config)
+                and not self.model.not_bert):
+            if self.mesh is not None:
+                raise ValueError("the DeepSeek-V2 text tower runs on one "
+                                 "device: start the run with --no_mesh")
+            self.moe = (bert_config.moe_layers,
+                        bert_config.num_experts_per_tok)
 
     # -- state ---------------------------------------------------------
     def init_state(self, seed: int = 0,
@@ -173,6 +192,9 @@ class ServerEngine:
             model.img_enc.cnn.load_state_dict(
                 convert.load_torchvision_trunk(resnet_path))
         if bert_path and not model.not_bert:
+            if self.moe is not None:
+                raise ValueError("--bert_ckpt loads BERT weights; the text "
+                                 "tower is DeepSeek-V2")
             model.txt_enc.bert.load_hf_state_dict(
                 convert.load_state_dict(bert_path))
         if glove_path and model.not_bert and vocab is not None:
@@ -263,24 +285,27 @@ class ServerEngine:
             state.optimizer.step()
 
     def _forward(self, state: EngineState, images, captions, lengths,
-                 bert_mask) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(image features, caption features) of the whole batch: on a mesh
-        this rank's rows through the model, then every rank's gathered in
-        rank order (a batch that does not split runs whole, BatchNorm on
-        this rank's rows alone)."""
+                 bert_mask) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+        """(image features, caption features, the text tower's balance loss
+        or None) of the whole batch: on a mesh this rank's rows through the
+        model, then every rank's gathered in rank order (a batch that does
+        not split runs whole, BatchNorm on this rank's rows alone)."""
         n = images.shape[0]
         with profiling.span("creamfl.engine.forward"):
             if not M.sharded(self.mesh, n):
                 with self._local_batchnorm():
                     out = state.model(images, captions, lengths, bert_mask)
-                return out["image_features"], out["caption_features"]
+                return (out["image_features"], out["caption_features"],
+                        out.get("aux_loss"))
             rows = M.shard_rows(self.mesh, n)
             with M.batch_rows(n, rows):
                 out = state.model(
                     images[rows], captions[rows], lengths[rows],
                     None if bert_mask is None else bert_mask[rows])
             return (M.all_gather_rows(self.mesh, out["image_features"]),
-                    M.all_gather_rows(self.mesh, out["caption_features"]))
+                    M.all_gather_rows(self.mesh, out["caption_features"]),
+                    None)
 
     @contextlib.contextmanager
     def _local_batchnorm(self):
@@ -299,10 +324,12 @@ class ServerEngine:
         loss used, as in the JAX package)."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        img_f, txt_f = self._forward(state, images, captions, lengths,
-                                     bert_mask)
+        img_f, txt_f, aux = self._forward(state, images, captions, lengths,
+                                          bert_mask)
         with profiling.span("creamfl.engine.loss"):
             loss, ldict = state.criterion(img_f, txt_f)
+            if aux is not None:
+                loss = loss + aux
         with profiling.span("creamfl.engine.backward"):
             loss.backward()
         ldict = {k: v.detach().clone() for k, v in ldict.items()}
@@ -313,7 +340,8 @@ class ServerEngine:
     def _features(self, state: EngineState, train: bool, images, captions,
                   lengths, bert_mask) -> Tuple[torch.Tensor, torch.Tensor]:
         state.model.train(train)
-        return self._forward(state, images, captions, lengths, bert_mask)
+        return self._forward(state, images, captions, lengths,
+                             bert_mask)[:2]
 
     def _distill(self, state: EngineState, images, captions, lengths,
                  bert_mask, aggregated: Dict[str, torch.Tensor],
@@ -321,8 +349,8 @@ class ServerEngine:
                  use_mm: bool, kd_weight: float) -> torch.Tensor:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        img_f, txt_f = self._forward(state, images, captions, lengths,
-                                     bert_mask)
+        img_f, txt_f, aux = self._forward(state, images, captions, lengths,
+                                          bert_mask)
         with profiling.span("creamfl.engine.loss"):
             img_f, txt_f = img_f.float(), txt_f.float()
             t_img = (aggregated["img"].index_select(0, rows)
@@ -340,6 +368,8 @@ class ServerEngine:
             for pred, target in terms:
                 loss = loss + kd_weight * torch.mean(
                     torch.square(pred - target))
+            if terms and aux is not None:
+                loss = loss + aux
         if terms:
             with profiling.span("creamfl.engine.backward"):
                 loss.backward()
@@ -352,7 +382,7 @@ class ServerEngine:
         ldict = self._train(state, *self.stage(images, captions, lengths,
                                                bert_mask))
         state.step += 1
-        _count_steps(1, len(images))
+        self._count_steps(1, len(images), captions)
         return state, ldict
 
     def extract_step(self, state: EngineState, images, captions, lengths,
@@ -380,7 +410,7 @@ class ServerEngine:
                                                 bert_mask), aggregated,
                              rows, use_img, use_txt, use_mm, kd_weight)
         state.step += 1
-        _count_steps(1, len(images))
+        self._count_steps(1, len(images), captions)
         return state, loss
 
     # -- chunked sweeps -------------------------------------------------
@@ -454,7 +484,8 @@ class ServerEngine:
             "train", state, (images, captions, lengths, bert_mask),
             lambda *x: (self._train(state, *x)["loss"],))
         state.step += len(losses)
-        _count_steps(len(losses), len(losses) * images.shape[1])
+        self._count_steps(len(losses), len(losses) * images.shape[1],
+                          captions)
         return state, losses
 
     def distill_chunk(self, state: EngineState, images, captions, lengths,
@@ -476,13 +507,21 @@ class ServerEngine:
                                       kd_weight),),
             flags)
         state.step += len(losses)
-        _count_steps(len(losses), len(losses) * images.shape[1])
+        self._count_steps(len(losses), len(losses) * images.shape[1],
+                          captions)
         return state, losses
 
 
-def _count_steps(steps: int, rows: int) -> None:
-    """The recorder's ``engine.steps`` and ``engine.rows``: the updates and
-    the rows they took, counted where a step or a chunk returns, so that a
-    graph replay counts its k steps."""
-    profiling.count("engine.steps", steps)
-    profiling.count("engine.rows", rows)
+    def _count_steps(self, steps: int, rows: int, captions) -> None:
+        """The recorder's ``engine.steps`` and ``engine.rows``: the updates
+        and the rows they took, counted where a step or a chunk returns, so
+        that a graph replay counts its k steps; with the DeepSeek-V2 tower,
+        ``moe.tokens`` and ``moe.pairs`` (its MoE layers' tokens of
+        ``captions.shape[-1]`` positions and their top-k pairs)."""
+        profiling.count("engine.steps", steps)
+        profiling.count("engine.rows", rows)
+        if self.moe is not None:
+            layers, top_k = self.moe
+            tokens = rows * captions.shape[-1] * layers
+            profiling.count("moe.tokens", tokens)
+            profiling.count("moe.pairs", tokens * top_k)

@@ -52,7 +52,9 @@ paper's geometry (a 50 000-row public set at 224², its images synthesized
 on the card): add ``--paper_scale``; ``--client_bf16`` runs the image
 clients' trunks in bf16, and ``--resnet_ckpt``, ``--bert_ckpt``,
 ``--glove_path`` and ``--client_resnet_ckpt`` load weights from local
-files. ``--trace_dir DIR`` records the program's spans and counters
+files. ``--text_encoder deepseek_v2_lite`` (with ``--synthetic``) puts the
+DeepSeek-V2-Lite tower in BERT's place in the server (``--smoke``: a tiny
+one). ``--trace_dir DIR`` records the program's spans and counters
 (``utils/profiling.py``) and writes each round's as a Chrome trace-event
 file there, on ``torch.profiler``'s clock.
 """
@@ -123,6 +125,13 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument('--pub_data_num', type=int, default=50000)
     parser.add_argument('--feature_dim', type=int, default=256)
     parser.add_argument('--not_bert', action='store_true', default=False)
+    parser.add_argument('--text_encoder', type=str, default='bert',
+                        choices=['bert', 'deepseek_v2_lite'],
+                        help="the server's text tower: BERT-base, or "
+                             "DeepSeek-V2-Lite (14 of its 27 layers, "
+                             "experts 0-7 of each layer's 64; "
+                             "--synthetic only, random weights); "
+                             "--not_bert takes the GRU branch instead")
 
     # -- the JAX package's extensions (same names and defaults) -------
     parser.add_argument('--synthetic', action='store_true', default=False,
@@ -202,11 +211,26 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                              '(0 = yaml value, 30, like the reference)')
 
 
+def text_config(args):
+    """The server's text tower config: ``BertConfig`` (tiny under
+    ``--smoke``), or ``DeepseekV2Config`` under ``--text_encoder
+    deepseek_v2_lite`` (tiny under ``--smoke``)."""
+    from creamfl_tpu_torch.models.bert import BertConfig
+    from creamfl_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+
+    if getattr(args, "text_encoder", "bert") == "deepseek_v2_lite":
+        if args.not_bert:
+            raise ValueError("--not_bert takes the GRU text branch; it does "
+                             "not go with --text_encoder deepseek_v2_lite")
+        return DeepseekV2Config.tiny() if args.smoke else DeepseekV2Config()
+    return BertConfig.tiny() if args.smoke else BertConfig()
+
+
 def build_configs(args):
     """Server and mm-client configs with the reference's runtime overrides
-    (MMFL.py:81-88,157-163), and the server's BERT config."""
+    (MMFL.py:81-88,157-163), and the server's text tower config
+    (``text_config``)."""
     from creamfl_tpu_torch.config import default_config_path, parse_config
-    from creamfl_tpu_torch.models.bert import BertConfig
 
     server = parse_config(default_config_path("coco.json"),
                           strict_cast=False)
@@ -225,14 +249,12 @@ def build_configs(args):
     if getattr(args, 'cosine_t_max', 0):
         mm.lr_scheduler.T_max = args.cosine_t_max
 
-    bert_config = BertConfig()
     if args.smoke:
         server.model.cnn_type = 'resnet10'
         mm.model.cnn_type = 'resnet10'
         server.model.word_dim = 32
         mm.model.word_dim = 32
-        bert_config = BertConfig.tiny()
-    return server, mm, bert_config
+    return server, mm, text_config(args)
 
 
 def build_datasets(args, device=None):
@@ -243,8 +265,14 @@ def build_datasets(args, device=None):
     synthesized ones are made on ``device`` (default: the run's,
     ``--no-cuda`` / ``--device``)."""
     from creamfl_tpu_torch.data import pipelines
-    from creamfl_tpu_torch.data.tokenize import BertWordPieceTokenizer
+    from creamfl_tpu_torch.data.tokenize import (BertWordPieceTokenizer,
+                                                 SyntheticLMTokenizer)
 
+    deepseek = getattr(args, "text_encoder", "bert") == "deepseek_v2_lite"
+    if deepseek and not args.synthetic:
+        raise ValueError("--text_encoder deepseek_v2_lite reads captions "
+                         "through DeepSeek's BPE, whose tokenizer.json is "
+                         "not in the repository: add --synthetic")
     if not args.synthetic:
         try:
             home = os.environ.get('HOME', '.')
@@ -261,8 +289,13 @@ def build_datasets(args, device=None):
         except FileNotFoundError as e:
             print(f"real datasets unavailable ({e}); "
                   f"falling back to --synthetic")
-    bert_tok = (None if args.not_bert
-                else BertWordPieceTokenizer.synthetic())
+    if args.not_bert:
+        bert_tok = None
+    elif deepseek:
+        cfg = text_config(args)
+        bert_tok = SyntheticLMTokenizer(cfg.bos_token_id, cfg.eos_token_id)
+    else:
+        bert_tok = BertWordPieceTokenizer.synthetic()
     if args.smoke:
         scale = dict(pub_size=128, image_size=64, max_len=12,
                      client_data_size=64, test_size=32,

@@ -9,9 +9,13 @@ Port of the JAX package's ``models/pcme.py`` (reference
 * text branch: BERT CLS -> fp32 -> linear -> L2 norm (the server), or
   (``not_bert=True``: the mm clients, and the server under ``--not_bert``)
   word embedding -> masked BiGRU -> PIENet over the word embeddings -> L2
-  norm, with ``--mlp_local``'s head after the norm.
+  norm, with ``--mlp_local``'s head after the norm, or (``bert_config`` a
+  ``DeepseekV2Config``: the server under ``--text_encoder
+  deepseek_v2_lite``) the DeepSeek-V2-Lite tower pooled at each caption's
+  last real token (``TextEncoderDeepseekV2``).
 
-``dtype=torch.bfloat16`` runs the trunk and BERT under ``torch.autocast``
+``dtype=torch.bfloat16`` runs the trunk and the text tower under
+``torch.autocast``
 (bf16 matmuls and convolutions, fp32 params); heads, PIE, the GRU branch
 and everything after them stay fp32, as in the JAX package. ``fused_bn``
 and ``remat`` ("none", "block", "dots": activation recompute in the
@@ -28,6 +32,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from creamfl_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
+from creamfl_tpu_torch.models.deepseek_v2 import (DeepseekV2Config,
+                                                  DeepseekV2Model,
+                                                  init_deepseek_v2)
 from creamfl_tpu_torch.models.gru import BiGRU, init_gru
 from creamfl_tpu_torch.models.pie import PIENet, init_pie
 from creamfl_tpu_torch.models.resnet import (BatchNorm, ResNetBackbone,
@@ -143,12 +150,44 @@ class TextEncoderBert(nn.Module):
         return {"embedding": l2_normalize(self.linear(cls))}
 
 
+class TextEncoderDeepseekV2(nn.Module):
+    """The DeepSeek-V2-Lite tower (``models/deepseek_v2.py``) -> the final
+    hidden state at each caption's last real token (its EOS) -> fp32 ->
+    linear -> L2 norm.
+
+    A departure from PCME's BERT branch, which pools at position 0 (CLS):
+    position 0 of a causal tower sees nothing but itself, so the pooled
+    state is the last one, which has seen the whole caption (the pooling of
+    decoder towers in image-text models: E5-V, LLM2CLIP). In training the
+    output also carries the MoE layers' balance loss (``aux_loss``)."""
+
+    def __init__(self, embed_dim: int, config: DeepseekV2Config,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.model = DeepseekV2Model(config)
+        self.linear = nn.Linear(config.hidden_size, embed_dim)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with compute_dtype(self.dtype, input_ids.device):
+            hidden, aux = self.model(input_ids, attention_mask)
+        last = attention_mask.sum(-1).long() - 1
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        pooled = hidden[rows, last].float()
+        return {"embedding": l2_normalize(self.linear(pooled)),
+                "aux_loss": aux}
+
+
 class PCME(nn.Module):
     """Joint embedding model; forward returns the reference's output dict.
 
     Fields mirror the JAX package's ``PCME``; ``not_bert=True`` takes the
-    GRU text branch (``word_dim`` wide embeddings). ``remat`` goes to the
-    image trunk (the JAX package's ``ImageEncoder.remat``)."""
+    GRU text branch (``word_dim`` wide embeddings); otherwise
+    ``bert_config`` is the text tower's config, a ``BertConfig`` (BERT) or
+    a ``DeepseekV2Config`` (the DeepSeek-V2-Lite tower, whose balance loss
+    the output carries as ``aux_loss``). ``remat`` goes to the image trunk
+    (the JAX package's ``ImageEncoder.remat``)."""
 
     def __init__(self, embed_dim: int = 256, cnn_type: str = "resnet18",
                  vocab_size: int = 11755, word_dim: int = 300,
@@ -165,6 +204,9 @@ class PCME(nn.Module):
         if not_bert:
             self.txt_enc = TextEncoderGRU(vocab_size, embed_dim, word_dim,
                                           mlp_local)
+        elif isinstance(bert_config, DeepseekV2Config):
+            self.txt_enc = TextEncoderDeepseekV2(embed_dim, bert_config,
+                                                 dtype=dtype)
         else:
             self.txt_enc = TextEncoderBert(embed_dim, bert_config,
                                            dtype=dtype)
@@ -175,7 +217,7 @@ class PCME(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         image_output = self.img_enc(images)
         caption_output = self.text_forward(captions, lengths, bert_mask)
-        return {
+        out = {
             "image_features": image_output["embedding"],
             "image_attentions": image_output["attention"],
             "image_residuals": image_output["residual"],
@@ -183,6 +225,9 @@ class PCME(nn.Module):
             "caption_attentions": caption_output.get("attention"),
             "caption_residuals": caption_output.get("residual"),
         }
+        if "aux_loss" in caption_output:
+            out["aux_loss"] = caption_output["aux_loss"]
+        return out
 
     def image_forward(self, images: torch.Tensor):
         return self.img_enc(images)
@@ -207,14 +252,21 @@ def init_pcme(model: PCME, generator: torch.Generator) -> None:
     """Seeded init: torchvision's for the trunk, xavier-uniform for the
     image fc and PIE (zero biases), HF BERT's for the BERT text encoder;
     xavier-uniform embeddings and torch's GRU init for the GRU branch;
-    torch's default for the remaining linear heads."""
-    init_parameters(model, generator)
+    torch's default for the remaining linear heads. The DeepSeek-V2 branch
+    draws the image encoder's first (``init_parameters`` over it alone),
+    then the tower's and its head's (``init_deepseek_v2``)."""
+    if isinstance(model.txt_enc, TextEncoderDeepseekV2):
+        init_parameters(model.img_enc, generator)
+    else:
+        init_parameters(model, generator)
     img = model.img_enc
     nn.init.xavier_uniform_(img.fc.weight, generator=generator)
     nn.init.zeros_(img.fc.bias)
     init_pie(img.pie_net, generator)
     if model.not_bert:
         init_text_gru(model.txt_enc, generator)
+    elif isinstance(model.txt_enc, TextEncoderDeepseekV2):
+        init_deepseek_v2(model.txt_enc, generator)
     else:
         init_bert(model.txt_enc.bert, generator)
 

@@ -1,12 +1,15 @@
 """The port's tracing: spans and counters inside the program, and the
 round's per-phase wall-clock timers.
 
-``span(name)`` marks a block and ``count(name, n)`` adds to a counter. Both
-go to one process-wide recorder that is off by default: while it is off,
+``span(name)`` marks a block and ``count(name, n)`` adds to a counter;
+``tally(name, t)`` adds a device scalar to a counter kept on the device.
+They go to one process-wide recorder that is off by default: while it is off,
 ``span`` returns one shared no-op context and ``count`` returns at once (no
 allocation, no lock, no clock read). ``recording()`` turns it on for a
 block and hands back a ``Snapshot`` when the block closes. No span or
-counter synchronises the device.
+counter synchronises the device: a tally is one in-place add on the device
+while the recorder is on, read to the host once, when the recording closes
+(not inside a CUDA graph's capture, so a replay does not add to it).
 
 While the recorder is on, each span records its name, the span it opened
 in (its parent, on its own thread), its thread and its start and end in
@@ -24,11 +27,17 @@ names start with ``creamfl.``:
 * ``creamfl.engine.{stage,forward,loss,backward,update}``:
   ``engine/server.py``;
 * ``creamfl.graph.capture``: ``engine/graphs.py``;
-* ``creamfl.ops.build``: ``ops/build.py``.
+* ``creamfl.ops.build``: ``ops/build.py``;
+* ``creamfl.mla.attend`` and ``creamfl.moe.{route,experts,combine}``:
+  ``models/deepseek_v2.py``.
 
 Counters: ``data.batches``, ``data.queue_empty``, ``engine.steps``,
-``engine.rows``, ``graph.captures``, ``graph.replays``, ``ops.builds``,
-``cuda.device_allocs``, and the kernel wrappers' own launch counters read
+``engine.rows``, ``moe.tokens`` and ``moe.pairs`` (the tokens the MoE
+layers of a train or distill step routed and their token-expert pairs,
+counted where the step returns), ``graph.captures``, ``graph.replays``,
+``ops.builds``, ``cuda.device_allocs``, the device tally
+``moe.held_pairs`` (the pairs the held experts computed, every MoE
+forward), and the kernel wrappers' own launch counters read
 into the snapshot as ``ops.<wrapper>.<route>``.
 
 ``StepTimer`` collects named phase times and reports them. On a CUDA device
@@ -75,6 +84,7 @@ class _Recorder:
         self.counters: Dict[str, int] = defaultdict(int)
         self.spans: List[Span] = []
         self.dropped = 0
+        self.tallies: Dict[str, torch.Tensor] = {}
 
     def add(self, span: Span, outermost: bool) -> None:
         key = (span.thread, span.name)
@@ -159,6 +169,22 @@ def count(name: str, n: int = 1) -> None:
         return
     with rec.lock:
         rec.counters[name] += n
+
+
+def tally(name: str, value: torch.Tensor) -> None:
+    """Add the 0-d tensor ``value`` to counter ``name`` while the recorder
+    is on, on ``value``'s device (no host read; none while a CUDA graph is
+    being captured)."""
+    rec = _recorder
+    if rec is None or (value.is_cuda
+                       and torch.cuda.is_current_stream_capturing()):
+        return
+    with rec.lock:
+        acc = rec.tallies.get(name)
+        if acc is None:
+            acc = rec.tallies[name] = torch.zeros(
+                (), dtype=torch.int64, device=value.device)
+    acc.add_(value)
 
 
 def active() -> bool:
@@ -278,6 +304,8 @@ def recording(cap: int = MAX_SPANS) -> Iterator[Snapshot]:
                 snap.by_thread.setdefault(thread, {})[name] = s
             snap.counters = dict(rec.counters)
             snap.spans, snap.dropped = list(rec.spans), rec.dropped
+            tallies = dict(rec.tallies)
+        snap.counters.update({k: int(t) for k, t in tallies.items()})
         snap.counters.update({k: n - launches.get(k, 0)
                               for k, n in after.items()
                               if n != launches.get(k, 0)})
