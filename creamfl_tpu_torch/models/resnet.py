@@ -8,7 +8,11 @@ NCHW on a permuted view (channels-last strides, which cuDNN prefers).
 BatchNorm follows the JAX package (flax ``nn.BatchNorm``, momentum 0.9):
 in train mode the running stats move as ``0.9 * old + 0.1 * batch`` with
 the BIASED batch variance. ``nn.BatchNorm2d`` would use the unbiased one,
-a factor n/(n-1) apart (6.7 % at batch 4 on a 2 x 2 grid).
+a factor n/(n-1) apart (6.7 % at batch 4 on a 2 x 2 grid). The train-mode
+statistics are taken once, by the normalisation itself: its fp32 batch
+mean and inverse std move the running stats, the biased variance
+recovered as ``invstd**-2 - eps``. No fp32 copy of a bf16 activation is
+made and no second reduction runs.
 
 Under a mesh of ranks (``set_batchnorm_mesh``) a BatchNorm in train mode
 takes its statistics over the whole batch, every rank's rows, as XLA
@@ -57,10 +61,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from creamfl_tpu_torch.utils import profiling
+
 
 class BatchNorm(nn.Module):
     """BatchNorm2d (or 1d on [B, C]) with flax's running-stat update
-    (biased variance, batch stats in fp32).
+    (biased variance, batch stats in fp32). In train mode without a mesh
+    the running stats move from the statistics the normalisation took
+    (its fp32 mean and inverse std, the variance ``invstd**-2 - eps``): one
+    pass over the batch, counted in ``bn.single_pass``.
 
     Parameter and buffer names are torchvision's (weight, bias,
     running_mean, running_var, num_batches_tracked), so its checkpoints
@@ -91,15 +100,19 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.mesh is not None and self.mesh.world > 1:
             return self._synced(x)
+        # F.batch_norm's own entry point (the same backend for each dtype
+        # and device), which also hands back the batch mean and inverse std
+        # it normalised with, in fp32 for a bf16 activation.
+        F._verify_batch_size(x.size())
+        out, mean, invstd = torch._batch_norm_impl_index(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+            torch.backends.cudnn.enabled)[:3]
         if not self.frozen:
-            with torch.no_grad():
-                # Stats in fp32 whatever the compute dtype, as flax takes
-                # them.
-                dims = (0,) if x.dim() == 2 else (0, 2, 3)
-                var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
-                _update_running(self, mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                            0.0, self.eps)
+            profiling.count("bn.single_pass")
+            # The biased variance, rounding kept off the negative side.
+            var = invstd.detach().pow(-2).sub_(self.eps).clamp_min_(0)
+            _update_running(self, mean, var)
+        return out
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode over the mesh's batch: the mean from the all-reduced

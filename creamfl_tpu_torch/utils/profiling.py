@@ -35,7 +35,9 @@ Counters: ``data.batches``, ``data.queue_empty``, ``engine.steps``,
 ``engine.rows``, ``moe.tokens`` and ``moe.pairs`` (the tokens the MoE
 layers of a train or distill step routed and their token-expert pairs,
 counted where the step returns), ``graph.captures``, ``graph.replays``,
-``ops.builds``, ``cuda.device_allocs``, the device tally
+``ops.builds``, ``cuda.device_allocs``, ``bn.single_pass`` (each
+train-mode BatchNorm forward, off a mesh, that moved its running stats from
+the normalisation's own statistics), the device tally
 ``moe.held_pairs`` (the pairs the held experts computed, every MoE
 forward), and the kernel wrappers' own launch counters read
 into the snapshot as ``ops.<wrapper>.<route>``.
