@@ -14,19 +14,20 @@ Phases (any failure exits non-zero):
    a subprocess under a time limit (``--probe`` runs this step alone).
    Then the card's TF32 rates of mma.sync and of wgmma, and each gallery
    kernel (K1 row logsumexp, K2 softmax matvec, K3 fused gallery CE, K4
-   con_w diagonal) on each of its routes (the lse pass of K1, K3's
-   forward and K4 on wgmma: 3xTF32 wgmma fed by TMA, its operands' small
-   halves from a split pre-pass or made in shared memory; the matvec pass
-   of K2 and K3's backward on tc: 3xTF32 mma.sync; simt: fp32 FMAs; the
-   lse pass also on tc) against its plain PyTorch version on the card at
+   con_w diagonal) on each of its routes, which the planner picks from the
+   inputs (the lse pass of K1, K3's forward and K4 on wgmma: 3xTF32 wgmma
+   fed by TMA, its operands' small halves from a split pre-pass from 512
+   rows, else made in shared memory; the matvec pass of K2 and K3's
+   backward on tc: 3xTF32 mma.sync; both on simt, fp32 FMAs, at a D that
+   is no multiple of 8) against its plain PyTorch version on the card at
    the main path's shapes, an odd shape, the mlp_local width (D 512) and
-   bf16 features (K3), each call's route asserted, and time every route,
-   the plain version and one PyTorch call computing the same function, K1
-   and K4 also with both sources of the wgmma route's small halves (the
-   pre-pass timed on its own). K3 also batched over a stacked client
-   family (``segments``: 2 x 128 rows against 2048 and 3 x 128 against
-   50 000 gallery rows), per segment against the plain version, and timed
-   against one launch per member.
+   bf16 features (K3), each call's route asserted, and time the main
+   path's calls, the plain version and one PyTorch call computing the
+   same function, K1 also at 384 and 1024 rows (either source of the
+   wgmma route's small halves; the pre-pass timed on its own). K3 also
+   batched over a stacked client family (``segments``: 2 x 128 rows
+   against 2048 and 3 x 128 against 50 000 gallery rows), per segment
+   against the plain version, and timed against one launch per member.
 3. Hold K5 (fused BN-normalise + 1x1 conv + stats, forward) and K6 (its
    backward) against their plain versions at a ragged-M bf16 shape (the
    first call of either wgmma route, so that a hang shows at once), at
@@ -423,17 +424,32 @@ def expect_main_routes(tag: str, routes, counts) -> None:
                                  f"{routes[name]}, not {want}")
 
 
-@contextlib.contextmanager
-def wgmma_split(split: str):
-    """The wgmma lse pass with its small halves from ``split`` ("prepass"
-    or "smem") for the calls inside."""
+# The lse pass's routes, each reached through its inputs: wgmma at a D
+# that is a multiple of 8 (the matvec pass then on tc), simt at one that
+# is not (``route_dim``).
+LSE_ROUTES = ("wgmma", "simt")
+
+
+def route_dim(route: str, d: int) -> int:
+    """The D at which the planner sends a pass of ``route``'s inputs of
+    width about ``d`` there: ``d`` itself for wgmma, ``d - 4`` (no multiple
+    of 8) for simt."""
+    return d if route == "wgmma" else d - 4
+
+
+def simt_twin(gal: torch.Tensor) -> torch.Tensor:
+    """``gal``'s rows cut to ``route_dim("simt", D)`` and made unit again:
+    the simt route's gallery at the same shape."""
+    return F.normalize(gal[:, :route_dim("simt", gal.shape[1])],
+                       dim=1).contiguous()
+
+
+def route_label(route: str, m: int) -> str:
+    """``route`` in a check's tag; for wgmma with the source of small
+    halves the planner takes at ``m`` rows (``wgmma_split_for``)."""
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    old, K.WGMMA_SPLIT = K.WGMMA_SPLIT, split
-    try:
-        yield
-    finally:
-        K.WGMMA_SPLIT = old
+    return f"wgmma/{K.wgmma_split_for(m)}" if route == "wgmma" else route
 
 
 def gallery_route_counts():
@@ -458,9 +474,10 @@ def expect_routes(tag: str, before, want) -> None:
 
 
 def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
-    """K1 and K3's forward on ``route``, K2 and K3's backward on its
-    matvec route (``"wgmma"``'s is tc), against their plain versions, with
-    each call's route asserted. bf16 features run K3 alone: its loss
+    """K1 and K3's forward, K2 and K3's backward against their plain
+    versions, each call's route asserted: the planner's, from the inputs,
+    must be ``route`` for the lse pass and its matvec route (``"wgmma"``'s
+    is tc) for the matvec pass. bf16 features run K3 alone: its loss
     against the plain CE of the same (upcast) values, its bf16 dfeats
     against the plain fp32 dfeats."""
     from creamfl_tpu_torch.ops import gallery as P
@@ -471,18 +488,17 @@ def check_gallery_case(tag, f, gal, labels, tau, route, errs) -> None:
     if f.dtype == torch.float32:
         lse_p = P.streaming_logsumexp(f, gal, tau)
         errs["row_logsumexp"] = max(errs["row_logsumexp"], check(
-            f"{tag} row_logsumexp", K.row_logsumexp(f, gal, tau, route=route),
-            lse_p, TOL["row_logsumexp"]))
+            f"{tag} row_logsumexp", K.row_logsumexp(f, gal, tau), lse_p,
+            TOL["row_logsumexp"]))
         errs["softmax_matvec"] = max(errs["softmax_matvec"], check(
-            f"{tag} softmax_matvec",
-            K.softmax_matvec(f, gal, lse_p, tau, route=mv),
+            f"{tag} softmax_matvec", K.softmax_matvec(f, gal, lse_p, tau),
             P.softmax_matvec(f, gal, lse_p, tau), TOL["softmax_matvec"]))
         expect_routes(f"{tag} K1/K2", before, {
             "row_logsumexp": (route, 1), "softmax_matvec": (mv, 1)})
         before = gallery_route_counts()
     fk = f.clone().requires_grad_(True)
     fp = f.detach().float().clone().requires_grad_(True)
-    loss_k = K.fused_gallery_ce(fk, gal, labels, tau, route=route)
+    loss_k = K.fused_gallery_ce(fk, gal, labels, tau)
     loss_k.backward()
     loss_p = P.gallery_cross_entropy(fp, gal, labels, tau)
     loss_p.backward()
@@ -504,9 +520,9 @@ def check_segmented_case(tag, f, gal, labels, tau, route, segments,
     """K3 over ``segments`` equal segments of the rows of ``f`` (a stacked
     family's members on one public batch: ``labels`` repeats each
     segment's), one launch each way (forward on ``route``, backward on its
-    matvec route): each segment's loss and the dfeats of a weighted sum of
-    the losses (a different gbar per segment) against the plain segmented
-    CE."""
+    matvec route, as the planner must pick them): each segment's loss and
+    the dfeats of a weighted sum of the losses (a different gbar per
+    segment) against the plain segmented CE."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
@@ -515,8 +531,7 @@ def check_segmented_case(tag, f, gal, labels, tau, route, segments,
     before = gallery_route_counts()
     fk = f.clone().requires_grad_(True)
     fp = f.detach().clone().requires_grad_(True)
-    loss_k = K.fused_gallery_ce(fk, gal, labels, tau, route=route,
-                                segments=segments)
+    loss_k = K.fused_gallery_ce(fk, gal, labels, tau, segments=segments)
     (weights * loss_k).sum().backward()
     loss_p = P.gallery_cross_entropy(fp, gal, labels, tau, segments=segments)
     (weights * loss_p).sum().backward()
@@ -582,54 +597,64 @@ def time_segmented(tag, f, gal, labels, tau, segments) -> None:
 
 
 def check_conw_case(tag, v, g, route, errs) -> None:
+    """K4 and K1 (tau = 1) against their plain versions, both on
+    ``route``, as the planner must pick it from the inputs."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
     before = gallery_route_counts()
     errs["conw_diag"] = max(errs["conw_diag"], check(
-        f"{tag} conw_diag", K.conw_diag(v, g, route=route),
+        f"{tag} conw_diag", K.conw_diag(v, g),
         P.gallery_log_softmax_diag(v, g), TOL["conw_diag"]))
     errs["row_logsumexp"] = max(errs["row_logsumexp"], check(
-        f"{tag} row_logsumexp tau=1", K.row_logsumexp(v, g, 1.0, route=route),
+        f"{tag} row_logsumexp tau=1", K.row_logsumexp(v, g, 1.0),
         P.streaming_logsumexp(v, g, 1.0), TOL["row_logsumexp"]))
     expect_routes(f"{tag} K4/K1", before, {
         "conw_diag": (route, 1), "row_logsumexp": (route, 1)})
 
 
 def probe_phase(seed: int) -> None:
-    """The tensor-core routes' first calls, small and ragged, on every
-    route (wgmma with either source of its small halves): K4 at 300 x 300
-    x 256 and 1000 x 1000 x 512 (past WGMMA_PREPASS_ROWS), K1-K3 at 77 x
+    """The gallery kernels' first calls, small and ragged, on every route,
+    each reached through its inputs: at the D below, the lse pass on wgmma
+    (its small halves made in shared memory under WGMMA_PREPASS_ROWS rows,
+    from the pre-pass from there) and the matvec pass on tc; at D - 4 both
+    on simt. K4 at 300 x 300 x 256 and 1000 x 1000 x 512, K1-K3 at 77 x
     1001 x 48 and 70 x 333 x 512, K3 over 3 segments of 25 rows at D 48
-    (unit rows, see ``kernel_phase``); K1 at 1 x 1 x 8.
-    Run in a subprocess under a time limit by ``main``."""
+    (unit rows, see ``kernel_phase``); K1 at 1 x 1 x 8. Run in a
+    subprocess under a time limit by ``main``."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     errs = dict.fromkeys(GALLERY_KERNELS, 0.0)
-    for label, route, split in route_cases():
-        with wgmma_split(split):
-            v, g = unit_rows(1, 8, gen, dev), unit_rows(1, 8, gen, dev)
-            check(f"probe {label} 1x1x8 row_logsumexp",
-                  K.row_logsumexp(v, g, 0.5, route=route),
-                  P.streaming_logsumexp(v, g, 0.5), TOL["row_logsumexp"])
-            for m, d in ((300, 256), (1000, 512)):
-                check_conw_case(f"probe {label} {m}x{m}x{d}",
-                                unit_rows(m, d, gen, dev),
-                                unit_rows(m, d, gen, dev), route, errs)
-            for m, n, d in ((77, 1001, 48), (70, 333, 512)):
-                f, gal = unit_rows(m, d, gen, dev), unit_rows(n, d, gen, dev)
-                labels = torch.randint(0, n, (m,), generator=gen, device=dev)
-                check_gallery_case(f"probe {label} {m}x{n}x{d}", f, gal,
-                                   labels, 0.5, route, errs)
-            # K3 over 3 segments of 25 rows (a ragged row count per block).
-            gal = unit_rows(1001, 48, gen, dev)
-            labels = torch.randint(0, 1001, (25,), generator=gen, device=dev)
-            check_segmented_case(f"probe {label} 3x25x1001x48",
-                                 unit_rows(75, 48, gen, dev), gal,
-                                 labels.repeat(3), 0.5, route, 3, errs)
+    for route in LSE_ROUTES:
+        d = route_dim(route, 8)
+        v, g = unit_rows(1, d, gen, dev), unit_rows(1, d, gen, dev)
+        before = gallery_route_counts()
+        check(f"probe {route_label(route, 1)} 1x1x{d} row_logsumexp",
+              K.row_logsumexp(v, g, 0.5),
+              P.streaming_logsumexp(v, g, 0.5), TOL["row_logsumexp"])
+        expect_routes(f"probe 1x1x{d}", before,
+                      {"row_logsumexp": (route, 1)})
+        for m, d in ((300, 256), (1000, 512)):
+            d = route_dim(route, d)
+            check_conw_case(f"probe {route_label(route, m)} {m}x{m}x{d}",
+                            unit_rows(m, d, gen, dev),
+                            unit_rows(m, d, gen, dev), route, errs)
+        for m, n, d in ((77, 1001, 48), (70, 333, 512)):
+            d = route_dim(route, d)
+            f, gal = unit_rows(m, d, gen, dev), unit_rows(n, d, gen, dev)
+            labels = torch.randint(0, n, (m,), generator=gen, device=dev)
+            check_gallery_case(f"probe {route_label(route, m)} {m}x{n}x{d}",
+                               f, gal, labels, 0.5, route, errs)
+        # K3 over 3 segments of 25 rows (a ragged row count per block).
+        d = route_dim(route, 48)
+        gal = unit_rows(1001, d, gen, dev)
+        labels = torch.randint(0, 1001, (25,), generator=gen, device=dev)
+        check_segmented_case(f"probe {route_label(route, 75)} 3x25x1001x{d}",
+                             unit_rows(75, d, gen, dev), gal,
+                             labels.repeat(3), 0.5, route, 3, errs)
     torch.cuda.synchronize()
     log(f"[probe] ok, worst errors {json.dumps(errs)}")
 
@@ -641,63 +666,46 @@ def gallery_bounds(flops: float, nbytes: float):
                                              PEAK_TF32_FLOPS)
 
 
-def time_routes(name, on, plain_fn, library_fn, flops, nbytes, reps=10):
-    """Event times of every route ``on`` takes (``on(route)`` a call; the
-    main route first and again last, the others between: wgmma, tc, simt,
-    wgmma for the lse pass), the plain version and the library call, the
-    device time of one call on each route split by kernel and of the
-    library call, and both bounds. The record's "ms", "device_ms" and
-    "bound_ms" are the main route's; "<route>_ms" the others'."""
-    from creamfl_tpu_torch.ops import gallery_kernels as K
-
-    main = MAIN_ROUTE[name]
-    routes = [main] + [r for r in K.ROUTES if r != main and (
-        main == "wgmma" or r != "wgmma")]
-    ms = {route: cuda_time_ms(on(route), reps) for route in routes}
-    ms[main] = min(ms[main], cuda_time_ms(on(main), reps))
-    r = dict(ms=ms[main], plain_ms=cuda_time_ms(plain_fn, reps),
+def time_routes(name, call, plain_fn, library_fn, flops, nbytes, reps=10):
+    """Event times of ``call`` on the routes the planner picks for it (in
+    turns with the plain version and the library call: call, plain,
+    library, call; the lesser median of the call's two), the device time
+    of one call split by kernel and of the library call, and both bounds.
+    The record's "ms", "device_ms" and "bound_ms" are the call's."""
+    first = cuda_time_ms(call, reps)
+    r = dict(plain_ms=cuda_time_ms(plain_fn, reps),
              library_ms=cuda_time_ms(library_fn, reps))
-    r.update({f"{route}_ms": ms[route] for route in routes[1:]})
-    parts = {route: device_ms_by_kernel(on(route)) for route in routes}
+    r["ms"] = min(first, cuda_time_ms(call, reps))
+    parts = device_ms_by_kernel(call)
     r["library_device_ms"] = sum(device_ms_by_kernel(library_fn).values())
     (b32, by32), (b_tc, by_tc) = gallery_bounds(flops, nbytes)
     r.update(bound_ms=b_tc, bound_by=by_tc, fp32_bound_ms=b32,
              fp32_bound_by=by32)
-    log(f"  time {name}: "
-        + ", ".join(f"{route} {ms[route]:.3f} ms" for route in routes)
-        + f", plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} "
-        f"ms (device {r['library_device_ms']:.3f} ms), bound 3xTF32 "
-        f"{b_tc:.3f} ms ({by_tc}), fp32 {b32:.3f} ms ({by32})")
-    for route in routes:
-        log(f"  {name} device time per call, {route}: "
-            f"{sum(parts[route].values()):.4f} ms "
-            + json.dumps({k: round(v, 4) for k, v in parts[route].items()}))
-    r["device_ms"] = sum(parts[main].values())
-    r.update({f"{route}_device_ms": sum(parts[route].values())
-              for route in routes[1:]})
+    log(f"  time {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"library {r['library_ms']:.3f} ms (device "
+        f"{r['library_device_ms']:.3f} ms), bound 3xTF32 {b_tc:.3f} ms "
+        f"({by_tc}), fp32 {b32:.3f} ms ({by32})")
+    log(f"  {name} device time per call: {sum(parts.values()):.4f} ms "
+        + json.dumps({k: round(v, 4) for k, v in parts.items()}))
+    r["device_ms"] = sum(parts.values())
     return r
 
 
-def time_wgmma_splits(name, on, reps=10):
-    """The wgmma route's two sources of small halves on the same inputs,
-    in turns (prepass, smem, smem, prepass): event ms of each, the lesser
-    median of its two, and its device time by kernel (the pre-pass,
-    ``tf32_small_kernel``, on its own)."""
+def time_wgmma_splits(name, calls, reps=10):
+    """The wgmma lse pass at each row count of ``calls`` ({rows: call}),
+    on the source of small halves the planner takes there
+    (``wgmma_split_for``): event ms and device time by kernel (the
+    pre-pass, ``tf32_small_kernel``, on its own)."""
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    order = list(K.WGMMA_SPLITS) + list(reversed(K.WGMMA_SPLITS))
-    ms = {}
-    for split in order:
-        with wgmma_split(split):
-            t = cuda_time_ms(on("wgmma"), reps)
-        ms[split] = min(ms.get(split, t), t)
     out = {}
-    for split in K.WGMMA_SPLITS:
-        with wgmma_split(split):
-            parts = device_ms_by_kernel(on("wgmma"))
-        out[split] = dict(ms=ms[split], device_ms=sum(parts.values()),
-                          device_by_kernel=parts)
-        log(f"  time {name} wgmma/{split}: {ms[split]:.3f} ms, device "
+    for rows, call in calls.items():
+        split = K.wgmma_split_for(rows)
+        ms = cuda_time_ms(call, reps)
+        parts = device_ms_by_kernel(call)
+        out[rows] = dict(split=split, ms=ms, device_ms=sum(parts.values()),
+                         device_by_kernel=parts)
+        log(f"  time {name} M={rows} wgmma/{split}: {ms:.3f} ms, device "
             f"{sum(parts.values()):.4f} ms "
             + json.dumps({k: round(v, 4) for k, v in parts.items()}))
     return out
@@ -749,25 +757,17 @@ def wgmma_peak_phase(iters: int = 2048) -> float:
     return best
 
 
-def route_cases():
-    """(label, route, wgmma split) of every route a check runs: wgmma with
-    each source of its small halves, then tc and simt."""
-    from creamfl_tpu_torch.ops import gallery_kernels as K
-
-    return ([(f"wgmma/{split}", "wgmma", split) for split in K.WGMMA_SPLITS]
-            + [(route, route, K.WGMMA_SPLIT) for route in K.ROUTES
-               if route != "wgmma"])
-
-
 def kernel_phase(seed: int):
-    """K1-K4 on every route (wgmma with either source of its small
-    halves) against their plain versions at the main paths' shapes (con_w
+    """K1-K4 against their plain versions at the main paths' shapes (con_w
     50 000² x 256; contrast M 128 and the ragged 80 against 50 000 x 256;
     the round's contrast, M 128 against 2048 x 256), an odd shape (77 x
     1001 x 48), the mlp_local width (128 x 50 000 x 512) and bf16 features
-    (K3), each call's route asserted; then each timed on every route, and
-    K1 and K4 on both sources of the wgmma route's small halves. Returns
-    per-kernel records (without launch counts) for the JSON line."""
+    (K3), each on the planner's routes (the lse pass on wgmma, its small
+    halves by rows; the matvec pass on tc) and again at D - 4 (all on
+    simt), each call's route asserted; then each timed on the main path's
+    inputs, and K1 on both sources of the wgmma route's small halves
+    (128, 384 and 1024 rows). Returns per-kernel records (without launch
+    counts) for the JSON line."""
     from creamfl_tpu_torch.ops import gallery as P
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
@@ -778,24 +778,21 @@ def kernel_phase(seed: int):
     tc_peak_phase()
     wgmma_peak_phase()
 
-    # K4 and K1 at con_w's 50 000 x 50 000 x 256 (tau = 1).
-    log(f"[kernels] con_w shape {N_PUB} x {N_PUB} x {DIM}")
-    v = unit_rows(N_PUB, DIM, gen, dev)
-    g = unit_rows(N_PUB, DIM, gen, dev)
-    for label, route, split in route_cases():
-        with wgmma_split(split):
-            check_conw_case(f"con_w {label}", v, g, route, errs)
-    n, d = N_PUB, DIM
-    conw_on = lambda r: lambda: K.conw_diag(v, g, route=r)  # noqa: E731
-    rec["conw_diag"] = time_routes(
-        "conw_diag", conw_on,
-        lambda: P.gallery_log_softmax_diag(v, g),
-        lambda: torch.log_softmax(v @ g.T, dim=1).diagonal(),
-        2.0 * n * n * d + 2.0 * n * d, 4.0 * (2 * n * d + n), reps=5)
-    rec["conw_diag"]["splits"] = time_wgmma_splits("conw_diag", conw_on,
-                                                   reps=5)
-    del v, g
-    torch.cuda.empty_cache()
+    # K4 and K1 at con_w's 50 000 x 50 000 x 256 (tau = 1), and at D 252.
+    n = N_PUB
+    for route in LSE_ROUTES:
+        d = route_dim(route, DIM)
+        log(f"[kernels] con_w shape {n} x {n} x {d}")
+        v, g = unit_rows(n, d, gen, dev), unit_rows(n, d, gen, dev)
+        check_conw_case(f"con_w {route_label(route, n)}", v, g, route, errs)
+        if route == "wgmma":
+            rec["conw_diag"] = time_routes(
+                "conw_diag", lambda: K.conw_diag(v, g),
+                lambda: P.gallery_log_softmax_diag(v, g),
+                lambda: torch.log_softmax(v @ g.T, dim=1).diagonal(),
+                2.0 * n * n * d + 2.0 * n * d, 4.0 * (2 * n * d + n), reps=5)
+        del v, g
+        torch.cuda.empty_cache()
 
     # K1, K2, K3 at the contrast step's shapes, an odd shape (D = 48, N a
     # multiple of no tile, M not a multiple of a row block), the mlp_local
@@ -812,37 +809,34 @@ def kernel_phase(seed: int):
              (PUB_BS, g512, "mlp_local D512"), (PUB_BS, g, "bf16")]
     tau = 0.5
     for m, gal, tag in cases:
-        n, d = gal.shape
-        log(f"[kernels] {tag}: M={m} N={n} D={d} tau={tau}")
-        f = unit_rows(m, d, gen, dev)
-        if tag == "bf16":
-            f = f.to(torch.bfloat16)
-        labels = torch.randint(0, n, (m,), generator=gen, device=dev)
-        for label, route, split in route_cases():
-            with wgmma_split(split):
-                check_gallery_case(f"{tag} {label}", f, gal, labels, tau,
-                                   route, errs)
+        # simt first: f, labels and n, d are the wgmma case's after.
+        for route, galr in (("simt", simt_twin(gal)), ("wgmma", gal)):
+            n, d = galr.shape
+            log(f"[kernels] {tag}: M={m} N={n} D={d} tau={tau}")
+            f = unit_rows(m, d, gen, dev)
+            if tag == "bf16":
+                f = f.to(torch.bfloat16)
+            labels = torch.randint(0, n, (m,), generator=gen, device=dev)
+            check_gallery_case(f"{tag} {route_label(route, m)}", f, galr,
+                               labels, tau, route, errs)
         if tag != "main":
             continue
         lse_p = P.streaming_logsumexp(f, gal, tau)
-        lse_on = lambda r: lambda: K.row_logsumexp(  # noqa: E731
-            f, gal, tau, route=r)
         rec["row_logsumexp"] = time_routes(
-            "row_logsumexp", lse_on,
+            "row_logsumexp", lambda: K.row_logsumexp(f, gal, tau),
             lambda: P.streaming_logsumexp(f, gal, tau),
             lambda: torch.logsumexp(f @ gal.T / tau, dim=1),
             2.0 * m * n * d, 4.0 * (m * d + n * d + m))
-        rec["row_logsumexp"]["splits"] = time_wgmma_splits("row_logsumexp",
-                                                           lse_on)
         # Where the pre-pass starts to pay (gallery_kernels.
-        # WGMMA_PREPASS_ROWS): both sources at 384 and 1024 rows.
+        # WGMMA_PREPASS_ROWS): K1 at 128, 384 and 1024 rows.
+        rows_calls = {m: lambda: K.row_logsumexp(f, gal, tau)}
         for rows in (384, 1024):
             fr = unit_rows(rows, d, gen, dev)
-            time_wgmma_splits(f"row_logsumexp M={rows}", lambda r: lambda: (
-                K.row_logsumexp(fr, gal, tau, route=r)))
+            rows_calls[rows] = lambda fr=fr: K.row_logsumexp(fr, gal, tau)
+        rec["row_logsumexp"]["splits"] = time_wgmma_splits("row_logsumexp",
+                                                           rows_calls)
         rec["softmax_matvec"] = time_routes(
-            "softmax_matvec",
-            lambda r: lambda: K.softmax_matvec(f, gal, lse_p, tau, route=r),
+            "softmax_matvec", lambda: K.softmax_matvec(f, gal, lse_p, tau),
             lambda: P.softmax_matvec(f, gal, lse_p, tau),
             lambda: torch.softmax(f @ gal.T / tau, dim=1) @ gal,
             4.0 * m * n * d, 4.0 * (m * d + n * d + m + m * d))
@@ -858,34 +852,31 @@ def kernel_phase(seed: int):
         # 2 M N D operations above the bound, to store no M x N logits.
         rec["fused_gallery_ce"] = time_routes(
             "fused_gallery_ce",
-            lambda r: ce(lambda x: K.fused_gallery_ce(x, gal, labels, tau,
-                                                      route=r)),
+            ce(lambda x: K.fused_gallery_ce(x, gal, labels, tau)),
             ce(lambda x: P.gallery_cross_entropy(x, gal, labels, tau)),
             ce(lambda x: F.cross_entropy(x @ gal.T / tau, labels)),
             4.0 * m * n * d, 4.0 * (2 * m * d + n * d) + 8.0 * m)
         # K3's partial passes with K1's and K2's plain merges, without the
         # autograd bookkeeping.
-        for route in K.ROUTES:
-            alone = cuda_time_ms(lambda: K.softmax_matvec(
-                f, gal, K.row_logsumexp(f, gal, tau, route=route), tau,
-                route=K.matvec_route(route)))
-            log(f"  time fused_gallery_ce kernels alone (K1 + K2), {route} "
-                f"+ {K.matvec_route(route)}: {alone:.3f} ms")
+        alone = cuda_time_ms(lambda: K.softmax_matvec(
+            f, gal, K.row_logsumexp(f, gal, tau), tau))
+        log(f"  time fused_gallery_ce kernels alone (K1 + K2), wgmma + tc: "
+            f"{alone:.3f} ms")
 
     # K3 over a stacked family: the stacked round's shape (2 members, the
     # round's 2048-row gallery) and three members at the paper's gallery.
     for segments, gal in ((2, unit_rows(ROUND_PUB, DIM, gen, dev)), (3, g)):
-        n, d = gal.shape
         m = segments * PUB_BS
-        tag = f"segmented {segments}x{PUB_BS}x{n}x{d}"
-        log(f"[kernels] {tag}: M={m} in {segments} segments, tau={tau}")
-        f = unit_rows(m, d, gen, dev)
-        labels = torch.randint(0, n, (PUB_BS,), generator=gen,
-                               device=dev).repeat(segments)
-        for label, route, split in route_cases():
-            with wgmma_split(split):
-                check_segmented_case(f"{tag} {label}", f, gal, labels, tau,
-                                     route, segments, errs)
+        # simt first: f, labels and the tag are the wgmma case's after.
+        for route, galr in (("simt", simt_twin(gal)), ("wgmma", gal)):
+            n, d = galr.shape
+            tag = f"segmented {segments}x{PUB_BS}x{n}x{d}"
+            log(f"[kernels] {tag}: M={m} in {segments} segments, tau={tau}")
+            f = unit_rows(m, d, gen, dev)
+            labels = torch.randint(0, n, (PUB_BS,), generator=gen,
+                                   device=dev).repeat(segments)
+            check_segmented_case(f"{tag} {route_label(route, m)}", f, galr,
+                                 labels, tau, route, segments, errs)
         time_segmented(tag, f, gal, labels, tau, segments)
     for name in rec:
         rec[name]["max_abs_err"] = errs[name]
@@ -2923,9 +2914,9 @@ def real_args(tmp: str, bert: bool):
 def run_round(seed: int, kind: str = "round", keep=None):
     """``round_phase`` with the launch counts zeroed just before it and read
     just after: K3 (with the K1 and K2 launches inside it) as
-    ``expected_gallery_launches`` says; K4 once per upload and modality,
-    pad slots included; every launch on its main route (``MAIN_ROUTE``); no
-    K5/K6 (the standard trunk). Then, outside the counted run, K1-K3 on
+    ``expected_gallery_launches`` says; K4 once per upload and modality;
+    every launch on its main route (``MAIN_ROUTE``); no K5/K6 (the
+    standard trunk). Then, outside the counted run, K1-K3 on
     the wgmma route (K2 and K3's backward on tc) against their plain
     versions on the round's own global features (a public batch of caption
     rows against the image gallery, each caption's own image its label;
@@ -2974,11 +2965,8 @@ def run_round(seed: int, kind: str = "round", keep=None):
             f"{json.dumps(gallery_route_counts())}; K3 by (rows, segments) "
             f"{json.dumps({f'{m}x{s}': n for (m, s), n in by_rows.items()})}")
         k3, rows = expected_gallery_launches(algo, stacked)
-        # K4 once per upload and modality, on the client axis padded to a
-        # power of two (federation/aggregation.py:_bucketed; the pad
-        # slots' diagonals are computed, then masked).
-        k4 = sum(1 << (n - 1).bit_length() for n in (
-            algo.img_reps.shape[0], algo.txt_reps.shape[0]))
+        # K4 once per upload and modality.
+        k4 = algo.img_reps.shape[0] + algo.txt_reps.shape[0]
         want = {"fused_gallery_ce": k3, "row_logsumexp": k3,
                 "softmax_matvec": k3, "conw_diag": k4,
                 "mm_bn_stats_fwd": 0, "mm_bn_stats_bwd": 0}

@@ -16,15 +16,14 @@
 // the dfeats merge scales each row by its segment's gbar / (tau M / S). The
 // gallery is then read once per family batch, not once per member.
 //
-// The partial passes have three routes, chosen per call and per pass by
-// the host wrapper (ops/gallery_kernels.py:plan_gallery_route):
-//   * "wgmma", the lse pass only: 3xTF32 wgmma fed by TMA
-//     (gallery_wgmma.cuh; fp32, D % 8 == 0, D <= 512, 16-byte aligned
-//     bases), the planner's route for those inputs;
-//   * "tc": 3xTF32 mma.sync tile kernels on gallery_core.cuh (the same
-//     inputs): the matvec pass's route there, and the lse pass's when asked;
-//   * "simt": the first fp32 FMA kernels, for every other call and kept
-//     beside the others for comparison.
+// The partial passes have three routes, chosen from the inputs, per call
+// and per pass, by the host wrapper
+// (ops/gallery_kernels.py:plan_gallery_route):
+//   * "wgmma", the lse pass: 3xTF32 wgmma fed by TMA (gallery_wgmma.cuh)
+//     for fp32, D % 8 == 0, D <= 512, 16-byte aligned bases;
+//   * "tc", the matvec pass on the same inputs: 3xTF32 mma.sync tile
+//     kernels on gallery_core.cuh;
+//   * "simt": the first fp32 FMA kernels, for every other call.
 //
 // What bounds them on an H100: K1 does 2*M*N*D operations and K2 4*M*N*D
 // on inputs of (M + N) * D floats. At the main-path shapes (con_w: M = N =
@@ -43,17 +42,12 @@
 //     carrying the running (max, sum) in VMEM. Here the column range is
 //     split across blocks (the host picks the split count from M: "tc" and
 //     "wgmma" aim at one wave of resident blocks, each walking many tiles),
-//     each
-//     block writes a partial (max, sum) per row -- or a partial [rows, D]
+//     each block writes a partial (max, sum) per row -- or a partial [rows, D]
 //     product -- and a merge pass sums the splits in a fixed order
 //     (deterministic; no float atomics).
 //   * "wgmma" lse: see gallery_wgmma.cuh (128 v rows a block, both
 //     operands streamed by TMA in 32-float depth chunks, 3xTF32 from
 //     operand halves split outside the mainloop).
-//   * "tc" lse: 64 v rows resident in shared memory, 128-row gallery
-//     tiles streamed in 32-float depth chunks through a 3-stage cp.async
-//     ring; the logits stay in registers and fold into per-thread online
-//     (max, sum) accumulators.
 //   * "tc" matvec: 64 v rows resident (32 past D 256); whole 64-row
 //     (32-row) gallery tiles through a 2-stage ring, each used twice:
 //     logits on the tensor cores, p = exp(logit - lse) through a small
@@ -63,8 +57,8 @@
 //     products.
 //   * tc fragments read along D come by ldmatrix, and operands are split
 //     with integer instructions: the split and the shared-memory loads, not
-//     the products, set the tc kernels' pace (chip_smoke.py times them);
-//     the wgmma route was built to take that work out of the lse pass.
+//     the products, set the tc kernel's pace (chip_smoke.py times it);
+//     the wgmma route takes that work out of the lse pass.
 //   * "simt": K1 a register-tiled SGEMM (128 x 128 block tile, 8 x 8 per
 //     thread) with the online-softmax epilogue; K2 one 64-row gallery tile
 //     in shared memory used for the logits and for p @ g_tile (4 rows x
@@ -361,182 +355,6 @@ cudaError_t launch_matvec(const float* v, const float* g, const float* lse,
 // route "tc": 3xTF32 mma.sync on the tile core of gallery_core.cuh
 // ---------------------------------------------------------------------------
 
-constexpr int kLseTcBM = 64;      // rows of v per block (resident in smem)
-constexpr int kLseTcBN = 128;     // gallery rows (logit columns) per tile
-constexpr int kLseTcStages = 3;   // ring of [kLseTcBN][kDepth] depth chunks
-
-// Partial row logsumexp of (v @ g^T) * inv_tau over one split of the
-// gallery's column tiles, on the tensor cores: part_max/part_sum[row, split].
-// The block's 64 v rows stay in shared memory; each gallery tile streams
-// through the ring in depth chunks of 32 floats. 8 warps as 2 (rows) x 4
-// (columns), 32 x 32 logits each (2 x 4 m16n8 tiles); after a tile's last
-// chunk each thread folds its logits into online (max, sum) per row, so
-// the logits never leave registers.
-__global__ void __launch_bounds__(gcore::kThreads, 2)
-lse_tc_kernel(const float* __restrict__ v, const float* __restrict__ g,
-              int M, int N, int D, int Dpad, float inv_tau,
-              int tiles_per_split, float* __restrict__ part_max,
-              float* __restrict__ part_sum) {
-  using namespace gcore;
-  constexpr int S = kLseTcStages;
-  extern __shared__ __align__(16) float smem[];
-  float* Vs = smem;                      // [kLseTcBM][Dpad], swizzled
-  float* ring = Vs + kLseTcBM * Dpad;    // S x [kLseTcBN][kDepth], swizzled
-
-  const int warp = threadIdx.x / 32;
-  const int mw = warp & 1, nw = warp >> 1;
-  const int gq = lane_group(), tq = lane_in_group();
-  const int row0 = blockIdx.x * kLseTcBM;
-  const int split = blockIdx.y;
-  const int n_tiles = (N + kLseTcBN - 1) / kLseTcBN;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const int n_chunks = Dpad / kDepth;
-  const int n_steps = max(t_end - t_begin, 0) * n_chunks;
-
-  auto load_chunk = [&](int q) {
-    const int t = t_begin + q / n_chunks;
-    const int c0 = (q % n_chunks) * kDepth;
-    float* dst = ring + (q % S) * (kLseTcBN * kDepth);
-    for (int id = threadIdx.x; id < kLseTcBN * (kDepth / 4); id += kThreads) {
-      const int r = id / (kDepth / 4);
-      const int c = (id % (kDepth / 4)) * 4;
-      const int gr = t * kLseTcBN + r;
-      const bool ok = gr < N && c0 + c < D;
-      const float* src = ok ? g + static_cast<size_t>(gr) * D + c0 + c : g;
-      cp_async16(dst + swz(r, c, kDepth), src, ok ? 16 : 0);
-    }
-  };
-
-  load_rows_async(Vs, v, row0, kLseTcBM, M, D, Dpad);
-  cp_async_commit();
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < n_steps) load_chunk(s);
-    cp_async_commit();
-  }
-
-  float acc[2][4][4];  // the tile's logits, summed over depth chunks
-  float chunk[2][4][4];  // one chunk's, on the tensor cores (truncating)
-  float run_max[4], run_sum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    run_max[i] = -INFINITY;
-    run_sum[i] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = chunk[i][j][e] = 0.f;
-
-  for (int q = 0; q < n_steps; ++q) {
-    // Chunk q (and the v block) has landed for this thread; after the
-    // barrier for every thread, and every thread is done with chunk q - 1,
-    // whose stage the next copy overwrites.
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    if (q + S - 1 < n_steps) load_chunk(q + S - 1);
-    cp_async_commit();
-
-    const float* Bs = ring + (q % S) * (kLseTcBN * kDepth);
-    const int kc = q % n_chunks;
-#pragma unroll
-    for (int ks = 0; ks < kDepth / 8; ++ks) {
-      FragA a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        load_a(Vs, Dpad, mw * 32 + i * 16, kc * kDepth + ks * 8, a[i]);
-#pragma unroll
-      for (int jj = 0; jj < 4; jj += 2) {
-        FragB b[2];
-        load_b_nk2(Bs, kDepth, nw * 32 + jj * 8, ks * 8, b[0], b[1]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma3(chunk[i][jj + j], a[i], b[j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) add_to(acc[i][j], chunk[i][j]);
-
-    if (kc == n_chunks - 1) {
-      // The tile is complete: fold it into each owned row's (max, sum).
-      // Thread rows: mw*32 + i*16 + gq + 8h; columns nw*32 + j*8 + 2tq + e.
-      const int col0 = (t_begin + q / n_chunks) * kLseTcBN + nw * 32 + 2 * tq;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float tile_max = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              if (col0 + j * 8 + e < N)
-                tile_max = fmaxf(tile_max, acc[i][j][2 * h + e] * inv_tau);
-          if (tile_max != -INFINITY) {
-            const int r = 2 * i + h;
-            const float new_max = fmaxf(run_max[r], tile_max);
-            float s = run_sum[r] * expf(run_max[r] - new_max);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                if (col0 + j * 8 + e < N)
-                  s += expf(acc[i][j][2 * h + e] * inv_tau - new_max);
-            run_max[r] = new_max;
-            run_sum[r] = s;
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j][2 * h] = 0.f;
-            acc[i][j][2 * h + 1] = 0.f;
-          }
-        }
-    }
-  }
-
-  // Merge the 4 threads of a row group (lanes 4gq .. 4gq+3), then the 4
-  // column warps in order, through the (now idle) ring.
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, run_max[r], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, run_sum[r], off);
-      lse_combine(run_max[r], run_sum[r], m2, s2);
-    }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* red_max = ring;                     // [4][kLseTcBM]
-  float* red_sum = ring + 4 * kLseTcBM;      // [4][kLseTcBM]
-  if (tq == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mw * 32 + i * 16 + gq + 8 * h;
-        red_max[nw * kLseTcBM + row] = run_max[2 * i + h];
-        red_sum[nw * kLseTcBM + row] = run_sum[2 * i + h];
-      }
-  }
-  __syncthreads();
-  const int row = threadIdx.x;
-  if (row < kLseTcBM && row0 + row < M) {
-    float m = red_max[row], s = red_sum[row];
-#pragma unroll
-    for (int w = 1; w < 4; ++w)
-      lse_combine(m, s, red_max[w * kLseTcBM + row],
-                  red_sum[w * kLseTcBM + row]);
-    part_max[static_cast<size_t>(row0 + row) * gridDim.y + split] = m;
-    part_sum[static_cast<size_t>(row0 + row) * gridDim.y + split] = s;
-  }
-}
-
 // Partial softmax(v g^T * inv_tau - lse) @ g over one split of the
 // gallery's kBN-row tiles, on the tensor cores: part[split, row, :].
 // kBM rows of v stay in shared memory; whole gallery tiles [kBN][Dpad]
@@ -726,14 +544,8 @@ matvec_tc_kernel(const float* __restrict__ v, const float* __restrict__ g,
     }
 }
 
-// Dynamic shared memory of the "tc" kernels (mirrored by
+// Dynamic shared memory of the "tc" matvec kernel (mirrored by
 // ops/gallery_kernels.py:tc_smem_bytes).
-size_t lse_tc_smem(int Dpad) {
-  return sizeof(float) *
-         (static_cast<size_t>(kLseTcBM) * Dpad +
-          kLseTcStages * kLseTcBN * gcore::kDepth);
-}
-
 template <int kBM, int kBN, int kStages>
 size_t matvec_tc_smem(int Dpad) {
   return sizeof(float) * (static_cast<size_t>(kBM + kStages * kBN) * Dpad +
@@ -916,7 +728,7 @@ cudaError_t launch_lse_wgmma(int split, const float* v, const float* g,
   return cudaGetLastError();
 }
 
-// The card's mma.sync m16n8k8 TF32 rate, the ceiling of the "tc" kernels:
+// The card's mma.sync m16n8k8 TF32 rate, the ceiling of the "tc" kernel:
 // each warp runs `iters` rounds of 8 independent mma.sync on register
 // operands (no loads), then writes one sum per thread so that nothing is
 // dropped.
@@ -944,10 +756,10 @@ tc_peak_kernel(int iters, float* __restrict__ out) {
 
 extern "C" {
 
-// route 0 ("simt", the fp32 FMA kernel), 1 ("tc"), 2 ("wgmma", small
-// halves by the pre-pass into v_small [M, D] and g_small [N, D]) or 3
-// ("wgmma", small halves in shared memory; v_small and g_small unused);
-// 1-3 need D % 8 == 0, D <= 512, 16-byte aligned v and g. Row logsumexp
+// route 0 ("simt", the fp32 FMA kernel), 2 ("wgmma", small halves by the
+// pre-pass into v_small [M, D] and g_small [N, D]) or 3 ("wgmma", small
+// halves in shared memory; v_small and g_small unused); 2 and 3 need
+// D % 8 == 0, D <= 512, 16-byte aligned v and g. Row logsumexp
 // of (v @ g^T) * inv_tau through [M, splits] partials part_max / part_sum,
 // whose splits * tiles_per_split must cover the route's column tiles (128
 // gallery rows on every route), then one merge in `mode` (see
@@ -971,23 +783,7 @@ int gallery_lse(int route, const void* v, const void* g, int M, int N, int D,
         static_cast<float*>(g_small), M, N, D, inv_tau, tiles_per_split,
         splits, pm, ps, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-  } else if (route == 1) {
-    if (D % 8 != 0 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
-    const int Dpad = round_up(D, gcore::kDepth);
-    const size_t smem = lse_tc_smem(Dpad);
-    cudaError_t err = cudaFuncSetAttribute(
-        lse_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    // All of the SM's 228 KB as shared memory: two blocks fit up to D 256.
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(lse_tc_kernel,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((M + kLseTcBM - 1) / kLseTcBM, splits);
-    lse_tc_kernel<<<grid, gcore::kThreads, smem, s>>>(
-        vf, gf, M, N, D, Dpad, inv_tau, tiles_per_split, pm, ps);
-  } else {
+  } else if (route == 0) {
     const dim3 grid((M + kLseBM - 1) / kLseBM, splits);
     const bool vec4 = (D % 4 == 0) &&
                       (reinterpret_cast<uintptr_t>(v) % 16 == 0) &&
@@ -999,6 +795,8 @@ int gallery_lse(int route, const void* v, const void* g, int M, int N, int D,
       lse_partial_kernel<false><<<grid, kLseThreads, 0, s>>>(
           vf, gf, M, N, D, inv_tau, tiles_per_split, pm, ps);
     }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,10 +1,8 @@
 // The gallery kernels' mma.sync tile core for Hopper (sm_90a): fp32
 // products in 3xTF32 on warp-level mma.sync, fed by cp.async copies into
 // XOR-swizzled shared-memory tiles. Included by gallery.cu, whose "tc"
-// kernels (the softmax-matvec partial pass of K2 / K3's backward -- the
-// main path's -- and the lse partial pass of K1 / K3's forward / K4 when
-// asked for; the main path's lse pass runs on gallery_wgmma.cuh) are
-// built on it.
+// kernel (the softmax-matvec partial pass of K2 / K3's backward; the lse
+// pass runs on gallery_wgmma.cuh) is built on it.
 //
 // Products. mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: a 16 x 8
 // A fragment, an 8 x 8 B fragment, a 16 x 8 fp32 accumulator. Each fp32

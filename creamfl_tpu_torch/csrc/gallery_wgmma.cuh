@@ -5,8 +5,8 @@
 //
 // What it computes: per split of the gallery's 128-row column tiles, each
 // v row's partial (max, sum of exp(logit - max)) of (v @ g^T) * inv_tau in
-// fp32, into part_max / part_sum [M, splits] -- what lse_tc_kernel writes,
-// so the merges of gallery.cu take either.
+// fp32, into part_max / part_sum [M, splits] -- what the simt
+// lse_partial_kernel writes, so the merges of gallery.cu take either.
 //
 // What bounds it: 3 x 2 M N D tensor operations (3xTF32) on (M + N) D
 // floats: at K4's 50 000^2 x 256 and K1's 128 x 50 000 x 256, hundreds of
@@ -17,8 +17,8 @@
 // operands for 131 072 operations: ~100 bytes a clock at the TF32 rate,
 // of 128), and the L2 reads of the ring (V's chunks come again for every
 // gallery tile). On an H100 80GB HBM3 at 700 W (chip_smoke.py): K4 at
-// 50 000^2 x 256 12.9 ms against 26.5 on lse_tc_kernel, ~60 % of its
-// 7.76 ms bound; K1 at 128 x 50 000 x 256 0.054 ms of device time
+// 50 000^2 x 256 12.9 ms against 26.5 on an mma.sync lse kernel, ~60 %
+// of its 7.76 ms bound; K1 at 128 x 50 000 x 256 0.054 ms of device time
 // against 0.079.
 //
 // Design:
@@ -49,7 +49,7 @@
 //   * Block. 384 threads: two consumer warpgroups, each owning 64 of the
 //     block's 128 v rows, and a producer warpgroup (one thread issues the
 //     copies; with kSmem its other three warps split). One gallery tile
-//     serves 128 rows (lse_tc_kernel: 64). 384 threads leave 168 registers
+//     serves 128 rows (an mma.sync block: 64). 384 threads leave 168 registers
 //     a thread; setmaxnreg moves the producer's to the consumers (40 /
 //     232), whose chunk accumulator and tile logits take 128.
 //   * Products. wgmma.m64n128k8.f32.tf32.tf32, both operands K-major from

@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from creamfl_tpu_torch.losses.classification import cross_entropy
-from creamfl_tpu_torch.ops import dispatch
+from creamfl_tpu_torch.ops import gallery_kernels
 from creamfl_tpu_torch.ops.gallery import gallery_cross_entropy
 
 
@@ -41,8 +41,8 @@ def inter_modal_loss(feats: torch.Tensor, global_other: torch.Tensor,
         return gallery_cross_entropy(feats, global_other, batch_index,
                                      tau=tau, blockwise=True,
                                      segments=segments)
-    return dispatch.gallery_ce(feats, global_other, batch_index, tau,
-                               segments=segments)
+    return gallery_kernels.fused_gallery_ce(feats, global_other, batch_index,
+                                            tau, segments=segments)
 
 
 def intra_modal_moon_loss(feats: torch.Tensor, target_feats: torch.Tensor,

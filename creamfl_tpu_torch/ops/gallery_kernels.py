@@ -19,23 +19,19 @@ replace the Pallas TPU kernels of the JAX package
 * ``conw_diag`` (K4): ``diag(log_softmax(v @ g.T))``, K1 with the
   diagonal dot folded into its merge pass.
 
-Each partial pass runs on one of three routes, chosen per call and per
-pass by ``plan_gallery_route`` and counted in
+Each partial pass runs on one of three routes, chosen from the inputs
+alone, per call and per pass, by ``plan_gallery_route`` and counted in
 ``<wrapper>.launches_by_route``:
 
 - ``"wgmma"`` (the lse pass: K1, K3's forward, K4; fp32 contiguous, D % 8
   == 0, D <= 512, 16-byte aligned bases): 3xTF32 on ``wgmma``, operands
-  fed by TMA (``csrc/gallery_wgmma.cuh``);
-- ``"tc"`` (the matvec pass, K2 and K3's backward, on the same inputs; and
-  the lse pass when asked for): 3xTF32 ``mma.sync`` tile kernels fed by a
-  ``cp.async`` ring;
+  fed by TMA (``csrc/gallery_wgmma.cuh``), their small halves from a
+  pre-pass or made in shared memory as ``wgmma_split_for`` says by rows;
+- ``"tc"`` (the matvec pass, K2 and K3's backward, on the same inputs):
+  3xTF32 ``mma.sync`` tile kernels fed by a ``cp.async`` ring;
 - ``"simt"`` (anything else): the fp32 FMA kernels of the first slice.
 
-``route=`` forces one (``"simt"`` takes every input the kernels take;
-``"tc"`` raises where the planner would take neither tensor-core route,
-``"wgmma"`` also for the matvec pass), so all three can be timed on the
-same inputs; K3 asked for ``"wgmma"`` runs its backward on ``"tc"``. A
-failed build or launch raises on every route.
+A failed build or launch raises on every route.
 
 The library is compiled by ``nvcc`` at first use from the repository's
 source, into ``creamfl_tpu_torch/_build/<source hash>/``, and bound with
@@ -66,10 +62,8 @@ _ROUTE_ID = {"simt": 0, "tc": 1}
 # Where the wgmma lse pass takes its operands' TF32 small halves from
 # (csrc/gallery_wgmma.cuh): "prepass", a split kernel into scratch before
 # it, or "smem", its producer warps in shared memory, chosen by rows
-# (``wgmma_split_for``). WGMMA_SPLIT, when set, forces one (chip_smoke.py
-# times both).
+# (``wgmma_split_for``).
 WGMMA_SPLITS = ("prepass", "smem")
-WGMMA_SPLIT: Optional[str] = None
 _WGMMA_ROUTE_ID = {"prepass": 2, "smem": 3}
 # From this many v rows the pre-pass pays: its cost, one pass over v and g,
 # is fixed, while the shared-memory split slows every gallery tile of every
@@ -78,12 +72,11 @@ _WGMMA_ROUTE_ID = {"prepass": 2, "smem": 3}
 # faster from 1024 rows up to K4's 50 000.
 WGMMA_PREPASS_ROWS = 512
 # Tile sizes of the kernels (must match csrc/gallery.cu). simt: K1 128 x
-# 128, K2 32 rows x 64 gallery rows. tc: K1 64 x 128 in 32-float depth
-# chunks through a 3-stage ring; K2 see ``mv_tc_tile``.
+# 128, K2 32 rows x 64 gallery rows. tc (K2): see ``mv_tc_tile``, in
+# 32-float depth chunks.
 LSE_BLOCK_ROWS, LSE_BLOCK_COLS = 128, 128
 MV_BLOCK_ROWS, MV_BLOCK_COLS = 32, 64
 TC_DEPTH = 32
-LSE_TC_ROWS, LSE_TC_COLS, LSE_TC_STAGES = 64, 128, 3
 MV_MAX_DIM = 512
 # wgmma lse: 128 v rows x 128 gallery rows a tile, 3 stages of four 128 x
 # 32 fp32 boxes (64 KB) behind 1 KB of alignment and 9 barriers: one
@@ -159,22 +152,18 @@ def mv_tc_tile(d: int) -> Tuple[int, int, int]:
     return (64, 64, 2) if padded_dim(d) <= 256 else (32, 32, 2)
 
 
-def tc_smem_bytes(kernel: str, d: int) -> int:
-    """Dynamic shared memory of a tc kernel ("lse" or "matvec") at D
-    (csrc/gallery.cu: lse_tc_smem, matvec_tc_smem)."""
-    dp = padded_dim(d)
-    if kernel == "lse":
-        return 4 * (LSE_TC_ROWS * dp + LSE_TC_STAGES * LSE_TC_COLS * TC_DEPTH)
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the tc matvec kernel at D
+    (csrc/gallery.cu: matvec_tc_smem)."""
     rows, cols, stages = mv_tc_tile(d)
-    return 4 * ((rows + stages * cols) * dp + 2 * rows * (cols + 4))
+    return 4 * ((rows + stages * cols) * padded_dim(d) + 2 * rows * (cols + 4))
 
 
-def tc_blocks_per_sm(kernel: str, d: int) -> int:
-    """Resident tc blocks per SM by shared memory (the lse kernel's launch
-    bounds allow two, the matvec kernel's one)."""
-    fit = _SM_SHARED_BYTES // (tc_smem_bytes(kernel, d)
-                               + _BLOCK_RESERVED_BYTES)
-    return min(fit, 2 if kernel == "lse" else 1)
+def tc_blocks_per_sm(d: int) -> int:
+    """Resident tc matvec blocks per SM by shared memory (its launch
+    bounds allow one)."""
+    return min(1, _SM_SHARED_BYTES // (tc_smem_bytes(d)
+                                       + _BLOCK_RESERVED_BYTES))
 
 
 def plan_splits(m: int, n: int, block_rows: int, block_cols: int,
@@ -199,28 +188,27 @@ def plan_splits(m: int, n: int, block_rows: int, block_cols: int,
 
 def lse_cols(route: str) -> int:
     """Gallery rows in a column tile of the lse pass on ``route``."""
-    return {"wgmma": WGMMA_COLS, "tc": LSE_TC_COLS,
-            "simt": LSE_BLOCK_COLS}[route]
+    return {"wgmma": WGMMA_COLS, "simt": LSE_BLOCK_COLS}[route]
 
 
 def plan_for(kernel: str, route: str, m: int, n: int, d: int,
              sm_count: int) -> Tuple[int, int]:
     """(splits, tiles_per_split) of ``kernel`` ("lse" or "matvec") on
-    ``route``. tc and wgmma aim at one wave of resident blocks, so that
-    each block walks many gallery tiles (wgmma: one block an SM)."""
-    if route == "wgmma":
-        if kernel != "lse":
-            raise ValueError("the wgmma route runs the lse pass only")
-        return plan_splits(m, n, WGMMA_ROWS, WGMMA_COLS, sm_count,
-                           blocks=sm_count)
+    ``route``. wgmma (the lse pass) and tc (the matvec pass) aim at one
+    wave of resident blocks, so that each block walks many gallery tiles
+    (one block an SM on both)."""
     if route == "simt":
         rows, cols = ((LSE_BLOCK_ROWS, LSE_BLOCK_COLS) if kernel == "lse"
                       else (MV_BLOCK_ROWS, MV_BLOCK_COLS))
         return plan_splits(m, n, rows, cols, sm_count)
-    rows, cols = ((LSE_TC_ROWS, LSE_TC_COLS) if kernel == "lse"
-                  else mv_tc_tile(d)[:2])
-    return plan_splits(m, n, rows, cols, sm_count,
-                       blocks=tc_blocks_per_sm(kernel, d) * sm_count)
+    if (kernel, route) == ("lse", "wgmma"):
+        return plan_splits(m, n, WGMMA_ROWS, WGMMA_COLS, sm_count,
+                           blocks=sm_count)
+    if (kernel, route) == ("matvec", "tc"):
+        return plan_splits(m, n, *mv_tc_tile(d)[:2], sm_count,
+                           blocks=tc_blocks_per_sm(d) * sm_count)
+    raise ValueError(f"the {kernel} pass has no {route!r} route (wgmma runs "
+                     "the lse pass only, tc the matvec pass only)")
 
 
 def wgmma_split_for(m: int) -> str:
@@ -243,20 +231,6 @@ def plan_gallery_route(kernel: str, *tensors: torch.Tensor) -> str:
                 or t.data_ptr() % 16):
             return "simt"
     return "wgmma" if kernel == "lse" else "tc"
-
-
-def resolve_route(name: str, asked: Optional[str], planned: str) -> str:
-    """The planner's route unless one is asked for. ``"simt"`` takes every
-    call, ``"tc"`` where the planner picked a tensor-core route and
-    ``"wgmma"`` where it picked ``"wgmma"``; else this raises."""
-    if asked is None:
-        return planned
-    takes = {"simt": True, "tc": planned in ("tc", "wgmma"),
-             "wgmma": planned == "wgmma"}
-    if not takes.get(asked, False):
-        raise ValueError(f"{name}: route {asked!r} does not take these "
-                         f"inputs (planned: {planned!r})")
-    return asked
 
 
 def matvec_route(lse_route: str) -> str:
@@ -304,8 +278,8 @@ def _lse_launch(v: torch.Tensor, g: torch.Tensor, tau: float, mode: int,
                 segments: int = 1):
     """The lse partial pass on ``route`` + the merge in ``mode``: returns
     out [M] (lse, or diag - lse), and for ``_CE`` (loss [segments], lse).
-    The wgmma route takes its small halves as ``WGMMA_SPLIT`` or else
-    ``wgmma_split_for(M)`` says; "prepass" allocates their scratch here."""
+    The wgmma route takes its small halves as ``wgmma_split_for(M)`` says;
+    "prepass" allocates their scratch here."""
     (m, d), n = v.shape, g.shape[0]
     splits, per_split = plan_for("lse", route, m, n, d, _sm_count(v))
     part_max = torch.empty(m, splits, dtype=torch.float32, device=v.device)
@@ -317,7 +291,7 @@ def _lse_launch(v: torch.Tensor, g: torch.Tensor, tau: float, mode: int,
     if route != "wgmma":
         route_id = _ROUTE_ID[route]
     else:
-        split = WGMMA_SPLIT or wgmma_split_for(m)
+        split = wgmma_split_for(m)
         route_id = _WGMMA_ROUTE_ID[split]
         if split == "prepass":
             v_small, g_small = torch.empty_like(v), torch.empty_like(g)
@@ -384,13 +358,12 @@ def tc_peak(blocks: int, iters: int, device) -> torch.Tensor:
 # wrappers
 # ---------------------------------------------------------------------------
 
-def row_logsumexp(v: torch.Tensor, gallery: torch.Tensor, tau: float = 1.0,
-                  route: Optional[str] = None) -> torch.Tensor:
+def row_logsumexp(v: torch.Tensor, gallery: torch.Tensor,
+                  tau: float = 1.0) -> torch.Tensor:
     """[M, D] x [N, D] -> [M] float32 logsumexp rows of v @ g.T / tau (K1)."""
-    route = resolve_route("row_logsumexp", route,
-                          plan_gallery_route("lse", v, gallery))
     if v.device.type == "cpu":
         return plain.streaming_logsumexp(v, gallery, tau)
+    route = plan_gallery_route("lse", v, gallery)
     _check_inputs("row_logsumexp", v, gallery)
     _check_shapes("row_logsumexp", v, gallery)
     out = _lse_launch(v, gallery, tau, _LSE, route)
@@ -398,17 +371,15 @@ def row_logsumexp(v: torch.Tensor, gallery: torch.Tensor, tau: float = 1.0,
     return out
 
 
-def conw_diag(v: torch.Tensor, gallery: torch.Tensor,
-              route: Optional[str] = None) -> torch.Tensor:
+def conw_diag(v: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
     """diag(log_softmax(v @ g.T)) -> [N] float32 (K4)."""
     if v.shape != gallery.shape:
         raise ValueError(f"conw_diag: shapes {tuple(v.shape)} and "
                          f"{tuple(gallery.shape)} differ")
     v, gallery = v.contiguous(), gallery.contiguous()
-    route = resolve_route("conw_diag", route,
-                          plan_gallery_route("lse", v, gallery))
     if v.device.type == "cpu":
         return plain.gallery_log_softmax_diag(v, gallery)
+    route = plan_gallery_route("lse", v, gallery)
     _check_inputs("conw_diag", v, gallery)
     _check_shapes("conw_diag", v, gallery)
     out = _lse_launch(v, gallery, 1.0, _DIAG, route)
@@ -417,13 +388,11 @@ def conw_diag(v: torch.Tensor, gallery: torch.Tensor,
 
 
 def softmax_matvec(v: torch.Tensor, gallery: torch.Tensor,
-                   lse: torch.Tensor, tau: float = 1.0,
-                   route: Optional[str] = None) -> torch.Tensor:
+                   lse: torch.Tensor, tau: float = 1.0) -> torch.Tensor:
     """softmax(v @ g.T / tau) @ g -> [M, D] float32 given the row lse (K2)."""
-    route = resolve_route("softmax_matvec", route,
-                          plan_gallery_route("matvec", v, gallery))
     if v.device.type == "cpu":
         return plain.softmax_matvec(v, gallery, lse, tau)
+    route = plan_gallery_route("matvec", v, gallery)
     _check_inputs("softmax_matvec", v, gallery, lse)
     _check_shapes("softmax_matvec", v, gallery)
     if lse.shape != (v.shape[0],):
@@ -442,21 +411,20 @@ def _check_segments(name: str, m: int, segments: int) -> None:
 class FusedGalleryCE(torch.autograd.Function):
     """Mean CE of ``feats @ gallery.T / tau`` vs ``labels``, no gradient to
     the gallery or the labels. Forward: K1's partial pass and the CE-mode
-    merge (loss and lse), on ``route``; backward: K2's partial pass and
-    the dfeats-mode merge, with gbar read from the device, on
-    ``matvec_route(route)``. ``segments`` S > 1: the loss is
+    merge (loss and lse), on ``plan_gallery_route``'s route; backward:
+    K2's partial pass and the dfeats-mode merge, with gbar read from the
+    device, on ``matvec_route`` of it. ``segments`` S > 1: the loss is
     [S], one mean per equal contiguous segment of rows, and gbar [S]. On
     CPU tensors both run their plain steps (``ops.gallery``: partials over
     the same split plan, then the merges), so the formulas are checked
     without a card."""
 
     @staticmethod
-    def forward(ctx, feats, gallery, labels, tau, route=None, segments=1):
+    def forward(ctx, feats, gallery, labels, tau, segments=1):
         f32 = feats.to(torch.float32).contiguous()
         g32 = gallery.to(torch.float32).contiguous()
         labels = labels.to(torch.int64).contiguous()
-        route = resolve_route("fused_gallery_ce", route,
-                              plan_gallery_route("lse", f32, g32))
+        route = plan_gallery_route("lse", f32, g32)
         (m, d), n = f32.shape, g32.shape[0]
         _check_segments("fused_gallery_ce", m, segments)
         if f32.device.type == "cpu":
@@ -501,25 +469,20 @@ class FusedGalleryCE(torch.autograd.Function):
                                     labels, gbar.contiguous(),
                                     ctx.feats_dtype)
             _count(softmax_matvec, ctx.route)
-        return dfeats, None, None, None, None, None
+        return dfeats, None, None, None, None
 
 
 def fused_gallery_ce(feats: torch.Tensor, gallery: torch.Tensor,
                      labels: torch.Tensor, tau: float = 0.5,
-                     route: Optional[str] = None,
                      segments: int = 1) -> torch.Tensor:
     """Mean CE of ``feats @ gallery.T / tau`` vs integer ``labels`` (K3): a
     scalar, or with ``segments`` S > 1 the [S] means of S equal contiguous
-    segments of rows, in one launch each way (``route``: the forward's;
-    the backward takes ``matvec_route(route)``). Labels must lie in [0, N)
-    (the kernels give NaN otherwise)."""
+    segments of rows, in one launch each way (``FusedGalleryCE``). Labels
+    must lie in [0, N) (the kernels give NaN otherwise)."""
     if feats.device.type == "cpu":
-        if route is not None:
-            resolve_route("fused_gallery_ce", route, plan_gallery_route(
-                "lse", feats.to(torch.float32).contiguous(), gallery))
         return plain.gallery_cross_entropy(feats, gallery, labels, tau=tau,
                                            segments=segments)
-    return FusedGalleryCE.apply(feats, gallery.detach(), labels, tau, route,
+    return FusedGalleryCE.apply(feats, gallery.detach(), labels, tau,
                                 segments)
 
 

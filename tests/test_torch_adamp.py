@@ -33,6 +33,7 @@ from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
                                              cosine_annealing_schedule,
                                              make_server_optimizer,
                                              set_learning_rate)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 STEPS = 5

@@ -35,6 +35,7 @@ import torch
 
 from creamfl_tpu_torch.ops import adamp as A
 from creamfl_tpu_torch.optim.adamp import AdamP
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 HYPER = dict(beta1=0.9, beta2=0.999, eps=1e-8, delta=0.1, wd_ratio=0.1)

@@ -1,6 +1,7 @@
-"""Port con_w aggregation vs the JAX package, K = 3 clients (padded to a
-bucket of 4), fp32. Tolerance: rtol 1e-5 atol 1e-6 on the aggregate
-(a convex combination of unit rows; summation order differs)."""
+"""Port con_w aggregation vs the JAX package, fp32: the port sums over the
+K real clients, the JAX package over its bucket of K padded to a power of
+two. Tolerance: rtol 1e-5 atol 1e-6 on the aggregate (a convex
+combination of unit rows; summation order differs)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import torch
 
 from creamfl_tpu.federation import aggregation as jagg
 from creamfl_tpu_torch.federation import aggregation as tagg
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 N, D = 70, 16
 
@@ -21,17 +23,6 @@ def _unit(rng, *shape):
 @pytest.fixture
 def inputs(rng):
     return _unit(rng, 3, N, D), _unit(rng, N, D), _unit(rng, N, D)
-
-
-def test_bucketed_pads_to_power_of_two(inputs):
-    reps = torch.tensor(inputs[0])
-    padded, mask = tagg._bucketed(reps)
-    jpad, jmask = jagg._bucketed(jnp.asarray(inputs[0]))
-    assert padded.shape == jpad.shape == (4, N, D)
-    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
-    np.testing.assert_array_equal(padded.numpy(), np.asarray(jpad))
-    same, mask2 = tagg._bucketed(reps[:2])
-    assert same.shape[0] == 2 and bool(mask2.all())
 
 
 def test_aggregate_modalities_matches_jax(inputs):
@@ -51,11 +42,16 @@ def test_aggregate_modalities_matches_jax(inputs):
     assert none_img is None and none_txt is None
 
 
-def test_padded_clients_get_no_weight(inputs):
-    reps, _, g_txt = inputs
-    padded, mask = tagg._bucketed(torch.tensor(reps))
-    with_pad = tagg.con_w_aggregate(padded, torch.tensor(g_txt),
-                                    k_mask=mask)
-    without = tagg.con_w_aggregate(torch.tensor(reps), torch.tensor(g_txt))
-    np.testing.assert_allclose(with_pad.numpy(), without.numpy(),
-                               rtol=1e-6, atol=1e-7)
+@pytest.mark.parametrize("k", [3, 5])
+def test_padded_clients_get_no_weight(rng, k):
+    """The port's con_w over the K real clients (a tensor and a list of
+    slots) equals the JAX package's over its bucket of 4 / 8 slots, whose
+    pad slots the mask gives no weight."""
+    reps, g_txt = _unit(rng, k, N, D), _unit(rng, N, D)
+    jpad, jmask = jagg._bucketed(jnp.asarray(reps))
+    assert jpad.shape[0] == 1 << (k - 1).bit_length() > k
+    want = np.asarray(jagg.con_w_aggregate(jpad, jnp.asarray(g_txt),
+                                           k_mask=jmask))
+    for slots in (torch.tensor(reps), list(torch.tensor(reps))):
+        got = tagg.con_w_aggregate(slots, torch.tensor(g_txt))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)

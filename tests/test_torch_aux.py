@@ -26,6 +26,7 @@ from creamfl_tpu_torch.models.uncertainty import (UncertaintyModule,
                                                   init_uncertainty,
                                                   sample_gaussian_embeddings)
 from creamfl_tpu_torch.utils.helper import to_one_hot
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 B, L, D_IN, D_OUT, D_H = 4, 7, 24, 16, 12
 

@@ -15,6 +15,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from creamfl_tpu_torch.models.resnet import BatchNorm, ResNetBackbone
 from creamfl_tpu_torch.utils import profiling
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 C = 6
 # At this eps a zero variance's invstd**-2 - eps rounds below 0 in fp32.

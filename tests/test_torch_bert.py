@@ -22,6 +22,7 @@ from creamfl_tpu.models.bert import BertConfig as JConfig
 from creamfl_tpu.models.bert import BertEncoder as JBert
 from creamfl_tpu_torch.models.bert import BertConfig, BertEncoder
 from creamfl_tpu_torch.models.convert import flax_bert_to_torch
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 B, L = 3, 12

@@ -29,6 +29,7 @@ from creamfl_tpu.ops import dispatch
 from creamfl_tpu_torch.models.convert import flax_block_to_torch
 from creamfl_tpu_torch.models.resnet import (Bottleneck, FusedBottleneck,
                                              ResNetBackbone)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 CIN, FILTERS, STRIDE = 16, 8, 2

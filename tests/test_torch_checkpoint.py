@@ -14,6 +14,7 @@ from creamfl_tpu.utils.checkpoint import RoundCheckpointer as JRoundCheckpointer
 from creamfl_tpu_torch.engine.state import EngineState
 from creamfl_tpu_torch.utils.checkpoint import RoundCheckpointer
 from creamfl_tpu_torch.utils.serialize import flatten_dict, to_host
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 
 def _state(v):

@@ -36,6 +36,7 @@ from creamfl_tpu_torch.main import build_configs
 from creamfl_tpu_torch.models.clients import ImageClientNet
 from creamfl_tpu_torch.models.convert import flax_image_client_to_torch
 from test_torch_round import SIZES, _args, _configs, _Log
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 B, IMG, E, C, N_PUB = 8, 32, 16, 10, 16
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -37,6 +37,7 @@ from creamfl_tpu_torch.engine.client_mm import MMClientEngine
 from creamfl_tpu_torch.engine.client_uni import UniClientEngine
 from creamfl_tpu_torch.models.convert import (flax_server_state_to_torch,
                                               flax_text_client_to_torch)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 B, L, V, E, C, N_PUB = 4, 8, 30, 16, 4, 12
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -30,6 +30,7 @@ from creamfl_tpu_torch.data.cub import CUBCaption, CUBSampler
 from creamfl_tpu_torch.data.device_images import DeviceImages, JpegFiles
 from creamfl_tpu_torch.data.loaders import ArrayLoader
 from creamfl_tpu_torch.data.vocab import Vocabulary
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "fixtures", "cub")
 SPLITS = {"train": ("trainvalclasses.txt", True),

@@ -22,6 +22,7 @@ from creamfl_tpu_torch.data.loaders import (ArrayLoader, CachedDataset,
                                             suffix_valid)
 from creamfl_tpu_torch.data.synthetic import SyntheticCaptionDataset
 from creamfl_tpu_torch.data.vocab import Vocabulary
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 SCALE = dict(pub_size=20, image_size=16, max_len=10, client_data_size=12,
              test_size=10, retrieval_test_size=14, batch_size=8,

@@ -49,6 +49,7 @@ import torch
 from creamfl_tpu_torch.models import deepseek_v2 as D
 from creamfl_tpu_torch.models.pcme import TextEncoderDeepseekV2
 from creamfl_tpu_torch.optim.adamp import AdamP
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "benchmark")

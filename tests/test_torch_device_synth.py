@@ -35,6 +35,7 @@ from creamfl_tpu_torch.data.device_synth import (DeviceImageBatches,
 from creamfl_tpu_torch.data.loaders import ArrayLoader, ProjectedLoader
 from creamfl_tpu_torch.data.synthetic import (SyntheticCaptionDataset,
                                               concept_pattern)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 SIZE, N_CONCEPTS, PER_CONCEPT = 16, 4, 256
 MEAN_BOUND, STD_BOUND, COSINE = 1e-2, 1e-2, 0.98

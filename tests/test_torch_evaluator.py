@@ -23,6 +23,7 @@ import torch
 
 from creamfl_tpu.engine import evaluator as J
 from creamfl_tpu_torch.engine import evaluator as T
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 N_IMG, CPI, D, BATCH = 12, 5, 8, 16
 

@@ -25,6 +25,7 @@ from creamfl_tpu_torch.models.resnet import RESNET_CONFIGS
 from creamfl_tpu_torch.ops import build as B
 from creamfl_tpu_torch.ops import fused_bn_mm as P
 from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 M, K, N = 101, 70, 45
 VAL = dict(rtol=1e-5, atol=1e-5)

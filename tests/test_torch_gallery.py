@@ -19,9 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from creamfl_tpu.ops import gallery as jgal
 from creamfl_tpu.ops import pallas_gallery as jpl
-from creamfl_tpu_torch.ops import dispatch
 from creamfl_tpu_torch.ops import gallery as tgal
 from creamfl_tpu_torch.ops import gallery_kernels as tk
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 VAL = dict(rtol=1e-5, atol=0.0)
 GRAD = dict(rtol=2e-4, atol=1e-6)
@@ -63,8 +63,6 @@ def test_conw_diag(rng, interpret_mode):
     v = rng.normal(size=(n, d)).astype(np.float32)
     g = rng.normal(size=(n, d)).astype(np.float32)
     got = _np(tk.conw_diag(torch.tensor(v), torch.tensor(g)))
-    got_disp = _np(dispatch.conw_diag_log_softmax(torch.tensor(v),
-                                                  torch.tensor(g)))
     want_pl = np.asarray(jpl.conw_diag_pallas(jnp.asarray(v), jnp.asarray(g),
                                               block_rows=16, block_cols=64))
     want_xla = np.asarray(jgal.gallery_log_softmax_diag(
@@ -72,7 +70,6 @@ def test_conw_diag(rng, interpret_mode):
     # diag - lse cancels: the JAX package's own test uses atol 1e-5 here.
     for want in (want_pl, want_xla):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(got_disp, want, rtol=1e-5, atol=1e-5)
 
 
 def test_conw_diag_needs_square():
@@ -159,14 +156,11 @@ def test_gallery_cross_entropy_plain(ce_inputs, blockwise):
 
 def test_dispatch_gallery_ce_cpu_is_plain(ce_inputs):
     f, g, labels = ce_inputs
-    a = dispatch.gallery_ce(torch.tensor(f), torch.tensor(g),
+    a = tk.fused_gallery_ce(torch.tensor(f), torch.tensor(g),
                             torch.tensor(labels), 0.5)
     b = tgal.gallery_cross_entropy(torch.tensor(f), torch.tensor(g),
                                    torch.tensor(labels), 0.5)
     assert float(a) == float(b)
-    # The wrappers alone choose by device; dispatch only names them.
-    assert dispatch.gallery_ce is tk.fused_gallery_ce
-    assert dispatch.conw_diag_log_softmax is tk.conw_diag
     # CPU calls never count as kernel launches.
     assert tk.launch_counts()["fused_gallery_ce"] == 0
 
@@ -222,15 +216,16 @@ def test_tf32_round_is_cvt_rna():
 @pytest.mark.parametrize("d", [48, 256, 512])
 def test_tf32x3_matmul_within_chip_tolerance(rng, d):
     """The tc route's arithmetic (3xTF32 products, fp32 sums) against fp32
-    for the lse and matvec passes, at the card's tolerances
-    (``chip_smoke.TOL``); one TF32 product alone would not hold them."""
+    over the lse pass's split plan (wgmma's) and the matvec pass's (tc's),
+    at the card's tolerances (``chip_smoke.TOL``); one TF32 product alone
+    would not hold them."""
     from chip_smoke import TOL
 
     m, n, tau = 24, 700, 0.5
     v, g = torch.tensor(_unit(rng, m, d)), torch.tensor(_unit(rng, n, d))
-    splits, per_split = tk.plan_for("lse", "tc", m, n, d, 132)
+    splits, per_split = tk.plan_for("lse", "wgmma", m, n, d, 132)
     lse3 = tgal.lse_merge(*tgal.lse_partials(
-        v, g, tau, splits, per_split, tk.LSE_TC_COLS,
+        v, g, tau, splits, per_split, tk.lse_cols("wgmma"),
         matmul=tgal.tf32x3_matmul))
     lse = tgal.streaming_logsumexp(v, g, tau)
     np.testing.assert_allclose(lse3, lse, **TOL["row_logsumexp"])
@@ -248,11 +243,12 @@ def test_tf32x3_matmul_within_chip_tolerance(rng, d):
     assert err3 < 4 * err32 + 1e-7 and err1 > 100 * err3
 
 
-@pytest.mark.parametrize("route", ["tc", "simt"])
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ce_and_dfeats_merges_vs_jax(rng, interpret_mode, route, dtype):
-    """K3's two kernel passes in plain steps, over the route's split plan
-    at ragged M and N: the CE-mode merge against the JAX
+    """K3's two kernel passes in plain steps, over the split plans of the
+    lse pass's ``route`` and its matvec route at ragged M and N: the
+    CE-mode merge against the JAX
     ``fused_gallery_ce`` value, the dfeats-mode merge against its
     ``jax.grad`` (Pallas in interpret mode), fp32 and bf16 features."""
     m, n, d, tau = 10, 300, 48, 0.5
@@ -269,15 +265,15 @@ def test_ce_and_dfeats_merges_vs_jax(rng, interpret_mode, route, dtype):
     tl = torch.tensor(labels).long()
     splits, per_split = tk.plan_for("lse", route, m, n, d, 132)
     assert splits > 1
-    cols = tk.LSE_TC_COLS if route == "tc" else tk.LSE_BLOCK_COLS
     loss, lse = tgal.ce_merge(
-        *tgal.lse_partials(f32, g32, tau, splits, per_split, cols), f32,
-        g32, tl, tau)
+        *tgal.lse_partials(f32, g32, tau, splits, per_split,
+                           tk.lse_cols(route)), f32, g32, tl, tau)
     np.testing.assert_allclose(float(loss), float(val), **VAL)
     np.testing.assert_allclose(lse, tgal.streaming_logsumexp(f32, g32, tau),
                                **VAL)
-    splits, per_split = tk.plan_for("matvec", route, m, n, d, 132)
-    cols = tk.mv_tc_tile(d)[1] if route == "tc" else tk.MV_BLOCK_COLS
+    mv = tk.matvec_route(route)
+    splits, per_split = tk.plan_for("matvec", mv, m, n, d, 132)
+    cols = tk.mv_tc_tile(d)[1] if mv == "tc" else tk.MV_BLOCK_COLS
     gbar = torch.tensor(1.0)
     dfeats = tgal.dfeats_merge(
         tgal.matvec_partials(f32, g32, lse, tau, splits, per_split, cols),
@@ -288,14 +284,19 @@ def test_ce_and_dfeats_merges_vs_jax(rng, interpret_mode, route, dtype):
                                rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("route", ["tc", "simt"])
-def test_fused_gallery_ce_function_on_either_route(ce_inputs, route):
-    """The autograd Function's CPU steps on a forced route: loss and
-    dfeats as the dense plain CE; gbar scales dfeats."""
-    f, g, labels = ce_inputs
+@pytest.mark.parametrize("route,d", [("wgmma", 48), ("simt", 12)])
+def test_fused_gallery_ce_function_on_either_route(rng, route, d):
+    """The autograd Function's CPU steps on the route its inputs take (D
+    48: wgmma forward, tc backward; D 12: simt): loss and dfeats as the
+    dense plain CE; gbar scales dfeats."""
+    f = rng.normal(size=(6, d)).astype(np.float32)
+    g = rng.normal(size=(150, d)).astype(np.float32)
+    labels = rng.integers(0, 150, size=(6,)).astype(np.int32)
+    assert tk.plan_gallery_route("lse", torch.tensor(f),
+                                 torch.tensor(g)) == route
     tf = torch.tensor(f, requires_grad=True)
     loss = tk.FusedGalleryCE.apply(tf, torch.tensor(g), torch.tensor(labels),
-                                   0.5, route)
+                                   0.5)
     (3.0 * loss).backward()
     pf = torch.tensor(f, requires_grad=True)
     want = tgal.gallery_cross_entropy(pf, torch.tensor(g),
@@ -329,21 +330,39 @@ def test_plan_gallery_route():
             kernel, off, g) == "simt"
 
 
-def test_route_argument_is_checked():
-    v, g = torch.randn(3, 12), torch.randn(5, 12)
-    lse = tgal.streaming_logsumexp(v, g)
-    for call in (lambda r: tk.row_logsumexp(v, g, route=r),
-                 lambda r: tk.softmax_matvec(v, g, lse, route=r),
-                 lambda r: tk.conw_diag(v, g[:3], route=r),
-                 lambda r: tk.fused_gallery_ce(v, g, torch.tensor([0, 1, 4]),
-                                               route=r)):
-        call("simt")
-        for bad in ("tc", "wgmma"):
-            with pytest.raises(ValueError, match="route"):
-                call(bad)
-    # tc takes a D that is a multiple of 8, on either device.
-    tk.row_logsumexp(torch.randn(3, 16), torch.randn(5, 16), route="tc")
-    assert tk.launch_counts()["row_logsumexp"] == 0
+@pytest.mark.parametrize("d,routes", [(48, ("wgmma", "tc")),
+                                      (12, ("simt", "simt"))])
+def test_fused_gallery_ce_cpu_steps_take_the_planned_split(rng, monkeypatch,
+                                                         d, routes):
+    """The autograd Function's CPU steps run their partials over the split
+    plan and column tile of the routes ``plan_gallery_route`` picks (the
+    forward's; the backward's by ``matvec_route``), and give the dense
+    plain CE's loss and dfeats."""
+    m, n = 10, 300
+    f = torch.tensor(_unit(rng, m, d), requires_grad=True)
+    g = torch.tensor(_unit(rng, n, d))
+    labels = torch.tensor(rng.integers(0, n, size=(m,)))
+    assert (tk.plan_gallery_route("lse", f, g),
+            tk.plan_gallery_route("matvec", f, g)) == routes
+    seen = {}
+    for name in ("lse_partials", "matvec_partials"):
+        def spy(*args, _fn=getattr(tgal, name), _name=name):
+            seen[_name] = args[-3:]
+            return _fn(*args)
+        monkeypatch.setattr(tgal, name, spy)
+    loss = tk.FusedGalleryCE.apply(f, g, labels, 0.5)
+    loss.backward()
+    lse_route, mv_route = routes
+    assert seen["lse_partials"] == (
+        *tk.plan_for("lse", lse_route, m, n, d, 132), tk.lse_cols(lse_route))
+    mv_cols = tk.mv_tc_tile(d)[1] if mv_route == "tc" else tk.MV_BLOCK_COLS
+    assert seen["matvec_partials"] == (
+        *tk.plan_for("matvec", mv_route, m, n, d, 132), mv_cols)
+    pf = f.detach().clone().requires_grad_(True)
+    want = tgal.gallery_cross_entropy(pf, g, labels, 0.5)
+    want.backward()
+    np.testing.assert_allclose(float(loss), float(want), **VAL)
+    np.testing.assert_allclose(f.grad, pf.grad, **GRAD)
 
 
 @pytest.mark.parametrize("kernel", ["lse", "matvec"])
@@ -351,15 +370,21 @@ def test_route_argument_is_checked():
     (128, 50_000, 256), (80, 50_000, 256), (128, 50_000, 512),
     (50_000, 50_000, 256), (77, 1001, 48), (1, 1, 8)])
 def test_tc_split_plan_one_wave(kernel, m, n, d):
-    """Every gallery tile in exactly one split, no split empty, and about
-    one wave of resident blocks: at most one, and at least half of one
-    where the tiles allow, so each block walks many tiles."""
-    rows, cols = ((tk.LSE_TC_ROWS, tk.LSE_TC_COLS) if kernel == "lse"
-                  else tk.mv_tc_tile(d)[:2])
-    splits, per_split = tk.plan_for(kernel, "tc", m, n, d, 132)
+    """The tensor-core routes' plans (the lse pass on wgmma, the matvec
+    pass on tc): every gallery tile in exactly one split, no split empty,
+    and about one wave of resident blocks (one an SM on both): at most
+    one, and at least half of one where the tiles allow, so each block
+    walks many tiles."""
+    if kernel == "lse":
+        route, (rows, cols), per_sm = "wgmma", (tk.WGMMA_ROWS,
+                                                tk.WGMMA_COLS), 1
+    else:
+        route, (rows, cols) = "tc", tk.mv_tc_tile(d)[:2]
+        per_sm = tk.tc_blocks_per_sm(d)
+    splits, per_split = tk.plan_for(kernel, route, m, n, d, 132)
     n_tiles, row_blocks = -(-n // cols), -(-m // rows)
     assert (splits - 1) * per_split < n_tiles <= splits * per_split
-    wave = tk.tc_blocks_per_sm(kernel, d) * 132
+    wave = per_sm * 132
     if row_blocks >= wave:
         assert splits == 1
     else:
@@ -371,15 +396,11 @@ def test_tc_split_plan_one_wave(kernel, m, n, d):
 
 def test_tc_shared_memory_fits():
     for d in range(8, 513, 8):
-        for kernel in ("lse", "matvec"):
-            assert tk.tc_smem_bytes(kernel, d) <= tk._BLOCK_SHARED_MAX
-            assert tk.tc_blocks_per_sm(kernel, d) >= 1
-    # Two lse blocks per SM up to D 256; the matvec kernel holds 64 v rows
-    # up to D 256 and 32 beyond, so its [rows, D] accumulators stay at 64
-    # registers a thread.
-    assert tk.tc_blocks_per_sm("lse", 256) == 2
-    assert tk.tc_blocks_per_sm("lse", 512) == 1
-    assert tk.tc_blocks_per_sm("matvec", 256) == 1
+        assert tk.tc_smem_bytes(d) <= tk._BLOCK_SHARED_MAX
+        assert tk.tc_blocks_per_sm(d) >= 1
+    # The matvec kernel holds 64 v rows up to D 256 and 32 beyond, so its
+    # [rows, D] accumulators stay at 64 registers a thread.
+    assert tk.tc_blocks_per_sm(256) == 1
     assert tk.mv_tc_tile(256) == (64, 64, 2)
     assert tk.mv_tc_tile(264) == (32, 32, 2)
     for d in (256, 512):
@@ -424,13 +445,17 @@ def test_matvec_tolerance_premise(rng, unit):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
-def seg_inputs(rng):
+def seg_inputs(rng, path):
     """S = 3 segments of 5 rows (three clients on one public batch: the
-    same labels in each segment) against a 150 x 24 gallery."""
-    s, bs, n, d = 3, 5, 150, 24
+    same labels in each segment) against a 150 x D gallery: D 12 for the
+    simt path, else 48 (the wgmma forward and tc backward)."""
+    s, bs, n, d = 3, 5, 150, 12 if path == "simt" else 48
     f = rng.normal(size=(s, bs, d)).astype(np.float32)
     g = rng.normal(size=(n, d)).astype(np.float32)
     labels = rng.integers(0, n, size=(bs,)).astype(np.int32)
+    if path != "wrapper":
+        assert tk.plan_gallery_route("lse", torch.tensor(f[0]),
+                                     torch.tensor(g)) == path
     return f, g, labels
 
 
@@ -447,19 +472,17 @@ def _segmented(fn, f, g, labels, weights):
 
 def _seg_fns():
     """The wrapper (the plain CE on the CPU) and the autograd Function's
-    kernel steps on either route."""
+    kernel steps, on the route its inputs take (``seg_inputs``)."""
     def wrapper(a, b, c, s):
         return tk.fused_gallery_ce(a, b, c, 0.5, segments=s)
 
-    def function(route):
-        return lambda a, b, c, s: tk.FusedGalleryCE.apply(a, b, c, 0.5,
-                                                          route, s)
+    def function(a, b, c, s):
+        return tk.FusedGalleryCE.apply(a, b, c, 0.5, s)
 
-    return {"wrapper": wrapper, "tc": function("tc"),
-            "simt": function("simt")}
+    return {"wrapper": wrapper, "wgmma": function, "simt": function}
 
 
-@pytest.mark.parametrize("path", ["wrapper", "tc", "simt"])
+@pytest.mark.parametrize("path", ["wrapper", "wgmma", "simt"])
 def test_segmented_ce_equals_separate_calls(seg_inputs, path):
     """One segmented call = S separate calls, loss and dfeats, each
     segment with its own gbar."""
@@ -477,7 +500,7 @@ def test_segmented_ce_equals_separate_calls(seg_inputs, path):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("path", ["wrapper", "tc", "simt"])
+@pytest.mark.parametrize("path", ["wrapper", "wgmma", "simt"])
 def test_segmented_ce_equals_jax_vmap(seg_inputs, interpret_mode, path):
     """The segmented losses and dfeats equal ``jax.vmap`` of the JAX
     ``fused_gallery_ce`` (Pallas in interpret mode) over [S, M, D]
@@ -533,4 +556,4 @@ def test_segments_must_divide_rows(ce_inputs):
                             torch.tensor(labels), 0.5, segments=4)
     with pytest.raises(ValueError, match="segments"):
         tk.FusedGalleryCE.apply(torch.tensor(f), torch.tensor(g),
-                                torch.tensor(labels), 0.5, None, 4)
+                                torch.tensor(labels), 0.5, 4)

@@ -6,8 +6,8 @@ read as TF32 by truncation, small halves exact, three products per
 32-deep chunk, the chunks summed in fp32) over its split plan, against
 the JAX package's ``row_logsumexp`` and ``conw_diag_pallas`` in interpret
 mode and against float64, within ``chip_smoke.TOL`` (lse: 1e-4
-absolute); its planning (split plan, shared memory, the per-pass route)
-and the wrappers' ``route=`` handling and counters.
+absolute); its planning (split plan, shared memory, the per-pass route,
+the source of its small halves by rows) and the wrappers' counters.
 """
 
 import jax.numpy as jnp
@@ -20,6 +20,7 @@ from chip_smoke import TOL
 from creamfl_tpu.ops import pallas_gallery as jpl
 from creamfl_tpu_torch.ops import gallery as tgal
 from creamfl_tpu_torch.ops import gallery_kernels as tk
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 # Ragged M (not a multiple of the 128-row block) and N (of no 128-row
 # tile), D in {8, 48, 256}; (128, 1000, 256) has every split full but the
@@ -146,44 +147,42 @@ def test_plan_gallery_route_per_pass():
         assert tk.plan_gallery_route(kernel, v.bfloat16(), g) == "simt"
     assert tk.matvec_route("wgmma") == "tc"
     assert [tk.matvec_route(r) for r in ("tc", "simt")] == ["tc", "simt"]
-    assert [tk.lse_cols(r) for r in tk.ROUTES] == [128, 128, 128]
+    assert [tk.lse_cols(r) for r in ("wgmma", "simt")] == [128, 128]
 
 
 def test_wgmma_route_taken_and_refused(rng):
-    """``route="wgmma"`` is taken by the lse pass's wrappers (CPU tensors:
-    their plain versions) and refused by the matvec pass and by inputs
-    the tensor-core routes do not take."""
+    """The wgmma route's inputs take it for the lse pass's wrappers (CPU
+    tensors: their plain versions) and tc for the matvec pass; float64
+    operands the route refuses (the planner sends them to simt, the
+    kernels raise)."""
     v, g = torch.tensor(_unit(rng, 6, 48)), torch.tensor(_unit(rng, 40, 48))
+    assert tk.plan_gallery_route("lse", v, g) == "wgmma"
+    assert tk.plan_gallery_route("matvec", v, g) == "tc"
     lse = tgal.streaming_logsumexp(v, g, 0.5)
-    torch.testing.assert_close(tk.row_logsumexp(v, g, 0.5, route="wgmma"),
-                               lse)
-    torch.testing.assert_close(
-        tk.conw_diag(v, g[:6], route="wgmma"),
-        tgal.gallery_log_softmax_diag(v, g[:6]))
+    torch.testing.assert_close(tk.row_logsumexp(v, g, 0.5), lse)
+    torch.testing.assert_close(tk.conw_diag(v, g[:6]),
+                               tgal.gallery_log_softmax_diag(v, g[:6]))
     labels = torch.tensor([0, 3, 5, 39, 7, 1])
     torch.testing.assert_close(
-        tk.fused_gallery_ce(v, g, labels, 0.5, route="wgmma"),
+        tk.fused_gallery_ce(v, g, labels, 0.5),
         tgal.gallery_cross_entropy(v, g, labels, 0.5))
-    with pytest.raises(ValueError, match="route 'wgmma'"):
-        tk.softmax_matvec(v, g, lse, 0.5, route="wgmma")
-    with pytest.raises(ValueError, match="route 'wgmma'"):
-        tk.row_logsumexp(v.double(), g, route="wgmma")
-    assert tk.resolve_route("k", "tc", "wgmma") == "tc"
-    assert tk.resolve_route("k", None, "wgmma") == "wgmma"
+    assert tk.plan_gallery_route("lse", v.double(), g) == "simt"
+    with pytest.raises(TypeError, match="float32"):
+        tk._check_inputs("row_logsumexp", v.double(), g)
     assert tk.launch_counts()["row_logsumexp"] == 0
 
 
 @pytest.mark.parametrize("segments", [1, 2])
 def test_fused_gallery_ce_function_wgmma(rng, segments):
-    """The autograd Function's CPU steps with the forward on "wgmma"
-    (its split plan) and the backward on "tc": loss and dfeats as the
-    dense plain CE, per segment."""
+    """The autograd Function's CPU steps on inputs that take the forward
+    to "wgmma" (its split plan) and the backward to "tc": loss and dfeats
+    as the dense plain CE, per segment."""
     m, n, d = 20, 300, 48
     f = _unit(rng, m, d)
     g = torch.tensor(_unit(rng, n, d))
     labels = torch.tensor(rng.integers(0, n, size=(m,)))
     tf = torch.tensor(f, requires_grad=True)
-    loss = tk.FusedGalleryCE.apply(tf, g, labels, 0.5, "wgmma", segments)
+    loss = tk.FusedGalleryCE.apply(tf, g, labels, 0.5, segments)
     weights = torch.arange(1.0, segments + 1)
     (weights * loss).sum().backward()
     pf = torch.tensor(f, requires_grad=True)
@@ -208,8 +207,7 @@ def test_reset_launch_counts_knows_wgmma():
 def test_wgmma_split_choice():
     """K1 and K3's row counts (a public batch, a stacked family of up to
     three) split in shared memory; con_w's uploads (the 4 096-row paper
-    cut up to 50 000 rows) take the pre-pass; nothing is forced."""
-    assert tk.WGMMA_SPLIT is None
+    cut up to 50 000 rows) take the pre-pass."""
     assert set(tk.WGMMA_SPLITS) == set(tk._WGMMA_ROUTE_ID)
     for m in (1, 77, 128, 256, 384):
         assert tk.wgmma_split_for(m) == "smem"

@@ -32,6 +32,7 @@ from creamfl_tpu_torch.data.loaders import ArrayLoader
 from creamfl_tpu_torch.data.pipelines import build_real_datasets
 from creamfl_tpu_torch.data.sample_rng import SampleRNG
 from creamfl_tpu_torch.data.synthetic import SyntheticTextClassification
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 # The JAX package is imported inside the tests: a worker unpickles this
 # module's datasets by importing it, and must not import JAX each epoch.

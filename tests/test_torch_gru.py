@@ -31,6 +31,7 @@ from creamfl_tpu_torch.models.convert import (flax_bigru_to_torch,
                                               flax_text_client_to_torch)
 from creamfl_tpu_torch.models.gru import BiGRU, gather_last_valid
 from creamfl_tpu_torch.models.pcme import PCME
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 B, L, V, WD = 5, 9, 40, 12
 LENGTHS = np.array([9, 1, 6, 3, 9], np.int32)  # ragged, incl. 1 and L

@@ -35,6 +35,7 @@ import torch
 from PIL import Image
 
 from creamfl_tpu_torch.data import jpeg, png_gif
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 

@@ -36,6 +36,7 @@ from PIL import Image
 
 import chip_smoke
 from creamfl_tpu_torch.data import jpeg
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 FILES = sorted(glob.glob(os.path.join(FIX, "**", "*.jpg"), recursive=True))

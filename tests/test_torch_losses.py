@@ -16,6 +16,7 @@ from creamfl_tpu.ops.l2norm import l2_normalize as j_l2
 from creamfl_tpu_torch.losses import classification as tcls
 from creamfl_tpu_torch.losses import contrast as tcon
 from creamfl_tpu_torch.ops.l2norm import l2_normalize as t_l2
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 VAL = dict(rtol=1e-5, atol=1e-7)
 GRAD = dict(rtol=2e-4, atol=1e-6)

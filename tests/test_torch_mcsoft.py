@@ -18,6 +18,7 @@ import torch
 
 from creamfl_tpu.losses import mcsoft as jm
 from creamfl_tpu_torch.losses import mcsoft as tm
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 VAL = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-6)

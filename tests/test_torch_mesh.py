@@ -15,11 +15,11 @@ tiny without dropout, embed 16, 64² images; the round at
   by the quantity's largest magnitude where that exceeds 1 (as
   ``test_torch_server.py``'s ``_close``: the weight gradient, a sum of 48
   terms near 12, is 1 ulp from another summation order at 1e-6).
-* ``con_w_aggregate(mesh=)`` at world 2 and 4 with K = 3 (bucketed to 4
-  slots, so a pad slot sits on a rank; at world 4 a rank holds only it)
-  against the JAX package's ``con_w_aggregate(..., mesh=make_mesh(4, 1))``
-  on 4 of the conftest's 8 virtual CPU devices, and the port at world 1,
-  atol 1e-6.
+* ``con_w_aggregate(mesh=)`` at world 2 and 4 with K = 3 uploads (at
+  world 4 a rank holds none) against the JAX package's
+  ``con_w_aggregate(..., mesh=make_mesh(4, 1))`` over its bucket of 4
+  slots on 4 of the conftest's 8 virtual CPU devices, and the port at
+  world 1, atol 1e-6.
 * ``best_positive_ranks_sharded`` at world 2 on integer features (ties
   exact) and 13 queries (an uneven split): ranks exactly equal to JAX's
   sharded ranks and to the port's world-1 ranks.
@@ -58,6 +58,7 @@ import torch.multiprocessing as mp
 
 from creamfl_tpu_torch.models import resnet as tresnet
 from creamfl_tpu_torch.parallel import mesh as M
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 TRUNK = "resnet_b2"
 BN_ATOL = 1e-6
@@ -131,22 +132,18 @@ def _conw_inputs():
 
 
 def task_conw(mesh):
-    """K = 3 uploads bucketed to 4 slots, laid out over the ranks as
-    ``P("client")`` lays out the JAX package's stack: contiguous blocks."""
-    from creamfl_tpu_torch.federation.aggregation import (_bucketed,
-                                                          con_w_aggregate)
+    """K = 3 uploads laid out over the ranks as ``P("client")`` lays out
+    the JAX package's stack: contiguous blocks of ceil(K / world)."""
+    from creamfl_tpu_torch.federation.aggregation import con_w_aggregate
 
     reps, other = _conw_inputs()
-    padded, mask = _bucketed(torch.from_numpy(reps))
-    world = mesh.world if mesh is not None else 1
-    rank = mesh.rank if mesh is not None else 0
-    per = len(padded) // world
-    slots = [padded[i] if i // per == rank else None
-             for i in range(len(padded))]
+    reps = torch.from_numpy(reps)
     if mesh is None:
-        slots = padded
-    return con_w_aggregate(slots, torch.from_numpy(other), k_mask=mask,
-                           mesh=mesh)
+        return con_w_aggregate(reps, torch.from_numpy(other))
+    per = -(-len(reps) // mesh.world)
+    slots = [r if i // per == mesh.rank else None
+             for i, r in enumerate(reps)]
+    return con_w_aggregate(slots, torch.from_numpy(other), mesh=mesh)
 
 
 def _rank_inputs():

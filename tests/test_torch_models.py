@@ -19,6 +19,7 @@ from creamfl_tpu.models.resnet import ResNetBackbone as JBackbone
 from creamfl_tpu_torch.models.clients import ImageClientNet, clamp_head_weights
 from creamfl_tpu_torch.models.convert import flax_image_client_to_torch
 from creamfl_tpu_torch.models.resnet import ResNetBackbone
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, IMG, E, C = 4, 32, 16, 10

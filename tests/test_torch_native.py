@@ -34,6 +34,7 @@ from creamfl_tpu_torch.data.vocab import Vocabulary
 from creamfl_tpu_torch.ops import build as builder
 from test_torch_real_data import (FIX, ROOTS, _args, _as_numpy,
                                   _partition_dir)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COCO_LOADERS = ("pub_train", "pub_eval", "test", "val")

@@ -46,6 +46,7 @@ from creamfl_tpu_torch.models.convert import flax_server_state_to_torch
 from test_torch_round import (SIZES, UPDATE_DIST, _after,
                               _args, _client_state_dicts, _configs, _host,
                               _Log, _np, _perturbed, _record)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 KNOBS = dict(cache=True, prefetch=2, client_image_size=16,
              mm_client_data_size=12, device_images=True)

@@ -31,6 +31,7 @@ from creamfl_tpu_torch.models.convert import (flax_pcme_to_torch,
                                               flax_pie_to_torch)
 from creamfl_tpu_torch.models.pcme import PCME
 from creamfl_tpu_torch.models.pie import PIENet
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 B, IMG, L, E = 4, 64, 10, 16

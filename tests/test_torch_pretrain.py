@@ -56,6 +56,7 @@ from creamfl_tpu_torch.engine.pretrain import RawTrainer
 from creamfl_tpu_torch.engine.server import ServerEngine
 from creamfl_tpu_torch.models.convert import flax_server_state_to_torch
 from test_torch_round import _Log
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 OVERRIDES = dict(model__embed_dim=16, model__cnn_type="resnet10",
                  model__not_bert=True, model__word_dim=8,

@@ -53,6 +53,7 @@ from creamfl_tpu_torch.models.convert import (flax_image_client_to_torch,
 from creamfl_tpu_torch.models.pcme import PCME
 from creamfl_tpu_torch.models.resnet import ResNetBackbone, init_parameters
 from test_torch_round import SIZES, _args, _configs, _Log
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 B, IMG, L, E = 4, 32, 10, 16

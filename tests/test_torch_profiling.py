@@ -30,6 +30,7 @@ import torch
 
 from creamfl_tpu_torch.data.loaders import ArrayLoader, PrefetchLoader
 from creamfl_tpu_torch.utils import profiling as P
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 ENGINE = ("stage", "forward", "loss", "backward", "update")
 

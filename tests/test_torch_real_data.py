@@ -41,6 +41,7 @@ from creamfl_tpu_torch.data import coco, frozen, partition
 from creamfl_tpu_torch.data.flickr30k import F30kCaptionsCap
 from creamfl_tpu_torch.data.pipelines import build_real_datasets
 from creamfl_tpu_torch.data.vocab import Vocabulary
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 ROOTS = dict(coco_root=os.path.join(FIX, "coco"),

@@ -40,6 +40,7 @@ from creamfl_tpu_torch.models.pcme import PCME, init_pcme
 from creamfl_tpu_torch.models.resnet import (BatchNorm, ResNetBackbone,
                                              init_parameters,
                                              set_batchnorm_mesh)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, IMG = 4, 64

@@ -25,6 +25,7 @@ from creamfl_tpu_torch.data.pipelines import build_synthetic_datasets
 from creamfl_tpu_torch.federation.rounds import MMFL
 from creamfl_tpu_torch.main import build_configs
 from test_torch_round import REPO, SIZES, _args, _configs, _Log
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -50,6 +50,7 @@ from creamfl_tpu_torch.main import build_configs
 from creamfl_tpu_torch.models.convert import (flax_image_client_to_torch,
                                               flax_server_state_to_torch,
                                               flax_text_client_to_torch)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AFTER_UPDATE = 2e-3

@@ -46,6 +46,7 @@ from creamfl_tpu_torch.models import resnet as tresnet
 from creamfl_tpu_torch.models.bert import BertConfig
 from creamfl_tpu_torch.models.convert import flax_server_state_to_torch
 from creamfl_tpu_torch.models.pcme import PCME
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 AFTER_UPDATE = 2e-3

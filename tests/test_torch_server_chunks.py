@@ -41,6 +41,7 @@ from creamfl_tpu_torch.models.convert import flax_server_state_to_torch
 from creamfl_tpu_torch.ops.adamp import _project
 from creamfl_tpu_torch.optim.adamp import AdamP
 from creamfl_tpu_torch.optim.factory import set_learning_rate
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 K, B, IMG, L, VOCAB, E, N_PUB = 4, 4, 32, 6, 23, 8, 16
 OVERRIDES = dict(model__embed_dim=E, model__cnn_type="resnet10",

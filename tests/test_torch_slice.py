@@ -4,7 +4,8 @@ Three image clients each run what ``MMFL._run_uni_client`` and
 ``_uni_client_reps`` do (rounds.py:553-610): a task step, an inter+intra
 contrast step, a local test and a feature sweep over the public set with
 the BN stats threaded on; then con_w aggregates their representations
-(``_distill``'s ``aggregate_modalities``, padded to a bucket of 4).
+(``_distill``'s ``aggregate_modalities``; the JAX package's pads the
+three to a bucket of 4, the port sums over the three).
 
 Tolerance: rtol 1e-4 atol 1e-5 (fp32, another summation order). As in
 test_torch_client_uni, the start weights scale the linear and class_fc
@@ -25,6 +26,7 @@ from creamfl_tpu.federation.aggregation import aggregate_modalities as j_agg
 from creamfl_tpu_torch.engine.client_uni import UniClientEngine
 from creamfl_tpu_torch.federation.aggregation import aggregate_modalities
 from creamfl_tpu_torch.models.convert import flax_image_client_to_torch
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 B, IMG, E, C, N_PUB, K = 4, 16, 16, 10, 12, 3
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -48,6 +48,7 @@ from creamfl_tpu_torch.models.convert import flax_server_state_to_torch
 from test_torch_round import (SIZES, UPDATE_DIST, _after, _args,
                               _client_state_dicts, _configs, _host, _Log, _np,
                               _perturbed, _record)
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 CLIENTS = dict(num_img_clients=2, num_txt_clients=2, num_mm_clients=1,
                client_num_per_round=4)

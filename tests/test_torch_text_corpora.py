@@ -21,6 +21,7 @@ from creamfl_tpu.data.vocab import Vocabulary as JVocabulary
 from creamfl_tpu_torch.data import make_vocab
 from creamfl_tpu_torch.data.agnews import CORPORA, IMDB, text_cls
 from creamfl_tpu_torch.data.vocab import Vocabulary
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANN = os.path.join(REPO, "tests", "fixtures", "coco", "annotations")

@@ -19,6 +19,7 @@ from PIL import Image
 
 from creamfl_tpu.data import transforms as jt
 from creamfl_tpu_torch.data import transforms as tt
+from torch_cpu_share import torch_cpu_share  # noqa: F401
 
 
 class _Capture:
