@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--seed 0] [--probe | --round | --stacked |
                                       --paper-round | --paper-full |
                                       --real-round | --chunks | --mesh |
-                                      --mesh-cards N | --rest | --adamp]
+                                      --mesh-cards N | --rest | --adamp |
+                                      --bn]
 
 Phases (any failure exits non-zero):
 
@@ -47,6 +48,23 @@ Phases (any failure exits non-zero):
    written), the plain version's, and launches a step; then eager server
    train steps with the plain version made to raise: three K7 launches a
    step and no plain fallback, and the update's device time a step.
+3c. K8, train-mode BatchNorm with its epilogue (none, relu, add_relu) in
+   two passes each way, the launches of one call each way counted
+   (``--bn`` runs the build and this step alone), at
+   ResNet-101's shapes at batch 128 and 224² (the stem, layer 1's bn3,
+   layer 3's bn1 and bn3, layer 4's bn3): against its formula in torch fed
+   K8's statistics and ReLU mask (the output within one bf16 ulp of the
+   normalised value or its largest term, the larger, and for add_relu one
+   more of the sum; dx within BN_DX_TOL; the residual's gradient equal); the
+   mean, inverse std, dw and db no farther from float64 than twice ATen's
+   own error; against the unfused ATen chain (``F.batch_norm``'s entry
+   point, the add, the ReLU, with ATen's statistics) the output's gap and
+   the ReLU masks that flip, reported; event and device ms of K8 and the
+   chain beside the bytes bound. Then one train step of the bf16 R101
+   trunk on K8 and on the chain from the same weights (each against an
+   fp32 run; 104 BatchNorms through the fused entry; device ms in turns,
+   profiled by op and kernel) and a ResNet-18 bf16 client's task and
+   contrast steps on either route.
 4. The image-client half of a CreamFL round at the paper's width: three
    ResNet-18 clients (100 classes, feature_dim 256) take task and contrast
    steps, run a local test and extract features over the full 50 000-row
@@ -188,6 +206,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -237,6 +256,7 @@ TRUNK_FLOOR_RATIO, TRUNK_COSINE, TRUNK_LOSS_RTOL = 1.25, 0.95, 0.02
 GALLERY_SOURCE = "creamfl_tpu_torch/csrc/gallery.cu"
 FUSED_SOURCE = "creamfl_tpu_torch/csrc/fused_bn_mm.cu"
 ADAMP_SOURCE = "creamfl_tpu_torch/csrc/adamp.cu"
+BN_SOURCE = "creamfl_tpu_torch/csrc/batchnorm.cu"
 # kernel wrapper -> (source, the TPU kernel it replaces)
 KERNELS = {
     "row_logsumexp": (GALLERY_SOURCE,
@@ -250,6 +270,10 @@ KERNELS = {
     "mm_bn_stats_bwd": (FUSED_SOURCE, "creamfl_tpu/ops/fused_bn_mm.py:212"),
     "adamp": (ADAMP_SOURCE, "none (creamfl_tpu/optim/adamp.py is optax "
               "code)"),
+    "bn_act_forward": (BN_SOURCE, "none (the JAX package leaves BatchNorm "
+                       "to XLA)"),
+    "bn_act_backward": (BN_SOURCE, "none (the JAX package leaves BatchNorm "
+                        "to XLA)"),
 }
 GALLERY_KERNELS = tuple(KERNELS)[:4]
 # K7 against its plain version, both fp32: the row sums in another order
@@ -381,17 +405,19 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
 
 def build_phase() -> None:
     """Build every kernel source at once: one nvcc per source, in parallel
-    (the gallery kernels, K5/K6, K7 and the JPEG decoder's colour
+    (the gallery kernels, K5/K6, K7, K8 and the JPEG decoder's colour
     kernel)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from creamfl_tpu_torch.data import jpeg
     from creamfl_tpu_torch.ops import adamp as A
+    from creamfl_tpu_torch.ops import batchnorm as BN
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops import gallery_kernels as K
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(lambda mod: mod.build(), (K, FK, A, jpeg)))
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        builds = list(pool.map(lambda mod: mod.build(),
+                               (K, FK, A, BN, jpeg)))
     for path, seconds, out in builds:
         log(f"[build] {path.name} in {seconds:.1f} s")
         for line in out.splitlines():
@@ -1262,6 +1288,411 @@ def adamp_phase(seed: int, dev=torch.device("cuda")):
                           max_abs_err=max(errs.values()))}
 
 # ---------------------------------------------------------------------------
+# phase 3c: K8, train-mode BatchNorm and its epilogue at the trunk's shapes
+# ---------------------------------------------------------------------------
+
+# (tag, batch, channels, grid side) of ResNet-101's BatchNorms at batch 128
+# and 224²: the stem, layer 1's bn3, layer 3's bn1 and bn3, layer 4's bn3.
+BN_SHAPES = (("stem", 128, 64, 112), ("layer1.bn3", 128, 256, 56),
+             ("layer3.bn1", 128, 256, 14), ("layer3.bn3", 128, 1024, 14),
+             ("layer4.bn3", 128, 2048, 7))
+BN_EPS = 1e-5
+# The least bytes an element a pass moves: forward x read and z written
+# (r read for add_relu); backward dz and x read and dx written (and z read
+# and g written for add_relu).
+BN_BYTES = {"forward": {"none": 4, "relu": 4, "add_relu": 6},
+            "backward": {"none": 6, "relu": 6, "add_relu": 10}}
+# K8 against its formula in torch fed K8's own statistics and ReLU mask,
+# both bf16: dx within the rounding of two bf16 results of fp32 sums in
+# another order, relative to its largest entry.
+BN_DX_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -8)
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (at the least normal below it)."""
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def _unfused_bn_act(bn, x, epilogue, residual=None):
+    """The trunk's BatchNorm and epilogue as separate ATen passes (the
+    route before K8): ``bn(x)``, then ``+ residual`` and ``F.relu``."""
+    y = bn(x)
+    if epilogue == "add_relu":
+        y = y + residual
+    return y if epilogue == "none" else F.relu(y)
+
+
+@contextlib.contextmanager
+def unfused_trunk():
+    """The trunk's blocks and stem on the unfused chain while open."""
+    from creamfl_tpu_torch.models import resnet
+
+    saved = resnet.bn_act
+    resnet.bn_act = _unfused_bn_act
+    try:
+        yield
+    finally:
+        resnet.bn_act = saved
+
+
+def _aten_chain(x, w, b, epilogue, residual):
+    y, mean, invstd = torch._batch_norm_impl_index(
+        x, w, b, None, None, True, 0.0, BN_EPS, True)[:3]
+    z = y + residual if epilogue == "add_relu" else y
+    return (z if epilogue == "none" else F.relu(z)), y, mean, invstd
+
+
+def _given_stats(x, w, b, stats, epilogue, residual):
+    """The chain's forward with the statistics given: (output, the spacing
+    a rounding may leave between two such outputs whose statistics differ
+    in their last bits: one bf16 ulp of the normalised value or of its
+    largest term, the larger, and for add_relu one more of the sum)."""
+    ch = [t.view(1, -1, 1, 1) for t in (stats[0], stats[1], w, b)]
+    t = ch[2] * (x.float() - ch[0]) * ch[1]
+    y32 = t + ch[3]
+    z = y32.to(torch.bfloat16)
+    spacing = bf16_ulp(torch.maximum(torch.maximum(t.abs(), ch[3].abs()),
+                                     y32.abs()))
+    if epilogue == "add_relu":
+        z = z + residual
+        spacing = spacing + bf16_ulp(z)
+    return (z if epilogue == "none" else F.relu(z)), spacing
+
+
+def bn_case(tag, n, c, side, epilogue, gen, dev):
+    """K8's forward and backward at one shape and epilogue: against its
+    formula in torch fed K8's statistics and mask (the output within one
+    bf16 ulp of the largest term, dx within BN_DX_TOL, dw and db within
+    fp32 sums, the residual's gradient equal); the statistics, dw and db
+    against float64, beside ATen's; against the unfused ATen chain, the
+    output's largest gap and the ReLU masks that flip. Then event and device
+    ms of K8 and the chain beside the bytes bound. Returns the record."""
+    from creamfl_tpu_torch.ops import batchnorm as B
+
+    def cl(t):
+        return t.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    x = cl(torch.randn(n, side, side, c, generator=gen, device=dev) * 2 + .5)
+    res = (cl(torch.randn(n, side, side, c, generator=gen, device=dev))
+           if epilogue == "add_relu" else None)
+    dz = cl(torch.randn(n, side, side, c, generator=gen, device=dev))
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.randn(c, generator=gen, device=dev) * 0.1
+    before = (B.bn_act_forward.launches, B.bn_act_backward.launches)
+    z, stats = B.bn_act_forward(x, w, b, BN_EPS, epilogue, res)
+    zs = z if res is not None else None
+    launches = {"forward": B.bn_act_forward.launches - before[0]}
+    dx, g, sums = B.bn_act_backward(dz, x, zs, w, b, stats, epilogue)
+    launches["backward"] = B.bn_act_backward.launches - before[1]
+    label = f"{tag} {epilogue} [{n * side * side}, {c}]"
+    problems = []
+    if launches != {"forward": 2, "backward": 2}:
+        problems.append(f"launches {launches}, two a pass by design")
+    # Forward, against the formula at K8's statistics.
+    z_p, spacing = _given_stats(x, w, b, stats, epilogue, res)
+    ulps = float(((z.float() - z_p.float()).abs() / spacing).max())
+    if ulps > 1.0:
+        problems.append(f"output {ulps:.2f} ulp from the formula")
+    # Backward, against the formula with K8's mask (the output > 0).
+    g_p = dz if epilogue == "none" else torch.where(z <= 0, 0, dz)
+    if res is not None and not torch.equal(g, g_p):
+        problems.append("the residual's gradient differs")
+    dx_p, _, dw_p, db_p = B.bn_act_backward_reference(
+        g_p, x, None, w, b, stats, "none")
+    dx_err = float((dx.float() - dx_p.float()).abs().max())
+    lim = BN_DX_TOL["atol"] * float(dx_p.abs().max()) + BN_DX_TOL["rtol"] * (
+        dx_p.float().abs())
+    if not bool(((dx.float() - dx_p.float()).abs() <= lim).all()):
+        problems.append(f"dx {dx_err:.3e} from the formula")
+    # Against float64: the statistics of x, dw and db of each one's g.
+    x64 = x.double()
+    var64, mean64 = torch.var_mean(x64, dim=(0, 2, 3), correction=0)
+    inv64 = (var64 + BN_EPS).rsqrt()
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    r_leaf = res.detach().requires_grad_() if res is not None else None
+    z_graph, ya, mean_a, inv_a = _aten_chain(*leaves, epilogue, r_leaf)
+    want = torch.autograd.grad(z_graph, leaves, dz, retain_graph=True)
+    za = z_graph.detach()
+    g_a = dz if epilogue == "none" else torch.where(za <= 0, 0, dz)
+    xhat64 = (x64 - mean64.view(1, -1, 1, 1)) * inv64.view(1, -1, 1, 1)
+    errs = {"mean": (float((stats[0] - mean64).abs().max()),
+                     float((mean_a - mean64).abs().max())),
+            "invstd": (float(((stats[1] - inv64) / inv64).abs().max()),
+                       float(((inv_a - inv64) / inv64).abs().max()))}
+    for name, got, aten, fn in (
+            ("db", sums[0], want[2], lambda t: t.sum((0, 2, 3))),
+            ("dw", sums[1], want[1], lambda t: (t * xhat64).sum((0, 2, 3)))):
+        ref_k, ref_a = fn(g_p.double()), fn(g_a.double())
+        errs[name] = (float((got - ref_k).abs().max() / ref_k.abs().max()),
+                      float((aten - ref_a).abs().max() / ref_a.abs().max()))
+    for k, (a, e) in errs.items():
+        # Another reduction order: no more than twice ATen's own error and
+        # a few fp32 ulps.
+        if a > 2 * e + 4 * 2.0 ** -24:
+            problems.append(f"{k} {a:.3e} from float64 (ATen {e:.3e})")
+    # Against ATen's chain (its own statistics).
+    _, spacing_a = _given_stats(x, w, b, torch.stack([mean_a, inv_a]),
+                                epilogue, res)
+    chain_ulps = float(((z.float() - za.float()).abs() / spacing_a).max())
+    flips = int(((z > 0) != (za > 0)).sum()) if epilogue != "none" else 0
+    same = (z > 0) == (za > 0) if epilogue != "none" else None
+    gap = (dx.float() - want[0].float()).abs()
+    chain_dx = float((gap[same] if same is not None else gap).max())
+    log(f"  bn {label}: vs its formula: output {ulps:.2f} of its spacing, "
+        f"dx {dx_err:.3e}; vs float64 (K8 / ATen): "
+        + ", ".join(f"{k} {a:.2e} / {e:.2e}" for k, (a, e) in errs.items())
+        + f"; vs the ATen chain: output {chain_ulps:.2f} of its spacing, "
+        f"{int((z != za).sum())} of {z.numel()} elements differ, "
+        f"{flips} ReLU masks flip, dx {chain_dx:.3e} where they agree")
+    if problems:
+        raise AssertionError(f"bn {label}: {'; '.join(problems)}")
+    del z_graph, want, leaves, r_leaf, x64, xhat64, g_a, za, ya
+
+    def k8_fwd():
+        B.bn_act_forward(x, w, b, BN_EPS, epilogue, res)
+
+    def k8_bwd():
+        B.bn_act_backward(dz, x, zs, w, b, stats, epilogue)
+
+    lx, lw, lb = (t.detach().requires_grad_() for t in (x, w, b))
+    lr = res.detach().requires_grad_() if res is not None else None
+    chain_out = _aten_chain(lx, lw, lb, epilogue, lr)[0]
+    inputs = [lx, lw, lb] + ([lr] if lr is not None else [])
+
+    def aten_fwd():
+        with torch.no_grad():
+            _aten_chain(x, w, b, epilogue, res)
+
+    def aten_bwd():
+        torch.autograd.grad(chain_out, inputs, dz, retain_graph=True)
+
+    rec = dict(shape=[n * side * side, c], epilogue=epilogue, ulps=ulps,
+               dx_err=dx_err, errs=errs, chain_ulps=chain_ulps, flips=flips,
+               chain_dx=chain_dx, launches=launches)
+    numel = x.numel()
+    for pass_, k8, aten in (("forward", k8_fwd, aten_fwd),
+                            ("backward", k8_bwd, aten_bwd)):
+        ms = cuda_time_ms(k8, reps=20)
+        dev_k8 = device_ms_by_kernel(k8, reps=10)
+        ms_a = cuda_time_ms(aten, reps=20)
+        dev_a = device_ms_by_kernel(aten, reps=10)
+        bound, _ = bound_ms(0.0, BN_BYTES[pass_][epilogue] * numel)
+        d_k8, d_a = sum(dev_k8.values()), sum(dev_a.values())
+        rec[pass_] = dict(ms=ms, device_ms=d_k8, aten_ms=ms_a,
+                          aten_device_ms=d_a, bound_ms=bound,
+                          kernels={k: round(v, 4) for k, v in dev_k8.items()})
+        log(f"  bn {label} {pass_}: K8 {ms:.3f} ms (device {d_k8:.3f}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in dev_k8.items())
+            + f"), ATen chain {ms_a:.3f} ms (device {d_a:.3f}), bound "
+            f"{bound:.3f} ms (bytes: {BN_BYTES[pass_][epilogue]} B x "
+            f"{numel}), K8 at {100 * bound / d_k8:.1f} % of it, ATen at "
+            f"{100 * bound / d_a:.1f} %")
+    return rec
+
+
+def _trunk_step(net, images):
+    """One train step's forward and backward of a bf16 trunk (the PCME
+    image encoder's autocast); returns the grid."""
+    net.zero_grad(set_to_none=True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        grid = net(images)
+    grid.float().square().mean().backward()
+    return grid
+
+
+def _top_ops(fn, tag: str, top: int = 16):
+    """``fn()`` under torch.profiler: device ms by ATen op (self time) and
+    by full kernel name, the ``top`` of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda t: -t[1])
+    log(f"[bn] {tag}: device ms by ATen op (self), top {top}")
+    for key, ms, count in ops[:top]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    log(f"[bn] {tag}: device ms by kernel, top {top}")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {ms:9.3f} ms  {name[:200]}")
+
+
+def bn_trunk(seed: int, dev):
+    """ResNet-101's bf16 trunk, one train step at batch 128 and 224², on K8
+    and on the unfused chain from the same weights: the grid and the
+    gradients of each against an fp32 run of the chain (K8 no farther than
+    TRUNK_FLOOR_RATIO x the chain), the launches, device ms a step of each
+    (profiled by op and by kernel). Then a ResNet-18 bf16 client's task
+    and contrast steps (``--client_bf16``) on either route."""
+    from creamfl_tpu_torch.models.resnet import (ResNetBackbone,
+                                                 init_parameters)
+    from creamfl_tpu_torch.ops import batchnorm as B
+    from creamfl_tpu_torch.utils import profiling
+
+    torch.backends.cudnn.allow_tf32 = False
+    net = ResNetBackbone(SERVER_CNN)
+    init_parameters(net, torch.Generator().manual_seed(seed))
+    net = net.to(dev).to(memory_format=torch.channels_last).train()
+    images = synth_images(seed, 0, SERVER_BS, IMAGE, dev)
+    state = copy.deepcopy(net.state_dict())
+
+    def run(fused: bool, fp32: bool = False):
+        net.load_state_dict(state)
+        ctx = contextlib.nullcontext() if fused else unfused_trunk()
+        with ctx:
+            if fp32:
+                net.zero_grad(set_to_none=True)
+                grid = net(images)
+                grid.float().square().mean().backward()
+            else:
+                grid = _trunk_step(net, images)
+        return (grid.detach().float(),
+                torch.cat([p.grad.reshape(-1).float()
+                           for p in net.parameters()]))
+
+    B.reset_launch_counts()
+    with profiling.recording() as snap:
+        g_k8, d_k8 = run(True)
+    launched = (B.bn_act_forward.launches, B.bn_act_backward.launches)
+    fused = {k: v for k, v in snap.counters.items() if k.startswith("bn.")}
+    g_ch, d_ch = run(False)
+    if B.bn_act_forward.launches != launched[0]:
+        raise AssertionError("the unfused trunk launched K8")
+    g32, d32 = run(False, fp32=True)
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm())
+
+    log(f"[bn] R101 trunk step: counters {json.dumps(fused)}, K8 launches "
+        f"forward {launched[0]} backward {launched[1]}; vs an fp32 run: grid "
+        f"K8 {rel(g_k8, g32):.3e} chain {rel(g_ch, g32):.3e}, gradients K8 "
+        f"{rel(d_k8, d32):.3e} chain {rel(d_ch, d32):.3e}; K8 vs chain grid "
+        f"{rel(g_k8, g_ch):.3e}")
+    if fused.get("bn.single_pass") != 104 or sum(
+            v for k, v in fused.items() if k.startswith("bn.fused.")) != 104:
+        raise AssertionError(f"R101: BatchNorm counters {fused}")
+    if (rel(g_k8, g32) > TRUNK_FLOOR_RATIO * rel(g_ch, g32)
+            or rel(d_k8, d32) > TRUNK_FLOOR_RATIO * rel(d_ch, d32)):
+        raise AssertionError("K8's trunk is farther from fp32 than the chain")
+    net.load_state_dict(state)
+    steps = {}
+    for tag, ctx in (("chain", unfused_trunk), ("K8", contextlib.nullcontext),
+                     ("K8 again", contextlib.nullcontext),
+                     ("chain again", unfused_trunk)):
+        with ctx():
+            fn = functools.partial(_trunk_step, net, images)
+            steps[tag] = (cuda_time_ms(fn, reps=5),
+                          sum(device_ms_by_kernel(fn, reps=3).values()))
+    log("[bn] R101 trunk train step, ms (device ms): " + ", ".join(
+        f"{k} {a:.3f} ({d:.3f})" for k, (a, d) in steps.items()))
+    with unfused_trunk():
+        _top_ops(functools.partial(_trunk_step, net, images),
+                 "R101 trunk step on the unfused chain")
+    _top_ops(functools.partial(_trunk_step, net, images),
+             "R101 trunk step on K8")
+    torch.backends.cudnn.allow_tf32 = True
+    del net, state, g32, d32
+    torch.cuda.empty_cache()
+    return {"trunk_steps": steps}
+
+
+def bn_client(seed: int, dev):
+    """A ResNet-18 image client in bf16 (``--client_bf16``): a task step at
+    32² (batch TASK_BS) and a contrast step at 224² (batch PUB_BS), ms and
+    device ms of each on the unfused chain and on K8, in turns."""
+    import types
+
+    from creamfl_tpu_torch.engine.client_uni import UniClientEngine
+    from creamfl_tpu_torch.ops.l2norm import l2_normalize
+
+    args = types.SimpleNamespace(img_model_local="resnet18",
+                                 feature_dim=DIM, mlp_local=False,
+                                 interintra_weight=0.5, loss_scale=False)
+    engine = UniClientEngine("img", num_class=N_CLASS, args=args,
+                             use_bf16=True, device=dev)
+    state = engine.set_round_lr(engine.init_state(seed), 0)
+    old = engine.snapshot(state)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    globals_ = {"same": l2_normalize(torch.randn(PUB_BS, DIM, generator=gen,
+                                                 device=dev)),
+                "other": l2_normalize(torch.randn(PUB_BS, DIM, generator=gen,
+                                                  device=dev)),
+                "index": torch.arange(PUB_BS, device=dev)}
+    task = {"images": synth_images(seed, 0, TASK_BS, 32, dev),
+            "labels": torch.randint(0, N_CLASS, (TASK_BS,), generator=gen,
+                                    device=dev)}
+    public = {"images": synth_images(seed, 0, PUB_BS, 224, dev)}
+    steps = {
+        "task": lambda: engine.task_step(state, task),
+        "contrast": lambda: engine.contrast_step(state, old, public,
+                                                 globals_, True, True)}
+    out = {}
+    for name, fn in steps.items():
+        for tag, ctx in (("chain", unfused_trunk),
+                         ("K8", contextlib.nullcontext),
+                         ("K8 again", contextlib.nullcontext),
+                         ("chain again", unfused_trunk)):
+            with ctx():
+                out[f"{name} {tag}"] = (
+                    cuda_time_ms(fn, reps=10),
+                    sum(device_ms_by_kernel(fn, reps=5).values()))
+    log("[bn] ResNet-18 bf16 client steps, ms (device ms): " + ", ".join(
+        f"{k} {a:.3f} ({d:.3f})" for k, (a, d) in out.items()))
+    del engine, state, old
+    torch.cuda.empty_cache()
+    return out
+
+
+def bn_phase(seed: int, dev=torch.device("cuda")):
+    """K8 at the trunk's shapes, each epilogue, forward and backward,
+    against the unfused ATen chain (``bn_case``); then in the R101 trunk
+    (``bn_trunk``) and a ResNet-18 bf16 client (``bn_client``). Returns
+    {"bn_act_forward": record, "bn_act_backward": record}: the stem's relu
+    case, with every case under "cases"."""
+    from creamfl_tpu_torch.ops import batchnorm as B
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    cases, problems = [], []
+    for tag, n, c, side in BN_SHAPES:
+        for epilogue in B.EPILOGUES:
+            try:
+                cases.append(bn_case(tag, n, c, side, epilogue, gen, dev))
+            except AssertionError as e:
+                log(f"  FAIL {e}")
+                problems.append(str(e))
+            torch.cuda.empty_cache()
+    trunk = bn_trunk(seed, dev)
+    client = bn_client(seed, dev)
+    if problems:
+        raise AssertionError(f"K8: {len(problems)} cases failed: {problems}")
+    main = next(r for r in cases if r["epilogue"] == "relu")
+    worst = max(r["dx_err"] for r in cases)
+    out = {}
+    for name, pass_ in (("bn_act_forward", "forward"),
+                        ("bn_act_backward", "backward")):
+        r = main[pass_]
+        out[name] = dict(ms=r["ms"], device_ms=r["device_ms"],
+                         plain_ms=None, plain_device_ms=None,
+                         library_ms=r["aten_ms"],
+                         library_device_ms=r["aten_device_ms"],
+                         bound_ms=r["bound_ms"], bound_by="bytes",
+                         launches_per_call=main["launches"][pass_],
+                         max_abs_err=worst,
+                         cases=cases, trunk=trunk, client=client)
+    return out
+
+# ---------------------------------------------------------------------------
 # phase 3: the image-client slice at full width
 # ---------------------------------------------------------------------------
 
@@ -1576,12 +2007,14 @@ def server_phase(seed: int, dev=torch.device("cuda")):
     """The server's PCME slice at the paper's width (ResNet-101 + BERT-base,
     embed 256, bf16, batch 128 at 224², max_len 32, extraction batch 256)
     on the fused trunk, then the same on the standard trunk from the same
-    weights. Returns the K5/K6 and K7 launch counts of the fused run."""
+    weights. Returns the K5/K6 and K7 launch counts of the fused run and
+    K8's of the standard run."""
     from creamfl_tpu_torch.config import default_config_path, parse_config
     from creamfl_tpu_torch.engine.server import ServerEngine
     from creamfl_tpu_torch.models.bert import BertConfig
     from creamfl_tpu_torch.models.pcme import PCME
     from creamfl_tpu_torch.ops import adamp as A
+    from creamfl_tpu_torch.ops import batchnorm as BN
     from creamfl_tpu_torch.ops import fused_bn_mm_kernels as FK
     from creamfl_tpu_torch.ops.l2norm import l2_normalize
     from creamfl_tpu_torch.utils.profiling import StepTimer
@@ -1611,6 +2044,7 @@ def server_phase(seed: int, dev=torch.device("cuda")):
             torch.cuda.reset_peak_memory_stats()
         FK.reset_launch_counts()
         A.reset_launch_counts()
+        BN.reset_launch_counts()
 
         def count():
             c = FK.launch_counts()
@@ -1625,6 +2059,8 @@ def server_phase(seed: int, dev=torch.device("cuda")):
             fp32_reference=not fused)
         results[tag + "_counts"] = FK.launch_counts()
         results[tag + "_adamp"] = A.adamp.launches
+        results[tag + "_bn"] = {fn.__name__: fn.launches
+                                for fn in BN._WRAPPERS}
         if dev.type == "cuda":
             log(f"[server] {tag} peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1654,7 +2090,10 @@ def server_phase(seed: int, dev=torch.device("cuda")):
         raise AssertionError("fused and standard trunks disagree")
     if dev.type == "cuda" and any(results["standard_counts"].values()):
         raise AssertionError("the standard trunk launched K5/K6")
-    return {**results["fused_counts"], "adamp": results["fused_adamp"]}
+    if dev.type == "cuda" and not all(results["standard_bn"].values()):
+        raise AssertionError("the standard bf16 trunk did not launch K8")
+    return {**results["fused_counts"], "adamp": results["fused_adamp"],
+            **results["standard_bn"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4576,6 +5015,10 @@ def main() -> int:
                         help="build and run phase 3b (K7, AdamP's step at "
                         "the server's leaves) alone, then stop without the "
                         "result line")
+    parser.add_argument("--bn", action="store_true",
+                        help="build and run phase 3c (K8, BatchNorm and "
+                        "its epilogue at the trunk's shapes) alone, then "
+                        "stop without the result line")
     parser.add_argument("--mesh-rank", nargs=7, default=None,
                         metavar=("TASK", "RANK", "WORLD", "INIT", "DIR",
                                  "DEVICE", "BACKEND"),
@@ -4606,7 +5049,7 @@ def main() -> int:
         ("paper_round", opts.paper_round), ("paper_full", opts.paper_full),
         ("real", opts.real_round), ("chunks", opts.chunks),
         ("rest", opts.rest), ("mesh", opts.mesh or opts.mesh_cards),
-        ("adamp", opts.adamp)) if on]
+        ("adamp", opts.adamp), ("bn", opts.bn)) if on]
     if alone:
         for kind in alone:
             if kind == "real":
@@ -4617,6 +5060,8 @@ def main() -> int:
                 chunk_phase(opts.seed)
             elif kind == "adamp":
                 adamp_phase(opts.seed)
+            elif kind == "bn":
+                bn_phase(opts.seed)
             elif kind == "mesh":
                 run_round(opts.seed, "paper_round")
                 mesh_phase(opts.seed, opts.mesh_cards)
@@ -4627,6 +5072,7 @@ def main() -> int:
     rec = kernel_phase(opts.seed)
     rec.update(fused_kernel_phase(opts.seed))
     rec.update(adamp_phase(opts.seed))
+    rec.update(bn_phase(opts.seed))
     # Each path runs with the launch counts zeroed just before it and read
     # just after: the image-client slice (K1-K4, every launch on its main
     # route), the server (K5/K6), the round on each client branch (K1-K4).

@@ -12,7 +12,10 @@ a factor n/(n-1) apart (6.7 % at batch 4 on a 2 x 2 grid). The train-mode
 statistics are taken once, by the normalisation itself: its fp32 batch
 mean and inverse std move the running stats, the biased variance
 recovered as ``invstd**-2 - eps``. No fp32 copy of a bf16 activation is
-made and no second reduction runs.
+made and no second reduction runs. In the blocks and the stem a train-mode
+BatchNorm runs with what follows it (nothing, a ReLU, or the residual add
+and a ReLU) through one entry point, ``bn_act``: one hand-written pass
+each way on a bf16 activation on the card (K8, ``ops/batchnorm.py``).
 
 Under a mesh of ranks (``set_batchnorm_mesh``) a BatchNorm in train mode
 takes its statistics over the whole batch, every rank's rows, as XLA
@@ -61,6 +64,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from creamfl_tpu_torch.ops import batchnorm as bn_ops
 from creamfl_tpu_torch.utils import profiling
 
 
@@ -107,12 +111,19 @@ class BatchNorm(nn.Module):
         out, mean, invstd = torch._batch_norm_impl_index(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps,
             torch.backends.cudnn.enabled)[:3]
-        if not self.frozen:
-            profiling.count("bn.single_pass")
-            # The biased variance, rounding kept off the negative side.
-            var = invstd.detach().pow(-2).sub_(self.eps).clamp_min_(0)
-            _update_running(self, mean, var)
+        self.move_running(mean, invstd)
         return out
+
+    def move_running(self, mean: torch.Tensor, invstd: torch.Tensor) -> None:
+        """Move the running stats from the batch's fp32 mean and inverse
+        std (counted in ``bn.single_pass``), unless a remat recompute froze
+        them."""
+        if self.frozen:
+            return
+        profiling.count("bn.single_pass")
+        # The biased variance, rounding kept off the negative side.
+        var = invstd.detach().pow(-2).sub_(self.eps).clamp_min_(0)
+        _update_running(self, mean, var)
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode over the mesh's batch: the mean from the all-reduced
@@ -179,6 +190,37 @@ class _SyncedNorm(torch.autograd.Function):
                 local[:c].to(weight.dtype), None, None, None, None)
 
 
+def bn_act(bn: BatchNorm, x: torch.Tensor, epilogue: str,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bn(x)`` and what follows it in the trunk: nothing ("none"), a ReLU
+    ("relu"), or the residual add and a ReLU ("add_relu":
+    ``relu(bn(x) + residual)``). The route follows the inputs alone:
+
+    * train mode off a mesh on a bf16 CUDA activation: K8
+      (``ops.batchnorm.BnAct``, which raises for an activation it cannot
+      take), one pass each way; the running stats move from its fp32 mean
+      and inverse std as in ``BatchNorm.forward``;
+    * otherwise (the CPU, eval mode, a mesh of more than one rank, another
+      CUDA dtype): ``bn(x)``, then ``+ residual`` and ``F.relu``.
+
+    Each train-mode call off a mesh on the CPU or on K8 counts in
+    ``bn.fused.<epilogue>``.
+    """
+    if (bn.training and (bn.mesh is None or bn.mesh.world == 1)
+            and (not x.is_cuda or x.dtype == torch.bfloat16)):
+        profiling.count(f"bn.fused.{epilogue}")
+        if x.is_cuda:
+            F._verify_batch_size(x.size())
+            z, stats = bn_ops.BnAct.apply(x, bn.weight, bn.bias, residual,
+                                          bn.eps, epilogue)
+            bn.move_running(stats[0], stats[1])
+            return z
+    y = bn(x)
+    if epilogue == "add_relu":
+        y = y + residual
+    return y if epilogue == "none" else F.relu(y)
+
+
 def set_batchnorm_mesh(module: nn.Module, mesh) -> None:
     """Give every BatchNorm under ``module`` the mesh its train-mode
     statistics span (None: each rank's rows alone). The fused trunk takes
@@ -222,10 +264,8 @@ class BasicBlock(nn.Module):
                                             BatchNorm(filters))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        y = self.conv2(bn_act(self.bn1, self.conv1(x), "relu"))
+        return bn_act(self.bn2, y, "add_relu", _shortcut(self, x))
 
 
 class Bottleneck(nn.Module):
@@ -251,11 +291,18 @@ class Bottleneck(nn.Module):
                                             BatchNorm(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        y = bn_act(self.bn1, self.conv1(x), "relu")
+        y = self.conv3(bn_act(self.bn2, self.conv2(y), "relu"))
+        return bn_act(self.bn3, y, "add_relu", _shortcut(self, x))
+
+
+def _shortcut(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A block's identity path: ``x``, or its projection (the 1x1 conv and
+    its BatchNorm)."""
+    if block.downsample is None:
+        return x
+    conv, bn = block.downsample
+    return bn_act(bn, conv(x), "none")
 
 
 def _fold(bn: BatchNorm, mean: torch.Tensor, var: torch.Tensor):
@@ -489,7 +536,7 @@ class ResNetBackbone(nn.Module):
             x = _s2d_stem(images, self.conv1.weight)
         else:
             x = self.conv1(images.permute(0, 3, 1, 2))
-        x = self.maxpool(F.relu(self.bn1(x)))
+        x = self.maxpool(bn_act(self.bn1, x, "relu"))
         remat = self.remat != "none" and torch.is_grad_enabled()
         for stage in range(self.n_stages):
             for block in getattr(self, f"layer{stage + 1}"):

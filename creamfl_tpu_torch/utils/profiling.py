@@ -37,7 +37,9 @@ layers of a train or distill step routed and their token-expert pairs,
 counted where the step returns), ``graph.captures``, ``graph.replays``,
 ``ops.builds``, ``cuda.device_allocs``, ``bn.single_pass`` (each
 train-mode BatchNorm forward, off a mesh, that moved its running stats from
-the normalisation's own statistics), the device tally
+the normalisation's own statistics), ``bn.fused.<epilogue>`` (each
+train-mode call of ``models/resnet.py:bn_act`` off a mesh on K8, or on
+the CPU's chain: "none", "relu", "add_relu"), the device tally
 ``moe.held_pairs`` (the pairs the held experts computed, every MoE
 forward), and the kernel wrappers' own launch counters read
 into the snapshot as ``ops.<wrapper>.<route>``.
