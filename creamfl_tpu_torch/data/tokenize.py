@@ -4,7 +4,7 @@ The port's own copy of the JAX package's ``data/tokenize.py``: the same
 functions and ids; the module imports only ``re``, ``unicodedata`` and
 ``zlib`` (nltk at the first Treebank call). The server's BERT branch reads
 ``BertWordPieceTokenizer`` ids (``.synthetic`` on the synthetic path), its
-DeepSeek-V2 tower ``SyntheticLMTokenizer`` ids (the port's own).
+decoder towers' ``SyntheticLMTokenizer`` ids (the port's own).
 
 The reference runs ``nltk.word_tokenize`` (punkt sentence split + Treebank
 word tokenizer). ``TreebankWordTokenizer`` alone gives the same output for
@@ -230,7 +230,7 @@ class BertWordPieceTokenizer:
 
 
 class SyntheticLMTokenizer:
-    """The synthetic captions as a decoder LM's ids (the DeepSeek-V2 tower
+    """The synthetic captions as a decoder LM's ids (a decoder tower
     on ``--synthetic``; its own BPE needs the model's ``tokenizer.json``):
     ``bos``, each word's id under a seeded map into ``[0, bos)``, ``eos``,
     right-padded with ``eos`` under a zero mask. A word's id is

@@ -39,11 +39,12 @@ Each step is traced in the recorder's ``creamfl.engine.*`` spans
 the updates count in ``engine.steps`` and their rows in ``engine.rows``.
 
 The text tower is BERT, the GRU branch (``not_bert``), or, where
-``bert_config`` is a ``DeepseekV2Config``, the DeepSeek-V2-Lite tower
-(``models/deepseek_v2.py``): its MoE layers' balance loss is added to the
-loss of every step that back-propagates through it (train and distill),
-and the tokens and token-expert pairs its MoE layers routed count in
-``moe.tokens`` and ``moe.pairs``. It runs off a mesh only.
+``bert_config`` is a decoder tower's config (``models/towers.py``:
+DeepSeek-V2-Lite, Granite-4.0-H-Small), that tower: its balance loss is
+added to the loss of every step that back-propagates through it (train
+and distill), the tokens and token-expert pairs its MoE layers routed
+count in ``moe.tokens`` and ``moe.pairs``, and the tokens through its
+Mamba mixers in ``mamba.tokens``. It runs off a mesh only.
 
 bf16 as in the JAX package: trunk and BERT compute in bf16 (autocast inside
 the encoders), params, heads and the criterion in fp32. The fused trunk is
@@ -67,9 +68,9 @@ from creamfl_tpu_torch.losses.mcsoft import (MCSoftContrastiveConfig,
                                              MCSoftCriterion)
 from creamfl_tpu_torch.models import convert
 from creamfl_tpu_torch.models.bert import BertConfig
-from creamfl_tpu_torch.models.deepseek_v2 import DeepseekV2Config
 from creamfl_tpu_torch.models.pcme import PCME, init_pcme
 from creamfl_tpu_torch.models.resnet import set_batchnorm_mesh
+from creamfl_tpu_torch.models.towers import name_of, tower_of
 from creamfl_tpu_torch.optim.factory import (clip_grad_global_norm,
                                              cosine_annealing_schedule,
                                              make_server_optimizer,
@@ -90,8 +91,8 @@ class ServerEngine:
                  mesh: Optional[M.Mesh] = None):
         """``mesh``: the ranks that share each batch (None or world 1: this
         process alone). ``bert_config``: the text tower's config, a
-        ``BertConfig`` or a ``DeepseekV2Config`` (unused on the GRU
-        branch)."""
+        ``BertConfig`` or a decoder tower's (``models/towers.py``; unused
+        on the GRU branch)."""
         model_cfg = config.model
         if use_bf16 is None:
             use_bf16 = bool(config.train.get("use_bf16", False))
@@ -125,15 +126,16 @@ class ServerEngine:
         self.kd_weight = 0.3  # overridden by federation from CLI args
         self.graphs = GraphCache(self.device)
         self.mesh = mesh if M.active(mesh) else None
-        # (MoE layers, experts per token) of the DeepSeek-V2 tower.
-        self.moe = None
-        if (isinstance(bert_config, DeepseekV2Config)
-                and not self.model.not_bert):
-            if self.mesh is not None:
-                raise ValueError("the DeepSeek-V2 text tower runs on one "
-                                 "device: start the run with --no_mesh")
-            self.moe = (bert_config.moe_layers,
-                        bert_config.num_experts_per_tok)
+        # The text tower (``models/towers.py``): a decoder's (MoE layers,
+        # experts per token) and Mamba mixers.
+        text = self.model.bert_config
+        tower = None if self.model.not_bert else tower_of(text)
+        self.decoder = tower is not None and tower.decoder
+        self.moe = tower.moe(text) if tower else None
+        self.mixers = tower.mixers(text) if tower else 0
+        if self.decoder and self.mesh is not None:
+            raise ValueError(f"the {name_of(text)} text tower runs on one "
+                             f"device: start the run with --no_mesh")
 
     # -- state ---------------------------------------------------------
     def init_state(self, seed: int = 0,
@@ -192,9 +194,10 @@ class ServerEngine:
             model.img_enc.cnn.load_state_dict(
                 convert.load_torchvision_trunk(resnet_path))
         if bert_path and not model.not_bert:
-            if self.moe is not None:
-                raise ValueError("--bert_ckpt loads BERT weights; the text "
-                                 "tower is DeepSeek-V2")
+            if self.decoder:
+                raise ValueError(
+                    f"--bert_ckpt loads BERT weights; the text tower is "
+                    f"{name_of(model.bert_config)}")
             model.txt_enc.bert.load_hf_state_dict(
                 convert.load_state_dict(bert_path))
         if glove_path and model.not_bert and vocab is not None:
@@ -515,9 +518,10 @@ class ServerEngine:
     def _count_steps(self, steps: int, rows: int, captions) -> None:
         """The recorder's ``engine.steps`` and ``engine.rows``: the updates
         and the rows they took, counted where a step or a chunk returns, so
-        that a graph replay counts its k steps; with the DeepSeek-V2 tower,
+        that a graph replay counts its k steps; with a decoder tower,
         ``moe.tokens`` and ``moe.pairs`` (its MoE layers' tokens of
-        ``captions.shape[-1]`` positions and their top-k pairs)."""
+        ``captions.shape[-1]`` positions and their top-k pairs) and
+        ``mamba.tokens`` (its Mamba mixers' tokens, counted alike)."""
         profiling.count("engine.steps", steps)
         profiling.count("engine.rows", rows)
         if self.moe is not None:
@@ -525,3 +529,6 @@ class ServerEngine:
             tokens = rows * captions.shape[-1] * layers
             profiling.count("moe.tokens", tokens)
             profiling.count("moe.pairs", tokens * top_k)
+        if self.mixers:
+            profiling.count("mamba.tokens",
+                            rows * captions.shape[-1] * self.mixers)

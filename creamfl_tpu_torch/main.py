@@ -52,11 +52,12 @@ paper's geometry (a 50 000-row public set at 224², its images synthesized
 on the card): add ``--paper_scale``; ``--client_bf16`` runs the image
 clients' trunks in bf16, and ``--resnet_ckpt``, ``--bert_ckpt``,
 ``--glove_path`` and ``--client_resnet_ckpt`` load weights from local
-files. ``--text_encoder deepseek_v2_lite`` (with ``--synthetic``) puts the
-DeepSeek-V2-Lite tower in BERT's place in the server (``--smoke``: a tiny
-one). ``--trace_dir DIR`` records the program's spans and counters
-(``utils/profiling.py``) and writes each round's as a Chrome trace-event
-file there, on ``torch.profiler``'s clock.
+files. ``--text_encoder deepseek_v2_lite`` or ``granite_4_0_h_small``
+(with ``--synthetic``) puts the DeepSeek-V2-Lite or Granite-4.0-H-Small
+tower in BERT's place in the server (``--smoke``: a tiny one;
+``models/towers.py``). ``--trace_dir DIR`` records the program's spans
+and counters (``utils/profiling.py``) and writes each round's as a Chrome
+trace-event file there, on ``torch.profiler``'s clock.
 """
 
 from __future__ import annotations
@@ -67,6 +68,8 @@ import random
 
 
 def add_args(parser: argparse.ArgumentParser) -> None:
+    from creamfl_tpu_torch.models.towers import TOWERS
+
     # -- reference flag surface (src/main.py:38-106) -------------------
     parser.add_argument('--name', type=str, default='Test',
                         help='The name for different experimental runs.')
@@ -126,12 +129,15 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument('--feature_dim', type=int, default=256)
     parser.add_argument('--not_bert', action='store_true', default=False)
     parser.add_argument('--text_encoder', type=str, default='bert',
-                        choices=['bert', 'deepseek_v2_lite'],
-                        help="the server's text tower: BERT-base, or "
+                        choices=list(TOWERS),
+                        help="the server's text tower: BERT-base, "
                              "DeepSeek-V2-Lite (14 of its 27 layers, "
-                             "experts 0-7 of each layer's 64; "
-                             "--synthetic only, random weights); "
-                             "--not_bert takes the GRU branch instead")
+                             "experts 0-7 of each layer's 64) or "
+                             "Granite-4.0-H-Small (10 of its 40 layers, "
+                             "experts 0-8 of each layer's 72); the "
+                             "decoders with --synthetic only and random "
+                             "weights; --not_bert takes the GRU branch "
+                             "instead")
 
     # -- the JAX package's extensions (same names and defaults) -------
     parser.add_argument('--synthetic', action='store_true', default=False,
@@ -212,18 +218,17 @@ def add_args(parser: argparse.ArgumentParser) -> None:
 
 
 def text_config(args):
-    """The server's text tower config: ``BertConfig`` (tiny under
-    ``--smoke``), or ``DeepseekV2Config`` under ``--text_encoder
-    deepseek_v2_lite`` (tiny under ``--smoke``)."""
-    from creamfl_tpu_torch.models.bert import BertConfig
-    from creamfl_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+    """The server's text tower config (``models/towers.py``) under
+    ``--text_encoder``: ``BertConfig`` by default, a decoder tower's
+    config otherwise; tiny under ``--smoke``."""
+    from creamfl_tpu_torch.models.towers import TOWERS
 
-    if getattr(args, "text_encoder", "bert") == "deepseek_v2_lite":
-        if args.not_bert:
-            raise ValueError("--not_bert takes the GRU text branch; it does "
-                             "not go with --text_encoder deepseek_v2_lite")
-        return DeepseekV2Config.tiny() if args.smoke else DeepseekV2Config()
-    return BertConfig.tiny() if args.smoke else BertConfig()
+    name = getattr(args, "text_encoder", "bert")
+    tower = TOWERS[name]
+    if tower.decoder and args.not_bert:
+        raise ValueError(f"--not_bert takes the GRU text branch; it does "
+                         f"not go with --text_encoder {name}")
+    return tower.config.tiny() if args.smoke else tower.config()
 
 
 def build_configs(args):
@@ -267,12 +272,14 @@ def build_datasets(args, device=None):
     from creamfl_tpu_torch.data import pipelines
     from creamfl_tpu_torch.data.tokenize import (BertWordPieceTokenizer,
                                                  SyntheticLMTokenizer)
+    from creamfl_tpu_torch.models.towers import TOWERS
 
-    deepseek = getattr(args, "text_encoder", "bert") == "deepseek_v2_lite"
-    if deepseek and not args.synthetic:
-        raise ValueError("--text_encoder deepseek_v2_lite reads captions "
-                         "through DeepSeek's BPE, whose tokenizer.json is "
-                         "not in the repository: add --synthetic")
+    name = getattr(args, "text_encoder", "bert")
+    decoder = TOWERS[name].decoder
+    if decoder and not args.synthetic:
+        raise ValueError(f"--text_encoder {name} reads captions through "
+                         f"the model's own tokenizer, whose tokenizer.json "
+                         f"is not in the repository: add --synthetic")
     if not args.synthetic:
         try:
             home = os.environ.get('HOME', '.')
@@ -291,7 +298,7 @@ def build_datasets(args, device=None):
                   f"falling back to --synthetic")
     if args.not_bert:
         bert_tok = None
-    elif deepseek:
+    elif decoder:
         cfg = text_config(args)
         bert_tok = SyntheticLMTokenizer(cfg.bos_token_id, cfg.eos_token_id)
     else:

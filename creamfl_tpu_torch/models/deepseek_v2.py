@@ -32,16 +32,11 @@ loss (``seq_aux``) is computed in training and returned beside the hidden
 states; the server adds it to its loss.
 
 The layer holds the experts ``experts_held`` of the config and routes over
-all of them: its routed part is what the held experts give for the pairs
-routed to them, and the absent experts add nothing (expert parallelism's
-share, without its exchange). The routing never reads a count to the host:
-the token-expert pairs are sorted by held expert (the absent ones last),
-the group ends come from ``searchsorted`` on the device, and one grouped
-product per projection (``torch._grouped_mm``) computes the held groups.
-Every buffer is sized for the worst case (all of a token's picks held), the
-rows past the held groups are never computed, and ``torch.where`` keeps
-them out of the results and the gradients. So a step can be captured in a
-CUDA graph and replayed, and an eager step dispatches without a wait.
+all of them (``models/moe.py``'s ``HeldExperts`` and ``Combine``, which the
+Granite-4.0-H tower shares): its routed part is what the held experts give
+for the pairs routed to them, and the absent experts add nothing. The
+routing plan is made on the device, with no count read to the host, and
+one grouped product a projection computes the held groups.
 
 Compute dtype: the weights are float32; under the PCME encoder's bf16
 autocast the projections and the grouped products run in bf16, the router,
@@ -69,6 +64,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from creamfl_tpu_torch.models.moe import Combine, HeldExperts
 from creamfl_tpu_torch.utils import profiling
 
 
@@ -224,6 +220,13 @@ class MLP(nn.Module):
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
 
+    def in_weights(self):
+        """As a held expert (``models/moe.py``): [gate; up]'s rows."""
+        return self.gate_proj.weight, self.up_proj.weight
+
+    def out_weight(self) -> torch.Tensor:
+        return self.down_proj.weight
+
 
 class Attention(nn.Module):
     """MLA without query compression (module docstring)."""
@@ -263,24 +266,6 @@ class Attention(nn.Module):
         return self.o_proj(ctx.reshape(b, l, nh * self.v_dim))
 
 
-def _compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """The autocast dtype where autocast is on for ``x``'s device, else
-    ``x``'s own."""
-    kind = x.device.type
-    if torch.is_autocast_enabled(kind):
-        return torch.get_autocast_dtype(kind)
-    return x.dtype
-
-
-def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
-               ) -> torch.Tensor:
-    """``x`` [P, K] with rows grouped in order; ``w`` [G, N, K], a
-    projection's weight per group; ``ends`` [G] int32, each group's end
-    row. Rows from ``ends[-1]`` on are not computed: their values are
-    undefined."""
-    return torch._grouped_mm(x, w.transpose(-2, -1), offs=ends)
-
-
 class MoEGate(nn.Module):
     """The router: float32 logits over every expert, softmax, greedy
     top-k; in training, the sequence-level balance loss."""
@@ -313,78 +298,13 @@ class MoEGate(nn.Module):
         return weights, idx, aux
 
 
-class HeldExperts(nn.ModuleDict):
-    """The experts held here, keyed by their global index (``experts.<e>``),
-    each a gated SiLU MLP. ``forward`` computes the held groups of a
-    routing plan with three grouped products."""
-
-    def __init__(self, cfg: DeepseekV2Config):
-        super().__init__({str(e): MLP(cfg.hidden_size,
-                                      cfg.moe_intermediate_size)
-                          for e in sorted(cfg.experts_held)})
-        held = sorted(cfg.experts_held)
-        if len(set(held)) != len(held) or not all(
-                0 <= e < cfg.n_routed_experts for e in held):
-            raise ValueError(f"experts_held {cfg.experts_held}: distinct "
-                             f"indices below {cfg.n_routed_experts}")
-        local = torch.full((cfg.n_routed_experts,), len(held),
-                           dtype=torch.long)
-        local[torch.tensor(held, dtype=torch.long)] = torch.arange(len(held))
-        self.register_buffer("local_of", local, persistent=False)
-
-    def plan(self, idx: torch.Tensor):
-        """The routing plan of ``idx`` [T, k], on the device: (the pair
-        (``t * k + j``) in each sorted row [P], each held group's end [G]
-        int32, the rows of held pairs [P] bool, each pair's sorted row
-        [P]); P = T x k, held pairs first, grouped by expert, the absent
-        experts' pairs last."""
-        flat = self.local_of[idx.reshape(-1)]
-        local, order = torch.sort(flat, stable=True)
-        held = torch.arange(len(self), device=idx.device)
-        ends = torch.searchsorted(local, held, right=True).to(torch.int32)
-        rows = torch.arange(flat.numel(), device=idx.device)
-        valid = rows < ends[-1]
-        sorted_row = torch.empty_like(order).scatter_(0, order, rows)
-        return order, ends, valid, sorted_row
-
-    def forward(self, h: torch.Tensor, order: torch.Tensor,
-                ends: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        """h [T, d]; the plan's order, ends and valid -> [P, d] in the
-        compute dtype: each held pair's expert output, 0 elsewhere. The
-        tokens are repeated k times and permuted into the sorted rows (a
-        gather with one source a row, so the gradient is summed without
-        atomics, the same in every run)."""
-        dtype = _compute_dtype(h)
-        experts = list(self.values())
-        width = experts[0].gate_proj.weight.shape[0]
-        w_in = torch.stack([w for e in experts for w in (
-            e.gate_proj.weight, e.up_proj.weight)]).to(dtype).view(
-                len(experts), 2 * width, -1)
-        w_out = torch.stack([e.down_proj.weight for e in experts]).to(dtype)
-        rows = valid[:, None]
-        t, d = h.shape
-        pairs = h.to(dtype).unsqueeze(1).expand(t, order.numel() // t, d)
-        x = torch.where(rows, pairs.reshape(-1, d).index_select(0, order), 0)
-        gate, up = grouped_mm(x, w_in, ends).split(width, dim=-1)
-        y = grouped_mm(F.silu(gate) * up, w_out, ends)
-        return torch.where(rows, y, 0)
-
-
-class Combine(nn.Module):
-    """Each token's routed output: its pairs' expert outputs (in sorted
-    rows) weighted by the router and summed, in float32."""
-
-    def forward(self, y: torch.Tensor, sorted_row: torch.Tensor,
-                weights: torch.Tensor) -> torch.Tensor:
-        t, k = weights.shape
-        pairs = y.index_select(0, sorted_row).view(t, k, -1).float()
-        return (pairs * weights.unsqueeze(-1)).sum(dim=1)
-
-
 class MoE(nn.Module):
     def __init__(self, cfg: DeepseekV2Config):
         super().__init__()
-        self.experts = HeldExperts(cfg)
+        self.experts = HeldExperts(
+            cfg.experts_held,
+            lambda: MLP(cfg.hidden_size, cfg.moe_intermediate_size),
+            cfg.n_routed_experts)
         self.gate = MoEGate(cfg)
         self.shared_experts = MLP(cfg.hidden_size, cfg.moe_intermediate_size
                                   * cfg.n_shared_experts)

@@ -10,9 +10,10 @@ Port of the JAX package's ``models/pcme.py`` (reference
   (``not_bert=True``: the mm clients, and the server under ``--not_bert``)
   word embedding -> masked BiGRU -> PIENet over the word embeddings -> L2
   norm, with ``--mlp_local``'s head after the norm, or (``bert_config`` a
-  ``DeepseekV2Config``: the server under ``--text_encoder
-  deepseek_v2_lite``) the DeepSeek-V2-Lite tower pooled at each caption's
-  last real token (``TextEncoderDeepseekV2``).
+  decoder tower's config: the server under ``--text_encoder
+  deepseek_v2_lite`` or ``granite_4_0_h_small``, ``models/towers.py``)
+  the decoder tower pooled at each caption's last real token
+  (``TextEncoderLM``).
 
 ``dtype=torch.bfloat16`` runs the trunk and the text tower under
 ``torch.autocast``
@@ -31,15 +32,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from creamfl_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
-from creamfl_tpu_torch.models.deepseek_v2 import (DeepseekV2Config,
-                                                  DeepseekV2Model,
-                                                  init_deepseek_v2)
+from creamfl_tpu_torch.models.bert import BertConfig, BertEncoder
 from creamfl_tpu_torch.models.gru import BiGRU, init_gru
 from creamfl_tpu_torch.models.pie import PIENet, init_pie
 from creamfl_tpu_torch.models.resnet import (BatchNorm, ResNetBackbone,
                                              global_avg_pool, init_parameters,
                                              resnet_feature_dim)
+from creamfl_tpu_torch.models.towers import tower_of
 from creamfl_tpu_torch.ops.l2norm import l2_normalize
 
 
@@ -150,22 +149,23 @@ class TextEncoderBert(nn.Module):
         return {"embedding": l2_normalize(self.linear(cls))}
 
 
-class TextEncoderDeepseekV2(nn.Module):
-    """The DeepSeek-V2-Lite tower (``models/deepseek_v2.py``) -> the final
-    hidden state at each caption's last real token (its EOS) -> fp32 ->
-    linear -> L2 norm.
+class TextEncoderLM(nn.Module):
+    """A decoder tower (DeepSeek-V2-Lite, ``models/deepseek_v2.py``, or
+    Granite-4.0-H, ``models/granite_h.py``; ``config`` picks it) -> the
+    final hidden state at each caption's last real token (its EOS) -> fp32
+    -> linear -> L2 norm.
 
     A departure from PCME's BERT branch, which pools at position 0 (CLS):
     position 0 of a causal tower sees nothing but itself, so the pooled
     state is the last one, which has seen the whole caption (the pooling of
     decoder towers in image-text models: E5-V, LLM2CLIP). In training the
-    output also carries the MoE layers' balance loss (``aux_loss``)."""
+    output also carries the tower's balance loss (``aux_loss``)."""
 
-    def __init__(self, embed_dim: int, config: DeepseekV2Config,
+    def __init__(self, embed_dim: int, config,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.model = DeepseekV2Model(config)
+        self.model = tower_of(config).model(config)
         self.linear = nn.Linear(config.hidden_size, embed_dim)
 
     def forward(self, input_ids: torch.Tensor,
@@ -179,15 +179,19 @@ class TextEncoderDeepseekV2(nn.Module):
                 "aux_loss": aux}
 
 
+# The DeepSeek-V2 tower's text branch, by its earlier name.
+TextEncoderDeepseekV2 = TextEncoderLM
+
+
 class PCME(nn.Module):
     """Joint embedding model; forward returns the reference's output dict.
 
     Fields mirror the JAX package's ``PCME``; ``not_bert=True`` takes the
     GRU text branch (``word_dim`` wide embeddings); otherwise
-    ``bert_config`` is the text tower's config, a ``BertConfig`` (BERT) or
-    a ``DeepseekV2Config`` (the DeepSeek-V2-Lite tower, whose balance loss
-    the output carries as ``aux_loss``). ``remat`` goes to the image trunk
-    (the JAX package's ``ImageEncoder.remat``)."""
+    ``bert_config`` is the text tower's config (``models/towers.py``): a
+    ``BertConfig`` (BERT) or a decoder tower's (``TextEncoderLM``, whose
+    balance loss the output carries as ``aux_loss``). ``remat`` goes to
+    the image trunk (the JAX package's ``ImageEncoder.remat``)."""
 
     def __init__(self, embed_dim: int = 256, cnn_type: str = "resnet18",
                  vocab_size: int = 11755, word_dim: int = 300,
@@ -204,9 +208,8 @@ class PCME(nn.Module):
         if not_bert:
             self.txt_enc = TextEncoderGRU(vocab_size, embed_dim, word_dim,
                                           mlp_local)
-        elif isinstance(bert_config, DeepseekV2Config):
-            self.txt_enc = TextEncoderDeepseekV2(embed_dim, bert_config,
-                                                 dtype=dtype)
+        elif tower_of(bert_config).decoder:
+            self.txt_enc = TextEncoderLM(embed_dim, bert_config, dtype=dtype)
         else:
             self.txt_enc = TextEncoderBert(embed_dim, bert_config,
                                            dtype=dtype)
@@ -250,12 +253,14 @@ def _length_mask(captions: torch.Tensor, lengths: torch.Tensor
 
 def init_pcme(model: PCME, generator: torch.Generator) -> None:
     """Seeded init: torchvision's for the trunk, xavier-uniform for the
-    image fc and PIE (zero biases), HF BERT's for the BERT text encoder;
-    xavier-uniform embeddings and torch's GRU init for the GRU branch;
-    torch's default for the remaining linear heads. The DeepSeek-V2 branch
-    draws the image encoder's first (``init_parameters`` over it alone),
-    then the tower's and its head's (``init_deepseek_v2``)."""
-    if isinstance(model.txt_enc, TextEncoderDeepseekV2):
+    image fc and PIE (zero biases), the text tower's own
+    (``models/towers.py``: HF BERT's for BERT); xavier-uniform embeddings
+    and torch's GRU init for the GRU branch; torch's default for the
+    remaining linear heads. A decoder tower's branch draws the image
+    encoder's first (``init_parameters`` over it alone), then the tower's
+    and its head's."""
+    tower = None if model.not_bert else tower_of(model.bert_config)
+    if tower is not None and tower.decoder:
         init_parameters(model.img_enc, generator)
     else:
         init_parameters(model, generator)
@@ -263,12 +268,10 @@ def init_pcme(model: PCME, generator: torch.Generator) -> None:
     nn.init.xavier_uniform_(img.fc.weight, generator=generator)
     nn.init.zeros_(img.fc.bias)
     init_pie(img.pie_net, generator)
-    if model.not_bert:
+    if tower is None:
         init_text_gru(model.txt_enc, generator)
-    elif isinstance(model.txt_enc, TextEncoderDeepseekV2):
-        init_deepseek_v2(model.txt_enc, generator)
     else:
-        init_bert(model.txt_enc.bert, generator)
+        tower.init(model.txt_enc, generator)
 
 
 def init_text_gru(module: nn.Module, generator: torch.Generator) -> None:

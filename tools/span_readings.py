@@ -25,6 +25,12 @@ recorder off and on, in turns. One JSON line per seed on standard output
   ``creamfl.engine.*`` span on the phase thread over all its idle seconds,
   %;
 - ``window_rebuilds``: ``graph.captures`` + ``ops.builds`` in the window;
+- ``mamba_host_share``: the ``creamfl.mamba.*`` spans' seconds on the
+  phase thread over the window's, %; ``mamba_device_share``: the device
+  seconds of the kernels launched in them over the profiled call's busy
+  seconds, % (the forward's: the backward runs on autograd's thread,
+  outside the spans; the benchmark's ``ssm_device_share`` reads both);
+  both absent without a Granite-4.0-H tower;
 - ``idle_split``: the call's idle seconds by the innermost span open on
   the phase thread ("" for none), and their sum against wall − busy;
 - ``device_by_span``, ``spans_a_step``, ``counters``; ``clock``: each span's
@@ -55,6 +61,7 @@ for _p in (BENCH, REPO):
 import run  # noqa: E402  (benchmark/run.py)
 
 ENGINE = "creamfl.engine."
+MAMBA = tuple(f"creamfl.mamba.{p}" for p in ("proj", "conv", "scan", "norm"))
 
 
 def _sync(dev) -> None:
@@ -64,10 +71,18 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _round_call(phase):
+    """The phase's call without a recording of its own: the decoder
+    towers' phases turn the recorder on inside their call (to count the
+    held experts' pairs), and here the recorder is this script's; their
+    base phase (``_BASE``, ``server_train``'s) makes the same call."""
+    return getattr(phase, "_BASE", phase).call
+
+
 def _timed_call(phase, st, n, dev) -> float:
     _sync(dev)
     t = time.perf_counter()
-    phase.call(st, n)
+    _round_call(phase)(st, n)
     _sync(dev)
     return time.perf_counter() - t
 
@@ -146,7 +161,7 @@ def readings(cell, seed: int, seconds: float, cost: int, smoke: bool):
         window_s = time.perf_counter() - t0
     steps = phase.steps_so_far(st) - first
     with profiling.recording() as call_snap:
-        events = _profile(lambda: phase.call(st, n), dev)
+        events = _profile(lambda: _round_call(phase)(st, n), dev)
     n += 1
     split = profiling.device_split(events, CALL_RANGE)
     trace = Trace(events) if dev.type == "cuda" else None
@@ -166,6 +181,7 @@ def readings(cell, seed: int, seconds: float, cost: int, smoke: bool):
     step_idle = sum(v for k, v in split.idle_s.items()
                     if k.startswith(ENGINE))
     counters = snap.counters
+    mamba_device = sum(split.device_s.get(s, 0.0) for s in MAMBA)
     out = {
         "seed": seed, "device": (torch.cuda.get_device_name(dev)
                                  if dev.type == "cuda" else "cpu"),
@@ -182,6 +198,11 @@ def readings(cell, seed: int, seconds: float, cost: int, smoke: bool):
         "idle_in_step_share": 100 * step_idle / idle if idle else None,
         "window_rebuilds": (counters.get("graph.captures", 0)
                             + counters.get("ops.builds", 0)),
+        "mamba_host_share": (100 * sum(snap.on_thread(s) for s in MAMBA)
+                             / window_s if "mamba.tokens" in counters
+                             else None),
+        "mamba_device_share": (100 * mamba_device / split.busy_s
+                               if mamba_device and split.busy_s else None),
         "wall_s": split.wall_s, "busy_s": split.busy_s,
         "idle_split": dict(sorted(split.idle_s.items())),
         "idle_split_sum": sum(split.idle_s.values()), "idle_s": idle,
